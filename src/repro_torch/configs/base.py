@@ -1,0 +1,136 @@
+"""ArchConfig — the port's copy of ``repro/configs/base.py``.
+
+The dataclass is copied field for field (the tests hold it equal to the
+JAX package's for every ported arch), so one config describes the same
+model in both packages.  Only the archs of the ported serving path are
+registered here: granite-8b (the serving arch) and qwen2-0.5b (the test
+arch).  ``attention_impl`` is mirrored for equality only: in the port the
+DEVICE of the tensors picks the paged-attention implementation (CUDA
+tensors always reach the hand-written kernels, CPU tensors the plain
+version), never this field.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0                  # 0 -> d_model // n_heads
+    # --- attention flavor --------------------------------------------------
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w) halves
+    causal: bool = True
+    # --- ffn ---------------------------------------------------------------
+    ffn_kind: str = "swiglu"         # swiglu | gelu
+    # --- MoE ---------------------------------------------------------------
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    ep_shards: int = 16
+    # --- SSM (mamba) --------------------------------------------------------
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    mamba_version: int = 0           # 0 none | 1 | 2
+    attn_every: int = 0
+    # --- encoder-decoder -----------------------------------------------------
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    # --- frontend ---------------------------------------------------------
+    embed_inputs: bool = True
+    # --- norms / numerics -------------------------------------------------
+    norm_kind: str = "rmsnorm"       # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    # --- implementation switches ------------------------------------------
+    attention_impl: str = "reference"     # mirrored only (see module doc)
+    pages_per_step: int = 1          # accepted by the paged kernels; does
+                                     # not change any result
+    prefill_chunk_tokens: int = 0    # prompt tokens per prefill-lane chunk
+                                     # (0 = auto: 2x the serving page size)
+    kv_dtype: str = "bf16"           # paged KV pools: "bf16" | "int8"
+    draft_arch: str = ""
+    attn_chunk_q: int = 1024
+    attn_chunk_kv: int = 1024
+    ssm_chunk: int = 256
+    remat: str = "block"
+    remat_group: int = 1
+    scan_layers: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // self.n_heads)
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @property
+    def kv_quantized(self) -> bool:
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
+                             f"got {self.kv_dtype!r}")
+        return self.kv_dtype == "int8"
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family variant for CPU smoke tests."""
+        scale = dict(
+            n_layers=min(self.n_layers, 2 if not self.attn_every
+                         else self.attn_every),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) or 1,
+            d_ff=128,
+            vocab_size=256,
+            d_head=16,
+            n_experts=min(self.n_experts, 4),
+            experts_per_token=min(self.experts_per_token, 2),
+            ep_shards=min(self.n_experts, 4) if self.n_experts else 16,
+            ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
+            ssm_head_dim=16,
+            encoder_layers=min(self.encoder_layers, 2),
+            mrope_sections=(4, 2, 2) if self.mrope_sections else (),
+            attn_chunk_q=32,
+            attn_chunk_kv=32,
+            ssm_chunk=16,
+            name=self.name + "-reduced",
+        )
+        return dataclasses.replace(self, **scale)
+
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def registry() -> Dict[str, ArchConfig]:
+    if not _REGISTRY:
+        import repro_torch.configs.granite_8b  # noqa: F401  (populates)
+        import repro_torch.configs.qwen2_0_5b  # noqa: F401
+    return _REGISTRY
+
+
+def get(name: str) -> ArchConfig:
+    reg = registry()
+    if name not in reg:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(reg)}")
+    return reg[name]

@@ -1,0 +1,268 @@
+// Shared body of the two paged-attention kernels (paged_decode.cu,
+// paged_prefill.cu): one thread block attends one (slot b, kv-head h) over
+// that slot's pages of a stacked (L, num_pages, page, KV, D) pool.
+//
+// The TPU kernels ran the logical blocks as the sequential minor axis of
+// the Pallas grid, carrying the online-softmax state in VMEM scratch
+// between grid steps.  Blocks on Hopper run in no order, so here the page
+// sweep is a loop inside the block and the state (row max m, row sum l,
+// accumulator acc) stays in shared memory and registers across it.
+//
+// Query rows are flattened t-major, as in prefill_paged.py: row r of a
+// (slot, kv-head) is query token r / G, head h*G + r % G, at absolute
+// position base + r / G.  A decode step is the case T = 1,
+// base = kv_len - 1, new_len = kv_len.  Rows are processed in tiles of
+// ROWS; each tile sweeps the pages in logical order j = 0, 1, ... with
+//
+//   s      = (q . k) * scale, masked to NEG_INF unless
+//            tpos <= qpos and tpos < new_len
+//   m_new  = max(m_prev, rowmax(s));  p = exp(s - m_new)
+//   corr   = exp(m_prev - m_new);     l = l * corr + rowsum(p)
+//   acc    = acc * corr + p @ v
+//
+// and finishes with out = acc / max(l, 1e-30), so a row that saw no live
+// position (an empty prefill slot, new_len == 0) comes out as exact
+// zeros, as the Pallas kernels' guarded finalize gives.  NEG_INF is the
+// finite -1e30 of the TPU kernels: a row whose first page is fully masked
+// for it takes p = 1 there, and the next live page cancels that through
+// corr = 0; with -inf that case would be NaN.
+//
+// Only logical blocks with j * page < new_len are visited (dead blocks'
+// table entries point at the null page 0 and are never read), and in a
+// tile whose last row sits at qpos_max only blocks with
+// j * page <= qpos_max: a later block is fully masked for every row of
+// the tile, and block 0 always holds position 0, which is live for every
+// row, so skipping it leaves m, l and acc exactly as visiting it would.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace paged {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 128;
+
+// dtype codes shared with the Python wrappers (kernels/build.py)
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+
+__device__ __forceinline__ void store_f32(float* p, size_t i, float x) {
+  p[i] = x;
+}
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, size_t i,
+                                          float x) {
+  p[i] = __float2bfloat16_rn(x);
+}
+
+__host__ __device__ __forceinline__ int imin(int a, int b) {
+  return a < b ? a : b;
+}
+
+struct Params {
+  void* out;               // same layout and dtype as q
+  const void* q;           // (B, T, H, D), contiguous
+  const void* k_pool;      // (L, num_pages, page, KV, D), contiguous
+  const void* v_pool;
+  const float* k_scale;    // (L, num_pages, page, KV) f32, int8 pools only
+  const float* v_scale;
+  const int* table;        // (B, NB) physical page ids
+  const int* lens_a;       // decode: kv_len (B,); prefill: base_len (B,)
+  const int* lens_b;       // prefill: new_len (B,); decode: unused
+  int T, H, KV, G;
+  int num_pages, page, NB, layer;
+  float scale;             // 1 / sqrt(D)
+};
+
+// Dynamic shared memory of one block, in bytes.
+inline size_t smem_bytes(int D, int rows, int page) {
+  size_t floats = (size_t)rows * D           // query tile
+                  + (size_t)page * (D + 1)   // K page (padded rows)
+                  + (size_t)page * D         // V page
+                  + (size_t)rows * page      // scores / probabilities
+                  + 3 * (size_t)rows;        // m, l, corr
+  return floats * sizeof(float);
+}
+
+template <typename QT, typename KVT, int D, int ROWS>
+__device__ void attend(const Params& p, int b, int h, int base, int new_len,
+                       float* smem) {
+  static_assert((ROWS * D) % kThreads == 0, "tile must split evenly");
+  constexpr int E = ROWS * D / kThreads;     // accumulator slots per thread
+  const int tid = threadIdx.x;
+  const int page = p.page;
+  float* qs = smem;                          // ROWS x D
+  float* ks = qs + ROWS * D;                 // page x (D + 1)
+  float* vs = ks + page * (D + 1);           // page x D
+  float* ss = vs + page * D;                 // ROWS x page
+  float* ms = ss + ROWS * page;              // ROWS
+  float* ls = ms + ROWS;                     // ROWS
+  float* cs = ls + ROWS;                     // ROWS
+
+  const QT* q = static_cast<const QT*>(p.q);
+  QT* out = static_cast<QT*>(p.out);
+  const KVT* kp = static_cast<const KVT*>(p.k_pool);
+  const KVT* vp = static_cast<const KVT*>(p.v_pool);
+  const int TG = p.T * p.G;
+  const int live_blocks =
+      new_len > 0 ? imin(p.NB, (new_len + page - 1) / page) : 0;
+
+  for (int r0 = 0; r0 < TG; r0 += ROWS) {
+    for (int e = tid; e < ROWS * D; e += kThreads) {
+      const int row = r0 + e / D;
+      float x = 0.f;                         // pad rows: zeros, never stored
+      if (row < TG) {
+        const int t = row / p.G, g = row % p.G;
+        x = to_f32(q[(((size_t)b * p.T + t) * p.H + (size_t)h * p.G + g)
+                         * D + e % D]);
+      }
+      qs[e] = x;
+    }
+    for (int r = tid; r < ROWS; r += kThreads) {
+      ms[r] = kNegInf;
+      ls[r] = 0.f;
+    }
+    float acc[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) acc[k] = 0.f;
+    const int qpos_max = base + (imin(r0 + ROWS, TG) - 1) / p.G;
+    const int n_blocks =
+        qpos_max < 0 ? 0 : imin(live_blocks, qpos_max / page + 1);
+    __syncthreads();
+
+    for (int j = 0; j < n_blocks; ++j) {
+      const size_t row0 =
+          ((size_t)p.layer * p.num_pages + p.table[(size_t)b * p.NB + j])
+          * page;                            // pool row of (layer, phys, 0)
+      for (int e = tid; e < page * D; e += kThreads) {
+        const int t = e / D, d = e % D;
+        const size_t idx = ((row0 + t) * p.KV + h) * D + d;
+        float kx = to_f32(kp[idx]);
+        float vx = to_f32(vp[idx]);
+        if (p.k_scale != nullptr) {          // int8: dequantize in f32
+          const size_t si = (row0 + t) * p.KV + h;
+          kx *= p.k_scale[si];
+          vx *= p.v_scale[si];
+        }
+        ks[t * (D + 1) + d] = kx;
+        vs[t * D + d] = vx;
+      }
+      __syncthreads();
+
+      for (int e = tid; e < ROWS * page; e += kThreads) {
+        const int r = e / page, t = e % page;
+        const float* qr = qs + r * D;
+        const float* kr = ks + t * (D + 1);
+        float dot[4] = {0.f, 0.f, 0.f, 0.f};  // 4 independent FMA chains
+#pragma unroll
+        for (int d = 0; d < D; d += 4) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dot[i] = fmaf(qr[d + i], kr[d + i], dot[i]);
+        }
+        const float s = (dot[0] + dot[1]) + (dot[2] + dot[3]);
+        const int tpos = j * page + t;
+        const int qpos = base + (r0 + r) / p.G;
+        ss[e] = (tpos <= qpos && tpos < new_len) ? s * p.scale : kNegInf;
+      }
+      __syncthreads();
+
+      for (int r = tid; r < ROWS; r += kThreads) {
+        float* sr = ss + r * page;
+        float mx = kNegInf;
+        for (int t = 0; t < page; ++t) mx = fmaxf(mx, sr[t]);
+        const float m_prev = ms[r];
+        const float m_new = fmaxf(m_prev, mx);
+        float sum = 0.f;
+        for (int t = 0; t < page; ++t) {
+          const float pt = expf(sr[t] - m_new);
+          sr[t] = pt;
+          sum += pt;
+        }
+        const float corr = expf(m_prev - m_new);
+        ls[r] = ls[r] * corr + sum;
+        ms[r] = m_new;
+        cs[r] = corr;
+      }
+      __syncthreads();
+
+      // acc = acc * corr + p @ v, with t outermost so that a thread's E
+      // accumulators are E independent FMA chains
+#pragma unroll
+      for (int k = 0; k < E; ++k) acc[k] *= cs[(tid + k * kThreads) / D];
+      for (int t = 0; t < page; ++t) {
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+          const int e = tid + k * kThreads;
+          acc[k] = fmaf(ss[(e / D) * page + t], vs[t * D + e % D], acc[k]);
+        }
+      }
+      __syncthreads();                       // before the next page lands
+    }
+
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int e = tid + k * kThreads;
+      const int r = e / D, d = e % D;
+      const int row = r0 + r;
+      if (row < TG) {
+        const int t = row / p.G, g = row % p.G;
+        store_f32(out,
+                  (((size_t)b * p.T + t) * p.H + (size_t)h * p.G + g) * D + d,
+                  acc[k] / fmaxf(ls[r], 1e-30f));
+      }
+    }
+    __syncthreads();                         // before the next tile's loads
+  }
+}
+
+// Launches kernel<QT, KVT, D> for the dtype codes and head dim given.
+// Returns cudaErrorInvalidValue for a combination no kernel was built
+// for (the Python wrapper refuses those before calling).
+#define PAGED_DISPATCH_D(QT, KVT)                                           \
+  switch (D) {                                                              \
+    case 16: return LAUNCH(QT, KVT, 16);                                    \
+    case 32: return LAUNCH(QT, KVT, 32);                                    \
+    case 64: return LAUNCH(QT, KVT, 64);                                    \
+    case 128: return LAUNCH(QT, KVT, 128);                                  \
+    default: return cudaErrorInvalidValue;                                  \
+  }
+
+#define PAGED_DISPATCH(q_dtype, kv_dtype)                                   \
+  if (q_dtype == paged::kF32 && kv_dtype == paged::kF32) {                  \
+    PAGED_DISPATCH_D(float, float)                                          \
+  }                                                                         \
+  if (q_dtype == paged::kF32 && kv_dtype == paged::kI8) {                   \
+    PAGED_DISPATCH_D(float, int8_t)                                         \
+  }                                                                         \
+  if (q_dtype == paged::kBF16 && kv_dtype == paged::kBF16) {                \
+    PAGED_DISPATCH_D(__nv_bfloat16, __nv_bfloat16)                          \
+  }                                                                         \
+  if (q_dtype == paged::kBF16 && kv_dtype == paged::kI8) {                  \
+    PAGED_DISPATCH_D(__nv_bfloat16, int8_t)                                 \
+  }                                                                         \
+  return cudaErrorInvalidValue;
+
+// Runs kernel<<<grid, kThreads, smem, stream>>>(p) after raising the
+// block's dynamic shared memory limit where it needs more than 48 KB.
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                   const Params& p) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace paged

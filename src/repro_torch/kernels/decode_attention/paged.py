@@ -1,0 +1,151 @@
+"""Paged single-token decode attention: the CUDA kernel
+``csrc/paged_decode.cu`` (replacing the Pallas kernel
+``repro/kernels/decode_attention/paged.py::paged_decode_attention_fwd``)
+and its wrapper.
+
+The wrapper takes the plain version (``ref.paged_decode_attention_ref``)
+only when every tensor lies on the CPU.  For CUDA tensors it checks the
+arguments, launches the kernel on the current stream, or raises — it
+never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.decode_attention.ref import (
+    paged_decode_attention_ref)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = Kernel("paged_decode_attention",
+                [_P] * 8 + [_I] * 10 + [_P])
+
+HEAD_DIMS = (16, 32, 64, 128)       # the head dims the kernels are built for
+SMEM_LIMIT = 232448                 # bytes of shared memory a block may use
+ROWS = {"decode": 8, "prefill": 64}  # query rows per tile (csrc kRows)
+
+
+def smem_bytes(D: int, rows: int, page: int) -> int:
+    """Dynamic shared memory of one block (csrc: paged::smem_bytes)."""
+    return 4 * (rows * D + page * (D + 1) + page * D + rows * page + 3 * rows)
+
+
+def on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
+def promote(k_pool, v_pool, k_scale, v_scale):
+    """A 4D single-layer pool (and its scales) becomes a 1-layer stack."""
+    if k_pool.ndim == 4:
+        k_pool, v_pool = k_pool[None], v_pool[None]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[None], v_scale[None]
+    return k_pool, v_pool, k_scale, v_scale
+
+
+def check_args(kind: str, q, k_pool, v_pool, block_table, lens,
+               layer: int, k_scale=None, v_scale=None
+               ) -> Tuple[int, ...]:
+    """Validate a kernel call: every tensor on q's CUDA device, and the
+    layout ``check_layout`` wants.  Returns (B, T, H, KV, D, num_pages,
+    page, NB).  Raises ValueError on anything the kernel does not take."""
+    tensors = [t for t in (q, k_pool, v_pool, block_table, *lens, k_scale,
+                           v_scale) if t is not None]
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{kind}: all tensors must lie on one CUDA device "
+                         f"(got {sorted({str(t.device) for t in tensors})})")
+    return check_layout(kind, q, k_pool, v_pool, block_table, lens, layer,
+                        k_scale, v_scale)
+
+
+def check_layout(kind: str, q, k_pool, v_pool, block_table, lens,
+                 layer: int, k_scale=None, v_scale=None
+                 ) -> Tuple[int, ...]:
+    """The device-independent part of ``check_args``: shapes, dtypes,
+    contiguity, head dim, layer range and shared memory."""
+    tensors = [q, k_pool, v_pool, block_table, *lens, k_scale, v_scale]
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{kind}: tensors must be contiguous")
+    if q.ndim != 4 or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{kind}: q must be (B, T, H, D) f32 or bf16, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    B, T, H, D = q.shape
+    if k_pool.ndim != 5 or k_pool.shape != v_pool.shape \
+            or k_pool.dtype != v_pool.dtype:
+        raise ValueError(f"{kind}: k/v pools must be equal "
+                         f"(L, num_pages, page, KV, D) stacks")
+    L, num_pages, page, KV, Dk = k_pool.shape
+    if Dk != D or H % KV:
+        raise ValueError(f"{kind}: pool (KV={KV}, D={Dk}) does not match "
+                         f"q (H={H}, D={D})")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{kind}: head dim {D} not in {HEAD_DIMS}")
+    quantized = k_pool.dtype == torch.int8
+    if not quantized and k_pool.dtype != q.dtype:
+        raise ValueError(f"{kind}: pool dtype {k_pool.dtype} must be q's "
+                         f"({q.dtype}) or int8")
+    if quantized != (k_scale is not None) or (k_scale is None) != \
+            (v_scale is None):
+        raise ValueError(f"{kind}: int8 pools need k_scale and v_scale, "
+                         f"other pools take none")
+    if quantized and any(s.shape != k_pool.shape[:4]
+                         or s.dtype != torch.float32
+                         for s in (k_scale, v_scale)):
+        raise ValueError(f"{kind}: scales must be f32 (L, num_pages, page, "
+                         f"KV)")
+    if block_table.ndim != 2 or block_table.shape[0] != B \
+            or block_table.dtype != torch.int32:
+        raise ValueError(f"{kind}: block_table must be (B, NB) int32")
+    for n in lens:
+        if n.shape != (B,) or n.dtype != torch.int32:
+            raise ValueError(f"{kind}: lengths must be (B,) int32")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"{kind}: layer {layer} outside [0, {L})")
+    if smem_bytes(D, ROWS[kind], page) > SMEM_LIMIT:
+        raise ValueError(f"{kind}: page {page} needs more shared memory "
+                         f"than a block has")
+    return B, T, H, KV, D, num_pages, page, block_table.shape[1]
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           kv_len: torch.Tensor, layer: int = 0, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           pages_per_step: int = 1) -> torch.Tensor:
+    """q (B, 1, H, D); k_pool, v_pool (L, num_pages, page, KV, D) stacked
+    pools (4D single-layer pools are promoted); block_table (B, NB) int32
+    physical page ids (0 = the null page); kv_len (B,) int32; layer — the
+    pool layer; k_scale, v_scale — (L, num_pages, page, KV) f32 row scales
+    of int8 pools; pages_per_step — accepted, changes nothing (see
+    csrc/paged_decode.cu).  Returns (B, 1, H, D) in q's dtype."""
+    if pages_per_step < 1:
+        raise ValueError("pages_per_step must be >= 1")
+    if on_cpu(q, k_pool, v_pool, block_table, kv_len, k_scale, v_scale):
+        return paged_decode_attention_ref(q, k_pool, v_pool, block_table,
+                                          kv_len, layer, k_scale, v_scale)
+    k_pool, v_pool, k_scale, v_scale = promote(k_pool, v_pool, k_scale,
+                                               v_scale)
+    B, T, H, KV, D, num_pages, page, NB = check_args(
+        "decode", q, k_pool, v_pool, block_table, (kv_len,), layer,
+        k_scale, v_scale)
+    if T != 1:
+        raise ValueError("paged decode takes one query token per slot")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        KERNEL(out.data_ptr(), q.data_ptr(), k_pool.data_ptr(),
+               v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
+               block_table.data_ptr(), kv_len.data_ptr(), B, H, KV, D,
+               num_pages, page, NB, int(layer), DTYPE_CODES[q.dtype],
+               DTYPE_CODES[k_pool.dtype],
+               torch.cuda.current_stream(q.device).cuda_stream)
+    return out

@@ -1,0 +1,108 @@
+"""Serving launcher of the port: the paged continuous-batching engine on
+one card.
+
+    python -m repro_torch.launch.serve                    # granite-8b, cuda
+    python -m repro_torch.launch.serve --local-smoke --device cpu
+
+Weights are random, drawn from a seeded ``torch.Generator`` on the device
+(nothing is downloaded).  The demo workload is the JAX launcher's: twice
+``--batch`` requests of a shared system prompt plus a short random tail,
+with staggered output budgets.  Prefix sharing, retention, preemption,
+deadlines, speculation, snapshots and int8 pools are not ported yet, so
+their flags are absent.
+"""
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--local-smoke", action="store_true",
+                    help="reduced config (same family, tiny dims)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=4,
+                    help="decode steps per engine tick")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=0,
+                    help="prompt tokens per prefill-lane chunk (0 = auto: "
+                         "2x --page-size)")
+    ap.add_argument("--pages-per-step", type=int, default=1,
+                    help="accepted by the paged kernels; changes no result")
+    ap.add_argument("--sys-prompt-tokens", type=int, default=16)
+    args = ap.parse_args()
+    if args.page_size < 1:
+        ap.error("--page-size must be >= 1 (tokens per KV page)")
+    if args.pages_per_step < 1:
+        ap.error("--pages-per-step must be >= 1")
+    if args.prefill_chunk_tokens < 0:
+        ap.error("--prefill-chunk-tokens must be >= 0 (0 = auto)")
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine, ServeConfig
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("[launch.serve] no CUDA device: the port serves on the card "
+              "(pass --device cpu to run the plain path on the CPU)",
+              file=sys.stderr)
+        return 2
+    device = torch.device(args.device)
+    cfg = configs.get(args.arch)
+    if args.local_smoke:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, pages_per_step=args.pages_per_step)
+    model = get_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = model.init(gen, device)
+    max_seq = max(64, args.sys_prompt_tokens + 8 + args.new_tokens
+                  + 2 * (args.batch - 1) + 16)
+    scfg = ServeConfig(max_batch=args.batch, max_seq=max_seq,
+                       max_new_tokens=args.new_tokens,
+                       temperature=args.temperature,
+                       page_size=args.page_size,
+                       prefill_chunk=args.prefill_chunk,
+                       prefill_chunk_tokens=args.prefill_chunk_tokens,
+                       prefix_sharing=False, retain_prefixes=False)
+    engine = PagedEngine(model, params, scfg)
+    rng = np.random.RandomState(0)
+    sys_prompt = rng.randint(0, cfg.vocab_size,
+                             size=args.sys_prompt_tokens).astype(np.int32)
+    rids = [engine.submit(
+        np.concatenate([sys_prompt,
+                        rng.randint(0, cfg.vocab_size,
+                                    size=rng.randint(2, 8)).astype(np.int32)]),
+        max_new_tokens=args.new_tokens + (i % args.batch) * 2)
+        for i in range(2 * args.batch)]
+    t0 = time.perf_counter()
+    results = engine.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(results[r]) for r in rids)
+    bad = [r for r in rids if not all(0 <= t < cfg.vocab_size
+                                      for t in results[r])]
+    if bad:
+        print(f"[launch.serve] out-of-vocab tokens in requests {bad}",
+              file=sys.stderr)
+        return 1
+    print(f"[launch.serve] {cfg.name} on {device}: {len(results)} requests, "
+          f"{n_tok} tokens, {engine.joins} joins over {args.batch} slots "
+          f"in {engine.steps_run} ticks, {dt:.2f} s "
+          f"({n_tok / dt:.1f} tokens/s, host clock)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

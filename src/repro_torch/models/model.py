@@ -1,0 +1,102 @@
+"""Model facade for the paged serving path — port of the paged subset of
+``repro/models/model.py``.
+
+``Model(cfg)`` exposes init, the paged cache and the paged steps.  The
+JAX cells are ``lax.scan``s jitted with donated caches; here they are
+Python loops over steps, updating the cache in place, with sampling on
+the device.  Randomness comes from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.params import init_from_schema, init_params
+
+
+def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
+                 temperature: float) -> torch.Tensor:
+    """Greedy (temperature 0) or temperature sampling: (B, V) -> (B,)
+    int32.  The one sampler of the fused decode loop, the prefill lane
+    and the engine, so the three consume the generator identically."""
+    if temperature > 0:
+        probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+        # exponential race: argmax p / E with E ~ Exp(1) draws from p
+        race = torch.empty_like(probs).exponential_(generator=generator)
+        tok = torch.argmax(probs / race, dim=-1)
+    else:
+        tok = torch.argmax(logits, dim=-1)
+    return tok.to(torch.int32)
+
+
+@dataclasses.dataclass
+class Model:
+    """``plain_attention=True`` routes the paged attention through the
+    plain PyTorch versions on every device: the reference the kernel path
+    is held against on the card.  Serving leaves it False."""
+    cfg: ArchConfig
+    plain_attention: bool = False
+
+    def init(self, generator: torch.Generator, device="cuda"):
+        return init_params(self.cfg, generator, device)
+
+    def init_paged_cache(self, batch: int, max_blocks: int, page_size: int,
+                         num_pages: int, device="cuda") -> Dict[str, Any]:
+        return init_from_schema(
+            T.paged_cache_decls(self.cfg, batch, max_blocks, page_size,
+                                num_pages),
+            None, device, self.cfg.param_dtype)
+
+    def decode_step_paged(self, params, tokens, cache, active=None):
+        """One non-lockstep decode step: tokens (B, 1); active (B,) bool
+        (None: every slot).  Returns (logits (B, V), cache)."""
+        if active is None:
+            active = torch.ones(tokens.shape[0], dtype=torch.bool,
+                                device=tokens.device)
+        return T.lm_decode_paged(params, self.cfg, tokens, cache, active,
+                                 self.plain_attention)
+
+    def prefill_step_paged(self, params, tokens, cache, grants):
+        """One ragged prefill chunk: tokens (B, T), grants (B,) int32.
+        Returns (logits (B, V) at each slot's last granted position,
+        cache)."""
+        return T.lm_prefill_paged(params, self.cfg, tokens, cache, grants,
+                                  self.plain_attention)
+
+    def prefill_many_paged(self, params, tokens, cache, generator, grants,
+                           *, temperature: float = 0.0):
+        """The engine's prefill-lane cell: one ``prefill_step_paged`` and
+        the one token it samples per slot (the next prompt token's
+        prediction, discarded, or the first output when the grant drains
+        the prompt).  Returns (next_tok (B,) int32, cache)."""
+        logits, cache = self.prefill_step_paged(params, tokens, cache,
+                                                grants)
+        return sample_token(logits, generator, temperature), cache
+
+    def decode_many_paged(self, params, tokens, cache, generator, steps,
+                          *, num_steps: int, temperature: float = 0.0):
+        """``num_steps`` decode steps with sampling on the device: tokens
+        (B, 1) — each slot's last token; steps (B,) int — slot i is active
+        for its first steps[i] steps (the per-step mask is built on the
+        device).  An inactive slot writes the null page, does not advance,
+        and re-emits its last token.  Returns (tokens (num_steps, B) int32,
+        cache)."""
+        steps = steps.to(tokens.device)
+        tok = tokens[:, 0].to(torch.int32)
+        out = []
+        for s in range(num_steps):
+            act = steps > s
+            logits, cache = self.decode_step_paged(params, tok[:, None],
+                                                   cache, act)
+            nxt = sample_token(logits, generator, temperature)
+            tok = torch.where(act, nxt, tok)
+            out.append(tok)
+        return torch.stack(out), cache
+
+
+def get_model(cfg: ArchConfig, plain_attention: bool = False) -> Model:
+    return Model(cfg, plain_attention)

@@ -1,0 +1,291 @@
+"""The paged decoder-only LM: schema, the two paged attention paths
+(decode and ragged prefill), the dense FFN and the paged forward passes.
+
+Port of the dense paged subset of ``repro/models/transformer.py``.  The
+``lax.scan`` over stacked layers becomes a Python loop over the layer
+index; the pools are updated IN PLACE (``index_put_``) where the JAX
+functions return updated copies, so the returned cache holds the same
+pool tensors it was given.  Sharding constraints have no counterpart on
+one card and are dropped.
+
+Attention: ``plain=False`` (the default, and the serving path) calls the
+kernel wrappers, which launch the CUDA kernels for CUDA tensors and run
+the plain version for CPU tensors.  ``plain=True`` calls the plain
+versions on any device — the reference that ``chip_smoke.py`` holds the
+kernel path against on the card.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention import (
+    paged_decode_attention, paged_prefill_attention)
+from repro_torch.kernels.decode_attention.ref import (
+    paged_decode_attention_ref, paged_prefill_attention_ref)
+from repro_torch.models.kv_quant import quantize_rows
+from repro_torch.models.layers import (
+    apply_rope, dense, embed, rmsnorm, rope_angles, swiglu, unembed)
+from repro_torch.models.params import ParamDecl, map_schema, stacked
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.mamba_version or cfg.is_encoder_decoder:
+        raise ValueError("paged serving requires a decoder-only attention "
+                         "LM (per-slot page tables)")
+    for what, unsupported in (("MoE", cfg.n_experts),
+                              ("M-RoPE", cfg.mrope_sections),
+                              ("layernorm", cfg.norm_kind != "rmsnorm"),
+                              ("the gelu FFN", cfg.ffn_kind != "swiglu"),
+                              ("stub-frontend inputs", not cfg.embed_inputs)):
+        if unsupported:
+            raise NotImplementedError(f"{what} is not ported yet "
+                                      f"({cfg.name})")
+
+
+# ---------------------------------------------------------------------------
+# schema
+# ---------------------------------------------------------------------------
+
+def _norm_decl(d: int) -> Dict[str, ParamDecl]:
+    return {"scale": ParamDecl((d,), "ones"), "bias": ParamDecl((d,), "zeros")}
+
+
+def _attn_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
+    d, hd = cfg.d_model, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    decls = {
+        "wq": ParamDecl((d, H * hd)),
+        "wk": ParamDecl((d, KV * hd)),
+        "wv": ParamDecl((d, KV * hd)),
+        "wo": ParamDecl((H * hd, d)),
+    }
+    if cfg.qkv_bias:
+        decls["bq"] = ParamDecl((H * hd,), "zeros")
+        decls["bk"] = ParamDecl((KV * hd,), "zeros")
+        decls["bv"] = ParamDecl((KV * hd,), "zeros")
+    return decls
+
+
+def _ffn_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"w_gate": ParamDecl((d, ff)), "w_up": ParamDecl((d, ff)),
+            "w_down": ParamDecl((ff, d))}
+
+
+def schema(cfg: ArchConfig) -> Dict[str, Any]:
+    """The parameter tree of a dense decoder-only LM, leaf for leaf the
+    JAX package's ``schema`` (stacked (L, ...) block parameters)."""
+    _check_supported(cfg)
+    d, V = cfg.d_model, cfg.vocab_size
+    sch: Dict[str, Any] = {"embed": ParamDecl((V, d), "embed")}
+    if not cfg.tie_embeddings:
+        sch["unembed"] = ParamDecl((V, d), "embed")
+    sch["ln_f"] = _norm_decl(d)
+    block = {"ln1": _norm_decl(d), "ln2": _norm_decl(d),
+             "attn": _attn_decls(cfg), "ffn": _ffn_decls(cfg)}
+    sch["blocks"] = map_schema(lambda x: stacked(x, cfg.n_layers), block)
+    return sch
+
+
+def paged_cache_decls(cfg: ArchConfig, batch: int, max_blocks: int,
+                      page_size: int, num_pages: int) -> Dict[str, Any]:
+    """Paged decode cache: (L, num_pages, page, KV, hd) k/v pools (page 0
+    is the null page), a (batch, max_blocks) int32 block table and (batch,)
+    int32 lengths.  int8 pools add (L, num_pages, page, KV) f32 scales."""
+    _check_supported(cfg)
+    hd, KV, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
+    pool_dt = torch.int8 if cfg.kv_quantized else cfg.param_dtype
+    decls = {
+        "k": ParamDecl((L, num_pages, page_size, KV, hd), "zeros", pool_dt),
+        "v": ParamDecl((L, num_pages, page_size, KV, hd), "zeros", pool_dt),
+        "table": ParamDecl((batch, max_blocks), "zeros", torch.int32),
+        "length": ParamDecl((batch,), "zeros", torch.int32),
+    }
+    if cfg.kv_quantized:
+        for name in ("k_scale", "v_scale"):
+            decls[name] = ParamDecl((L, num_pages, page_size, KV), "zeros",
+                                    torch.float32)
+    return decls
+
+
+def layer_params(blocks, li: int):
+    """Layer ``li``'s slice (views) of the stacked block parameters."""
+    if isinstance(blocks, torch.Tensor):
+        return blocks[li]
+    return {k: layer_params(v, li) for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# attention block application
+# ---------------------------------------------------------------------------
+
+def _rope(cfg: ArchConfig, positions) -> Optional[Tuple]:
+    if not cfg.rope_theta:
+        return None
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _qkv(hn, p, cfg: ArchConfig, rope):
+    B, S, _ = hn.shape
+    hd = cfg.head_dim
+    q = dense(hn, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, hd)
+    k = dense(hn, p["wk"], p.get("bk")).reshape(B, S, cfg.n_kv_heads, hd)
+    v = dense(hn, p["wv"], p.get("bv")).reshape(B, S, cfg.n_kv_heads, hd)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _write_rows(cache, layer: int, phys, off, k, v) -> None:
+    """Scatter K/V rows (n, KV, hd) to (layer, phys[i], off[i]) in place;
+    int8 pools store the quantized rows and their scales at the same
+    address."""
+    if "k_scale" in cache:
+        kq, ks = quantize_rows(k)
+        vq, vs = quantize_rows(v)
+        cache["k"][layer, phys, off] = kq
+        cache["v"][layer, phys, off] = vq
+        cache["k_scale"][layer, phys, off] = ks
+        cache["v_scale"][layer, phys, off] = vs
+    else:
+        cache["k"][layer, phys, off] = k.to(cache["k"].dtype)
+        cache["v"][layer, phys, off] = v.to(cache["v"].dtype)
+
+
+def attn_decode_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
+                      lengths, active, plain: bool = False):
+    """Decode over the paged pool: h (B, 1, d); cache holds the stacked
+    pools, "table" (B, max_blocks) and the lengths (B,) int32; active (B,)
+    bool.  Appends this step's K/V at each slot's own position (page
+    ``table[b, lengths[b] // page]``, row ``lengths[b] % page``; inactive
+    slots write the null page 0) and attends positions [0, lengths[b]]."""
+    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    a = p["attn"]
+    q, k, v = _qkv(hn, a, cfg, rope)
+    B = h.shape[0]
+    table = cache["table"]
+    page, nb = cache["k"].shape[2], table.shape[1]
+    blk = torch.clamp(lengths // page, max=nb - 1).long()
+    rows = torch.arange(B, device=h.device)
+    phys = torch.where(active, table[rows, blk], 0).long()
+    off = (lengths % page).long()
+    _write_rows(cache, layer, phys, off, k[:, 0], v[:, 0])
+    kv_len = lengths + 1
+    attend = paged_decode_attention_ref if plain else paged_decode_attention
+    kw = {} if plain else {"pages_per_step": cfg.pages_per_step}
+    out = attend(q, cache["k"], cache["v"], table, kv_len, layer,
+                 k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                 **kw)
+    return dense(out.reshape(B, 1, -1), a["wo"])
+
+
+def attn_prefill_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
+                       base, new_len, plain: bool = False):
+    """Ragged chunked prefill over the paged pool: h (B, T, d); base (B,)
+    tokens resident before the chunk; new_len (B,) = base + granted
+    tokens.  Scatters all the chunk's granted K/V rows (rows past the
+    grant land on the null page), then attends causally: row t sees
+    positions <= base[b] + t and < new_len[b]."""
+    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    a = p["attn"]
+    q, k, v = _qkv(hn, a, cfg, rope)
+    B, T, _ = h.shape
+    table = cache["table"]
+    page, nb = cache["k"].shape[2], table.shape[1]
+    tok_pos = base[:, None] + torch.arange(T, dtype=torch.int32,
+                                           device=h.device)[None, :]
+    blk = torch.clamp(tok_pos // page, max=nb - 1).long()
+    live = tok_pos < new_len[:, None]
+    phys = torch.where(live, torch.gather(table, 1, blk), 0).reshape(B * T)
+    off = (tok_pos % page).reshape(B * T)
+    KV, hd = k.shape[2], k.shape[3]
+    _write_rows(cache, layer, phys.long(), off.long(),
+                k.reshape(B * T, KV, hd), v.reshape(B * T, KV, hd))
+    attend = paged_prefill_attention_ref if plain else paged_prefill_attention
+    kw = {} if plain else {"pages_per_step": cfg.pages_per_step}
+    out = attend(q, cache["k"], cache["v"], table, base, new_len, layer,
+                 k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                 **kw)
+    return dense(out.reshape(B, T, -1), a["wo"])
+
+
+def ffn_apply(h, p, cfg: ArchConfig):
+    hn = rmsnorm(h, p["ln2"]["scale"], cfg.norm_eps)
+    f = p["ffn"]
+    return swiglu(hn, f["w_gate"], f["w_up"], f["w_down"])
+
+
+def decode_ffn(h, p, cfg: ArchConfig):
+    """The post-attention residual of a decode or prefill step (dense FFN;
+    MoE is not ported yet)."""
+    if cfg.n_experts:
+        raise NotImplementedError("MoE decode FFN is not ported yet")
+    return h + ffn_apply(h, p, cfg)
+
+
+def _embed_in(params, cfg: ArchConfig, tokens):
+    return embed(tokens, params["embed"]).to(cfg.param_dtype)
+
+
+def _logits_exact(params, cfg: ArchConfig, h):
+    """f32 unembed for the positions whose logits decide a token."""
+    h = rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return unembed(h.to(torch.float32), table.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# paged forward passes
+# ---------------------------------------------------------------------------
+
+def lm_decode_paged(params, cfg: ArchConfig, tokens, cache, active,
+                    plain: bool = False):
+    """tokens (B, 1) int; cache {"k"/"v" pools, "table", "length"};
+    active (B,) bool.  Every slot advances at its own length (rope
+    positions are request-relative); inactive slots write only the null
+    page and do not advance.  Returns (logits (B, V) f32, cache) — the
+    pools updated in place, "length" advanced by ``active``."""
+    _check_supported(cfg)
+    lengths = cache["length"]
+    rope = _rope(cfg, lengths[:, None])
+    h = _embed_in(params, cfg, tokens)
+    for li in range(cfg.n_layers):
+        p = layer_params(params["blocks"], li)
+        h = h + attn_decode_paged(h, p, cfg, rope, cache, li, lengths,
+                                  active, plain)
+        h = decode_ffn(h, p, cfg)
+    cache["length"] = lengths + active.to(torch.int32)
+    return _logits_exact(params, cfg, h)[:, 0], cache
+
+
+def lm_prefill_paged(params, cfg: ArchConfig, tokens, cache, grants,
+                     plain: bool = False):
+    """Ragged multi-token paged prefill: tokens (B, T) int — each slot's
+    next prompt chunk (row i's first ``grants[i]`` entries are real);
+    grants (B,) int32 (0 = slot idle).  Returns (logits (B, V) f32 at each
+    slot's last granted position, cache) — the pools updated in place,
+    "length" advanced by ``grants``."""
+    _check_supported(cfg)
+    lengths = cache["length"]
+    B, T = tokens.shape
+    grants = grants.to(torch.int32)
+    new_len = lengths + grants
+    positions = lengths[:, None] + torch.arange(
+        T, dtype=torch.int32, device=tokens.device)[None, :]
+    rope = _rope(cfg, positions)
+    h = _embed_in(params, cfg, tokens)
+    for li in range(cfg.n_layers):
+        p = layer_params(params["blocks"], li)
+        h = h + attn_prefill_paged(h, p, cfg, rope, cache, li, lengths,
+                                   new_len, plain)
+        h = decode_ffn(h, p, cfg)
+    cache["length"] = new_len
+    # last granted position per slot (grants == 0 -> row 0; caller ignores)
+    last = torch.clamp(grants - 1, min=0).long()
+    h_last = h[torch.arange(B, device=h.device), last][:, None]
+    return _logits_exact(params, cfg, h_last)[:, 0], cache

@@ -1,0 +1,336 @@
+"""The paged continuous-batching engine — port of
+``repro/serve/engine.py::PagedEngine`` (prefill lane plus the plain decode
+twin).
+
+Each tick: admit queued requests into free slots, let the
+``TickScheduler`` grant per-slot work over the ``PagedKVCache``, patch the
+device copies of the block table and lengths at the rows that changed,
+then run at most two steps on the device — one ragged prefill chunk
+(``Model.prefill_many_paged``) for slots with prompt left, and the decode
+loop (``Model.decode_many_paged``, up to ``prefill_chunk`` steps under
+the per-slot grants) for generating slots — and do the request bookkeeping on
+the host.  The JAX package's donated ``jax.jit`` cells become in-place
+torch calls on the engine's device (the device of the parameters).
+
+Not ported yet, and refused with ``NotImplementedError`` where a config
+asks for them: prefix sharing and retention, preemption, deadlines,
+bounded queues, fault injection, speculation, snapshots, the
+prefill-by-decode lane, int8 pools in the engine, and a pool smaller than
+every slot's full table.  With the pool sized to fit every slot no tick
+can need preemption; if one ever does, the engine raises instead of
+stalling.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model
+from repro_torch.serve.cache import PagedKVCache
+from repro_torch.serve.scheduler import TickScheduler
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """The JAX package's ``ServeConfig``, field for field, with its
+    defaults.  ``PagedEngine`` refuses the features this port lacks (see
+    the module docstring), so callers set ``prefix_sharing=False`` and
+    ``retain_prefixes=False``."""
+    max_batch: int = 4
+    max_seq: int = 128
+    max_new_tokens: int = 16
+    temperature: float = 0.0          # 0 = greedy
+    seed: int = 0
+    eos_id: int = -1                  # < 0: no stop condition
+    pad_id: int = 0
+    fused: bool = True                # whole-batch engine only
+    page_size: int = 16
+    max_blocks: int = 0               # 0: ceil(max_seq / page_size)
+    num_pages: int = 0                # 0: fit every slot's full table
+    prefill_chunk: int = 4            # decode steps per tick
+    prefill_lane: bool = True
+    prefill_chunk_tokens: int = 0     # 0: ArchConfig's, then 2 x page_size
+    prefix_sharing: bool = True
+    share_min_tokens: int = 1
+    retain_prefixes: bool = True
+    retain_pool_pages: int = 0
+    retain_policy: str = "lru"
+    fairness: str = "least-served"
+    tick_budget: int = 0
+    trace_pool: bool = True
+    trace_ticks: bool = True
+    preempt: bool = True
+    preempt_policy: str = "fewest-tokens"
+    max_queue: int = 0
+    deadline_ticks: int = 0
+    quarantine_ticks: int = 2
+    wedge_ticks: int = 10_000
+    snapshot_every_ticks: int = 0
+    snapshot_dir: str = ""
+    snapshot_keep: int = 2
+    spec_k: int = 0
+
+
+class RequestStatus(enum.Enum):
+    QUEUED = "queued"
+    RUNNING = "running"
+    FINISHED = "finished"
+    PREEMPTED_RESUMED = "preempted_resumed"
+    REJECTED = "rejected"
+    CANCELLED = "cancelled"
+    DEADLINE_EXCEEDED = "deadline_exceeded"
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                # (S,) int32
+    max_new_tokens: int
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One schedulable slot: ``forced`` holds the prompt tokens queued
+    behind the feed token; ``prompt_left`` counts prompt tokens not yet
+    appended (the scheduler's lane selector); ``served`` counts tokens
+    appended (the fairness key)."""
+    rid: int = -1
+    forced: List[int] = dataclasses.field(default_factory=list)
+    out: List[int] = dataclasses.field(default_factory=list)
+    budget: int = 0
+    served: int = 0
+    prompt_left: int = 0
+    active: bool = False
+
+
+def _refuse_unported(cfg: ServeConfig, model: Model, full_pool: int) -> None:
+    asks = {
+        "prefix_sharing": cfg.prefix_sharing,
+        "retain_prefixes": cfg.retain_prefixes,
+        "spec_k": cfg.spec_k > 0,
+        "snapshot_every_ticks": cfg.snapshot_every_ticks > 0,
+        "prefill_lane=False": not cfg.prefill_lane,
+        "kv_dtype='int8'": model.cfg.kv_quantized,
+        "deadline_ticks": cfg.deadline_ticks > 0,
+        "max_queue": cfg.max_queue > 0,
+        "num_pages below every slot's full table":
+            0 < cfg.num_pages < full_pool,
+    }
+    missing = [name for name, on in asks.items() if on]
+    if missing:
+        raise NotImplementedError(
+            f"PagedEngine (PyTorch port) does not implement "
+            f"{', '.join(missing)} yet")
+
+
+class PagedEngine:
+    """Non-lockstep continuous batching over the paged KV cache (see the
+    module docstring).  Every slot advances at its own position on its
+    own pages, so a request admitted mid-flight starts at position 0 and
+    its greedy output equals a fresh single-request run."""
+
+    def __init__(self, model: Model, params, cfg: ServeConfig):
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        B = cfg.max_batch
+        max_blocks = cfg.max_blocks or -(-cfg.max_seq // cfg.page_size)
+        _refuse_unported(cfg, model, B * max_blocks + 1)
+        self.device = params["embed"].device
+        self._chunk = max(1, cfg.prefill_chunk)
+        self._chunk_tokens = (cfg.prefill_chunk_tokens
+                              or model.cfg.prefill_chunk_tokens
+                              or 2 * cfg.page_size)
+        self.kv = PagedKVCache(model, B, cfg.max_seq,
+                               page_size=cfg.page_size,
+                               max_blocks=cfg.max_blocks,
+                               num_pages=cfg.num_pages, device=self.device)
+        # device copies of the block table and lengths, patched at the
+        # rows the cache marks dirty
+        self._table_dev = torch.zeros((B, self.kv.max_blocks),
+                                      dtype=torch.int32, device=self.device)
+        self._length_dev = torch.zeros((B,), dtype=torch.int32,
+                                       device=self.device)
+        self.kv.dirty.clear()            # mirrors start in sync (all zero)
+        self.scheduler = TickScheduler(fairness=cfg.fairness,
+                                       tick_budget=cfg.tick_budget)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+        self.slots = [_Slot() for _ in range(B)]
+        self.queue: List[Request] = []
+        self.results: Dict[int, List[int]] = {}
+        self.status: Dict[int, RequestStatus] = {}
+        self.reject_reason: Dict[int, str] = {}
+        self._feed = np.full((B,), cfg.pad_id, np.int32)
+        self._next_rid = 0
+        self.ticks = 0                    # step() calls
+        self.steps_run = 0                # ticks that ran device work
+        self.joins = 0
+        self.rejected = 0
+
+    # -- request lifecycle ----------------------------------------------
+
+    def _admissible(self, prompt: np.ndarray, mnt: int) -> Optional[str]:
+        total = int(prompt.size) + mnt
+        blocks = -(-total // self.kv.page)
+        if blocks > self.kv.max_blocks:
+            return (f"prompt+output needs {blocks} blocks > max_blocks="
+                    f"{self.kv.max_blocks} (max_seq={self.cfg.max_seq})")
+        return None
+
+    def submit(self, prompt: np.ndarray,
+               max_new_tokens: Optional[int] = None) -> int:
+        """Queue a request; one that can never fit a slot's block table
+        gets a ``REJECTED`` status (reason in ``reject_reason[rid]``)."""
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.size == 0:
+            raise ValueError("empty prompt: a slot needs at least one "
+                             "token to feed the decode step")
+        rid = self._next_rid
+        self._next_rid += 1
+        mnt = max_new_tokens or self.cfg.max_new_tokens
+        reason = self._admissible(prompt, mnt)
+        if reason is not None:
+            self.status[rid] = RequestStatus.REJECTED
+            self.reject_reason[rid] = reason
+            self.results[rid] = []
+            self.rejected += 1
+            return rid
+        self.status[rid] = RequestStatus.QUEUED
+        self.queue.append(Request(rid, prompt, mnt))
+        return rid
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.queue) or any(s.active for s in self.slots)
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain queue and slots; returns {rid: generated tokens}."""
+        while self.busy:
+            self.step()
+        return self.results
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot.active or not self.queue:
+                continue
+            if self.kv.allocatable == 0:
+                break
+            req = self.queue.pop(0)
+            prompt = [int(t) for t in req.prompt]
+            self.kv.ensure(i, 1)
+            self.slots[i] = _Slot(rid=req.rid, forced=prompt[1:], out=[],
+                                  budget=req.max_new_tokens,
+                                  prompt_left=len(prompt), active=True)
+            self._feed[i] = prompt[0]
+            self.status[req.rid] = RequestStatus.RUNNING
+            self.joins += 1
+
+    def _finish(self, i: int) -> None:
+        slot = self.slots[i]
+        self.results[slot.rid] = slot.out
+        self.status[slot.rid] = RequestStatus.FINISHED
+        self.slots[i] = _Slot()
+        self._feed[i] = self.cfg.pad_id
+        self.kv.free_slot(i)
+
+    def _sync_dirty(self) -> None:
+        """Patch the device table/length copies at the cache's dirty rows."""
+        if not self.kv.dirty:
+            return
+        rows = sorted(self.kv.dirty)
+        self.kv.dirty.clear()
+        idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+        self._table_dev[idx] = torch.from_numpy(
+            self.kv.table[rows]).to(self.device)
+        self._length_dev[idx] = torch.from_numpy(
+            self.kv.length[rows]).to(self.device)
+
+    # -- stepping -------------------------------------------------------
+
+    def step(self) -> None:
+        """One engine tick (see the module docstring)."""
+        cfg = self.cfg
+        T = self._chunk_tokens
+        self.ticks += 1
+        self._admit()
+        plan = self.scheduler.plan(self.slots, self.kv, self._chunk,
+                                   prefill_tokens=T)
+        if not plan.any_work:
+            if self.busy:
+                raise RuntimeError(
+                    f"no slot can get step capacity ({len(self.kv.free)} "
+                    f"free pages): preemption is not ported yet")
+            return
+        B = len(self.slots)
+        steps, pgr = plan.steps, plan.prefill
+        self._sync_dirty()
+        cache = {"k": self.kv.k, "v": self.kv.v,
+                 "table": self._table_dev, "length": self._length_dev}
+
+        nxt = None
+        if pgr.any():                     # prefill lane: one (B, T) chunk
+            tok_mat = np.full((B, T), cfg.pad_id, np.int32)
+            for i, slot in enumerate(self.slots):
+                g = int(pgr[i])
+                if g:
+                    tok_mat[i, 0] = self._feed[i]
+                    tok_mat[i, 1:g] = slot.forced[:g - 1]
+            nxt, cache = self.model.prefill_many_paged(
+                self.params, torch.from_numpy(tok_mat).to(self.device),
+                cache, self.generator,
+                torch.from_numpy(pgr).to(self.device),
+                temperature=cfg.temperature)
+        toks = None
+        if steps.any():
+            # decode loop over the grants; steps past the largest grant
+            # would be idle for every slot, so the loop stops there
+            feed = torch.from_numpy(self._feed).to(self.device)[:, None]
+            toks, cache = self.model.decode_many_paged(
+                self.params, feed, cache, self.generator,
+                torch.from_numpy(steps).to(self.device),
+                num_steps=int(steps.max()), temperature=cfg.temperature)
+        self._length_dev = cache["length"]     # the device advanced it
+        self.kv.length += steps + pgr          # host mirror of the increment
+        self.steps_run += 1
+        toks_np = toks.cpu().numpy() if toks is not None else None
+        nxt_np = nxt.cpu().numpy() if nxt is not None else None
+
+        # prefill-lane bookkeeping: only the ONE sampled token per slot
+        # came back, and it matters only when the prompt drained
+        for i, slot in enumerate(self.slots):
+            g = int(pgr[i])
+            if not slot.active or g == 0:
+                continue
+            slot.served += g
+            del slot.forced[:g - 1]
+            slot.prompt_left -= g
+            if slot.prompt_left > 0:      # mid-prompt: feed the next token
+                self._feed[i] = slot.forced.pop(0)
+                continue
+            self._emit(i, [int(nxt_np[i])])
+        # decode bookkeeping
+        for i, slot in enumerate(self.slots):
+            si = int(steps[i])
+            if not slot.active or si == 0:
+                continue
+            slot.served += si
+            self._emit(i, [int(toks_np[s, i]) for s in range(si)])
+
+    def _emit(self, i: int, toks: List[int]) -> None:
+        """Append slot ``i``'s new output tokens up to eos or its budget
+        (later tokens of the chunk are overshoot, discarded) and finish the
+        slot or feed its last token."""
+        slot = self.slots[i]
+        cfg = self.cfg
+        for tok in toks:
+            slot.out.append(tok)
+            if (cfg.eos_id >= 0 and tok == cfg.eos_id) \
+                    or len(slot.out) >= slot.budget:
+                self._finish(i)
+                return
+        self._feed[i] = toks[-1]

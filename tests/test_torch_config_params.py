@@ -1,0 +1,98 @@
+"""The port's configs and parameters against the JAX package's: configs
+equal field for field, the weight bridge bit-exact, and ``init_params``
+giving the JAX schema's shapes, dtypes and init kinds."""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import get_model as jget_model
+from repro_torch import configs as tconfigs
+from repro_torch.models.params import init_params, params_from_jax
+
+ARCHS = ["granite-8b", "qwen2-0.5b"]
+JNP_TO_TORCH = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
+                jnp.dtype(jnp.float32): torch.float32,
+                jnp.dtype(jnp.int32): torch.int32}
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_equal_field_for_field(arch, reduced):
+    j, t = jconfigs.get(arch), tconfigs.get(arch)
+    if reduced:
+        j, t = j.reduced(), t.reduced()
+    jf = {f.name for f in dataclasses.fields(j)}
+    tf = {f.name for f in dataclasses.fields(t)}
+    assert jf == tf
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert t.head_dim == j.head_dim
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bridge_bit_exact(dtype):
+    cfg_j = dataclasses.replace(jconfigs.get("granite-8b").reduced(),
+                                dtype=dtype)
+    cfg_t = dataclasses.replace(tconfigs.get("granite-8b").reduced(),
+                                dtype=dtype)
+    pj = jax.tree.map(np.asarray, jget_model(cfg_j).init(jax.random.key(4)))
+    pt = params_from_jax(pj, cfg_t, "cpu")
+    fj, ft = _flat(pj), _flat(pt)
+    assert fj.keys() == ft.keys()
+    for k, a in fj.items():
+        b = ft[k]
+        assert tuple(b.shape) == a.shape and b.dtype == JNP_TO_TORCH[a.dtype]
+        bits = np.uint16 if a.dtype.itemsize == 2 else np.uint32
+        twin = torch.int16 if a.dtype.itemsize == 2 else torch.int32
+        np.testing.assert_array_equal(
+            b.view(twin).numpy().view(bits), a.view(bits), err_msg=k)
+
+
+def test_bridge_rejects_wrong_shape():
+    cfg_t = tconfigs.get("qwen2-0.5b").reduced()
+    cfg_j = jconfigs.get("granite-8b").reduced()     # no qkv bias, untied
+    pj = jax.tree.map(np.asarray, jget_model(cfg_j).init(jax.random.key(0)))
+    with pytest.raises(ValueError):
+        params_from_jax(pj, cfg_t, "cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_matches_jax_schema(arch):
+    cfg_j = jconfigs.get(arch).reduced()
+    cfg_t = tconfigs.get(arch).reduced()
+    want = _flat(jax.tree.map(lambda s: s, jget_model(cfg_j)
+                              .abstract_params()))
+    gen = torch.Generator().manual_seed(0)
+    got = _flat(init_params(cfg_t, gen, "cpu"))
+    assert got.keys() == want.keys()
+    for k, s in want.items():
+        assert tuple(got[k].shape) == s.shape, k
+        assert got[k].dtype == JNP_TO_TORCH[jnp.dtype(s.dtype)], k
+
+
+def test_init_kinds():
+    cfg = dataclasses.replace(tconfigs.get("qwen2-0.5b").reduced(),
+                              dtype="float32", d_model=256, d_ff=512)
+    p = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    assert (p["ln_f"]["scale"] == 1).all() and (p["ln_f"]["bias"] == 0).all()
+    assert (p["blocks"]["attn"]["bq"] == 0).all()
+    assert abs(p["embed"].std().item() - 0.02) < 0.002
+    w = p["blocks"]["ffn"]["w_down"]                 # fan-in d_ff
+    assert abs(w.std().item() - 1 / math.sqrt(cfg.d_ff)) < 0.1 / math.sqrt(
+        cfg.d_ff)
+    again = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    assert torch.equal(again["embed"], p["embed"])   # seeded: reproducible

@@ -1,0 +1,215 @@
+"""The CUDA kernels' own source, compiled for the CPU and held against the
+plain versions.
+
+The paged-attention kernels (``src/repro_torch/csrc/*.cu``) build only with
+nvcc, on the card.  Here the same sources are compiled with g++ against
+small stand-ins for ``cuda_runtime.h`` and ``cuda_bf16.h``: each thread
+block runs as 128 ``std::thread``s sharing one ``std::barrier`` for
+``__syncthreads()``, blocks run one after another, and the two CUDA-only
+spellings (``<<<...>>>`` and ``extern __shared__``) are rewritten.  The
+kernels are then driven through the real wrappers — their argument
+checks, ctypes marshalling and launch counters — on CPU tensors.  This
+checks the kernels' indexing, masking, row tiling and online softmax
+before they reach the card; what nvcc accepts, and the kernels' speed,
+only ``chip_smoke.py`` on the card can show.
+"""
+import contextlib
+import ctypes
+import re
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import paged, prefill_paged
+from repro_torch.kernels.decode_attention.ref import (
+    paged_decode_attention_ref, paged_prefill_attention_ref)
+from repro_torch.models.kv_quant import quantize_rows
+
+CUDA_RUNTIME = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local std::barrier<>* emu_barrier = nullptr;
+inline thread_local float* emu_shared = nullptr;
+inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+template <class K, class P>
+void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
+                const P& p) {
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::vector<float> shared(smem / sizeof(float) + 1, NAN);
+      std::barrier<> bar(threads);
+      std::vector<std::thread> pool;
+      for (int t = 0; t < threads; ++t)
+        pool.emplace_back([&, t] {
+          threadIdx = dim3(t);
+          blockIdx = dim3(bx, by);
+          emu_barrier = &bar;
+          emu_shared = shared.data();
+          kernel(p);
+        });
+      for (auto& th : pool) th.join();
+    }
+}
+"""
+
+CUDA_BF16 = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = (uint32_t)b.x << 16; float f; std::memcpy(&f, &u, 4); return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4);
+  __nv_bfloat16 b; b.x = (uint16_t)((u + 0x7fff + ((u >> 16) & 1)) >> 16);
+  return b;
+}
+"""
+
+
+def _rewrite(src: str) -> str:
+    src = src.replace("extern __shared__ float smem[];",
+                      "float* smem = emu_shared;")
+    return re.sub(r"(\w+)<<<(.*)>>>\((.*)\);", r"emu_launch(\1, \2, \3);",
+                  src)
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not installed: the CPU build of the CUDA sources "
+                    "needs it")
+    d = tmp_path_factory.mktemp("cuda_emu")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME)
+    (d / "cuda_bf16.h").write_text(CUDA_BF16)
+    for f in build.CSRC.glob("*.cu*"):
+        out = f.name.replace(".cu", ".cpp") if f.suffix == ".cu" else f.name
+        (d / out).write_text(_rewrite(f.read_text()))
+    lib = d / "libemu.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", f"-I{d}", "-o", str(lib),
+                    *map(str, sorted(d.glob("*.cpp")))], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture
+def cuda_path_on_cpu(emulated, monkeypatch):
+    """Route the wrappers' CUDA path to the emulated library on CPU
+    tensors: the device checks see a card, the stream is 0."""
+    monkeypatch.setattr(build, "library", lambda: emulated)
+    for mod in (paged, prefill_paged):
+        monkeypatch.setattr(mod, "on_cpu", lambda *a: False)
+        monkeypatch.setattr(mod, "check_args",
+                            lambda kind, *a: paged.check_layout(kind, *a))
+        monkeypatch.setattr(mod.KERNEL, "_fn", None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+
+
+def _case(seed, B, T, H, KV, D, page, NB, L, dtype, int8, empty=False):
+    rng = np.random.RandomState(seed)
+    P = B * NB + 2
+    q = torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32)).to(dtype)
+    kp = torch.from_numpy(rng.randn(L, P, page, KV, D).astype(np.float32))
+    vp = torch.from_numpy(rng.randn(L, P, page, KV, D).astype(np.float32))
+    ks = vs = None
+    if int8:
+        (kp, ks), (vp, vs) = quantize_rows(kp), quantize_rows(vp)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    tbl = torch.from_numpy(rng.permutation(np.arange(1, P))[:B * NB]
+                           .reshape(B, NB).astype(np.int32))
+    base = rng.randint(0, NB * page - T + 1, size=B).astype(np.int32)
+    new = base + rng.randint(1, T + 1, size=B).astype(np.int32)
+    if empty:
+        base[0] = new[0] = 0
+    return (q, kp, vp, tbl, torch.from_numpy(base), torch.from_numpy(new),
+            int(rng.randint(0, L)), ks, vs)
+
+
+# f32: only the order of sums differs; bf16: the output's own rounding,
+# and int8 pages dequantized to f32 in the kernel but to bf16 in the plain
+# version — the tolerances chip_smoke.py holds the card to
+TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+# (B, T, H, KV, D, page, NB, L, dtype, int8 pools): GQA, MQA, G=7 with
+# T*G = 140 rows (three prefill row tiles), granite's G=4 / D=128, MHA on
+# single-row pages
+CASES = [
+    (2, 6, 4, 2, 16, 8, 3, 2, torch.float32, False),
+    (3, 5, 4, 1, 32, 4, 5, 1, torch.float32, True),
+    (2, 20, 14, 2, 64, 16, 3, 2, torch.bfloat16, False),
+    (2, 3, 32, 8, 128, 16, 2, 1, torch.bfloat16, True),
+    (2, 4, 4, 4, 16, 1, 9, 1, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_emulated_kernels_match_plain(case, cuda_path_on_cpu):
+    *geom, dtype, int8 = case
+    q, kp, vp, tbl, base, new, layer, ks, vs = _case(sum(geom), *geom,
+                                                     dtype, int8, empty=True)
+    tol = TOL[dtype]
+    n0 = (paged.KERNEL.launches, prefill_paged.KERNEL.launches)
+
+    got = prefill_paged.paged_prefill_attention(
+        q, kp, vp, tbl, base, new, layer, k_scale=ks, v_scale=vs,
+        pages_per_step=3)
+    want = paged_prefill_attention_ref(q, kp, vp, tbl, base, new, layer,
+                                       ks, vs)
+    live = new > 0
+    assert (got[~live] == 0).all()                   # empty slot: zeros
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=tol, atol=tol)
+
+    kv_len = torch.maximum(new, torch.ones_like(new))
+    got = paged.paged_decode_attention(q[:, :1].contiguous(), kp, vp, tbl,
+                                       kv_len, layer, k_scale=ks, v_scale=vs)
+    want = paged_decode_attention_ref(q[:, :1], kp, vp, tbl, kv_len, layer,
+                                      ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert (paged.KERNEL.launches, prefill_paged.KERNEL.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+
+
+def test_emulated_decode_at_page_boundaries(cuda_path_on_cpu):
+    """kv_len exactly on a page boundary, one past it and the full table:
+    the dead-block skip is on j * page < kv_len, never on the table."""
+    q, kp, vp, tbl, _, _, layer, _, _ = _case(5, 4, 1, 4, 2, 16, 4, 3, 1,
+                                              torch.float32, False)
+    kv_len = torch.tensor([4, 5, 12, 1], dtype=torch.int32)
+    got = paged.paged_decode_attention(q, kp, vp, tbl, kv_len, layer)
+    want = paged_decode_attention_ref(q, kp, vp, tbl, kv_len, layer)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
