@@ -26,8 +26,31 @@ Phases, each failing loudly (non-zero exit, no result line):
                path.
   4. parity  — qwen2-0.5b (reduced) in f32 through the engine, kernel path
                against plain path: greedy tokens identical.
+  5. stream  — holds BabelStream's five kernels against their plain
+               versions in f32 and bf16 (the JAX tests' shapes, an odd
+               shape that exercises the bounds guard, and BabelStream's
+               2^25 elements): copy, mul, add and triad bit-identical, dot
+               within 2^-20 of sum |a b|.  Then BabelStream itself
+               (``launch/babelstream.py``) at 2^25 f32 elements, 100 times:
+               its solution check must pass and all five launch counters
+               rise.  Times each kernel, its plain version and one library
+               call (``copy_``, ``torch.mul``, ``torch.add``, ``torch.add``
+               with ``alpha``, ``torch.dot``; never used by the port), and
+               prints BabelStream's table and the measured memory ceiling
+               (copy's rate) beside the card's name and power limit.
+  6. irm     — a census of the built library's SASS (``cuobjdump``), which
+               must find all five stream kernels loop-free; the H100
+               ``HardwareSpec`` read from the card with the measured
+               ceiling; and the instruction roofline of the five kernels
+               (``launch/irm.py``), with the SM clock read right after the
+               BabelStream loop.  A point above its roof is printed, not
+               clamped.
 
-The line before the last is the kernels summary (JSON); the last line is
+The line before the last is the kernels summary (JSON), every kernel's
+bound taken against the data sheet's 3.35 TB/s (``bound_ms``).  The log
+also gives each kernel's time at the measured ceiling (``copy_rate_ms``):
+the paper's roof, but the rate of the port's own copy kernel, which
+other kernels may beat, so it is no lower bound.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -41,6 +64,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores (data sheet)
+F32_FLOPS_PER_S = 67e12          # f32 on the CUDA cores (data sheet)
 # Tolerances of kernel against plain version, with their reasons:
 TOL = {
     "float32": (2e-5, "f32: only the summation order differs"),
@@ -63,13 +87,15 @@ def gpu_line() -> str:
 
 
 def log_ptxas(path: Path) -> None:
-    """One line per kernel source from ``-Xptxas -v``: the range of
-    registers over its instantiations and the spill bytes."""
+    """One line per kernel from ``-Xptxas -v``: the range of registers
+    over its instantiations (paged kernels: head dims and types; stream
+    kernels: f32 and bf16) and the spill bytes."""
     import re
     stats = {}
     kernel = None
     for line in path.read_text().splitlines():
-        m = re.search(r"(paged_(?:decode|prefill)_kernel)I", line)
+        m = re.search(r"entry function '[^']*?(paged_(?:decode|prefill)_"
+                      r"kernel|stream_[a-z]+)", line)
         if m:
             kernel = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
@@ -179,12 +205,20 @@ def run_library(kind, c, layer=None):
     return out.transpose(1, 2)
 
 
-def bound(kind, c):
-    """Least time the card could take: the larger of the bytes the call
-    must move (q read, out written, the live K/V rows and their scales,
-    the live table entries and lengths) over the memory rate, and its
-    flops (QK and PV over the attended positions) over the bf16 tensor
-    core peak.  Returns (ms, "bytes" | "operations")."""
+def bound_ms(nbytes, flops, flops_per_s, bytes_per_s=HBM_BYTES_PER_S):
+    """Least time the card could take for ``nbytes`` moved and ``flops``
+    done: the larger of the two times.  Returns (ms, "bytes" |
+    "operations")."""
+    t_bytes = nbytes / bytes_per_s
+    t_ops = flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def work(kind, c):
+    """The bytes a paged call must move (q read, out written, the live
+    K/V rows and their scales, the live table entries and lengths) and
+    its flops (QK and PV over the attended positions)."""
     import torch
     B, T, H, D = c["q"].shape
     _, _, page, KV, _ = c["k"].shape
@@ -204,11 +238,7 @@ def bound(kind, c):
         qpos = c["base"].long()[:, None] + t[None, :]
         attended = int(torch.minimum(qpos + 1, lens[:, None]).clamp(
             min=0).sum())
-    flops = 4 * attended * H * D
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return nbytes, 4 * attended * H * D
 
 
 def kernel_phase(torch):
@@ -289,13 +319,15 @@ def timing_phase(torch, serve_lens, serve_base, max_blocks, n_layers):
         ms = time_ms(lambda i: run_kernel(kind, c, layer=i % n_layers))
         plain_ms = time_ms(lambda i: run_plain(kind, c, layer=i % n_layers))
         lib_ms = time_ms(lambda i: run_library(kind, c, layer=i % n_layers))
-        bound_ms, bound_by = bound(kind, c)
+        nbytes, flops = work(kind, c)
+        bms, bound_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
         rows[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
+                          bound_ms=bms, bound_by=bound_by, bytes=nbytes,
+                          flops=flops, flops_per_s=BF16_FLOPS_PER_S,
                           lens=c["lens"].tolist())
         log(f"[timing] {kind:7s} granite-8b bf16 B=4 lens={rows[kind]['lens']}"
             f": kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} "
+            f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} "
             f"(by {bound_by}; live K/V bytes over "
             f"{HBM_BYTES_PER_S / 1e12} TB/s)")
     return rows
@@ -472,6 +504,162 @@ def parity_phase(torch):
         raise AssertionError("kernel path and plain path disagree in f32")
 
 
+# ---------------------------------------------------------------------------
+# 5./6. BabelStream and the instruction roofline
+# ---------------------------------------------------------------------------
+
+BABEL = (16384, 2048)            # 2^25 elements: BabelStream's default size
+STREAM_SHAPES = [(8, 128), (256, 512), (1024, 128), (64, 1024), (3, 1000),
+                 BABEL]
+STREAM_DOT_TOL = (2.0 ** -20, "of sum |a b|: the f32 products are exact "
+                              "or rounded alike, and only the order of the "
+                              "f32 sums differs, each within log2(n) f32 "
+                              "epsilons (25 * 2^-24 < 2^-19 at 2^25); a lost "
+                              "warp of products, ~2^-20 of the sum at 2^25, "
+                              "fails it")
+STREAM_SOURCE = "src/repro_torch/csrc/stream.cu"
+STREAM_REPLACES = {"copy": 83, "mul": 97, "add": 111, "triad": 125,
+                   "dot": 139}     # src/repro/kernels/stream/stream.py
+
+
+def stream_checks(torch):
+    """Each stream kernel against its plain version on the card, in f32
+    and bf16 at every listed shape; returns {name: max |kernel - plain|}."""
+    from repro_torch.kernels.stream import ref, stream
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    errs = dict.fromkeys(STREAM_REPLACES, 0.0)
+    tol, why = STREAM_DOT_TOL
+    for shape in STREAM_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b, c = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+            pairs = {"copy": (stream.copy(a), ref.copy(a)),
+                     "mul": (stream.mul(c), ref.mul(c)),
+                     "add": (stream.add(a, b), ref.add(a, b)),
+                     "triad": (stream.triad(b, c), ref.triad(b, c)),
+                     "dot": (stream.dot(a, b), ref.dot(a, b))}
+            torch.cuda.synchronize()
+            for name, (got, want) in pairs.items():
+                err = (got.float() - want.float()).abs().max().item()
+                if name == "dot":
+                    scale = (a.float() * b.float()).abs().sum().item()
+                    ok = err <= tol * scale
+                else:
+                    ok = got.dtype == want.dtype and torch.equal(got, want)
+                if not ok or not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"stream {name} {tuple(shape)} {dtype}: kernel "
+                        f"differs from plain by {err:.3e}")
+                errs[name] = max(errs[name], err)
+            log(f"[stream] {str(tuple(shape)):14s} "
+                f"{str(dtype).replace('torch.', ''):8s} copy/mul/add/triad "
+                f"bit-identical, dot |kernel-plain| = "
+                f"{(pairs['dot'][0] - pairs['dot'][1]).abs().item():.3e}")
+    log(f"[stream] tolerance: copy, mul, add, triad bit-identical (each "
+        f"rounds where the plain version rounds); dot {tol} {why}")
+    return errs
+
+
+def stream_timing(torch, ceiling_gbs):
+    """Kernel, plain and library times at 2^25 f32 elements, with the
+    bound against the data sheet; the time at the measured ceiling goes
+    to the log only (see the module's docstring)."""
+    from repro_torch.kernels.stream import ref, stream
+    from repro_torch.launch.babelstream import ARRAYS_MOVED
+    a, b, c = (torch.full(BABEL, v, device="cuda") for v in (0.1, 0.2, 0.0))
+    fa, fb = a.view(-1), b.view(-1)
+    calls = {
+        "copy": (lambda i: stream.copy(a, out=c), lambda i: ref.copy(a),
+                 lambda i: c.copy_(a)),
+        "mul": (lambda i: stream.mul(c, out=b), lambda i: ref.mul(c),
+                lambda i: torch.mul(c, 0.4, out=b)),
+        "add": (lambda i: stream.add(a, b, out=c), lambda i: ref.add(a, b),
+                lambda i: torch.add(a, b, out=c)),
+        "triad": (lambda i: stream.triad(b, c, out=a),
+                  lambda i: ref.triad(b, c),
+                  lambda i: torch.add(b, c, alpha=0.4, out=a)),
+        "dot": (lambda i: stream.dot(a, b), lambda i: ref.dot(a, b),
+                lambda i: torch.dot(fa, fb))}
+    flops = {"copy": 0, "mul": 1, "add": 1, "triad": 2, "dot": 2}
+    n = a.numel()
+    rows = {}
+    for name, (kernel, plain, library) in calls.items():
+        nbytes = ARRAYS_MOVED[name] * n * 4 + (4 if name == "dot" else 0)
+        bms, by = bound_ms(nbytes, flops[name] * n, F32_FLOPS_PER_S)
+        cms, _ = bound_ms(nbytes, flops[name] * n, F32_FLOPS_PER_S,
+                          ceiling_gbs * 1e9)
+        rows[name] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
+                          library_ms=time_ms(library), bound_ms=bms,
+                          bound_by=by)
+        r = rows[name]
+        log(f"[stream] {name:5s} 2^25 f32: kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={bms:.4f} (by {by}, {nbytes} bytes over 3.35 TB/s) "
+            f"copy_rate_ms={cms:.4f} (over the port copy's "
+            f"{ceiling_gbs:.1f} GB/s; not a bound)")
+    return rows
+
+
+def stream_phase(torch, gpu):
+    """Checks, then BabelStream as the slice's main path, then times."""
+    from repro_torch.kernels.stream import stream
+    from repro_torch.launch import babelstream, irm
+    errs = stream_checks(torch)
+    for k in stream.KERNELS.values():
+        k.launches = 0                           # counts of the main path
+    res = babelstream.run(*BABEL, torch.float32, num_times=100,
+                          device="cuda")
+    launches = stream.launch_counts()
+    clocks = irm.sm_clocks()
+    for line in babelstream.report(res).splitlines():
+        log(f"[stream] {line}")
+    log(f"[stream] launches on the BabelStream path: {launches}; SM clock "
+        f"right after the loop, max: {clocks}")
+    if not res.ok:
+        raise AssertionError(f"BabelStream solution check failed: "
+                             f"{res.errors} against {res.limits}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a stream kernel was not launched on the "
+                             f"BabelStream path: {launches}")
+    ceiling = res.copy_gbs()
+    log(f"[stream] measured memory ceiling (BabelStream copy, 2^25 f32): "
+        f"{ceiling:.3f} GB/s = {ceiling / 3352:.3f} of the data sheet's "
+        f"3352 GB/s, on {gpu}")
+    timing = stream_timing(torch, ceiling)
+    return res, errs, launches, timing, clocks
+
+
+def irm_phase(res, clocks, gpu):
+    """The SASS census, then the roofline as ``launch/irm.py`` builds it."""
+    from repro_torch.core import sass_counters as sc
+    from repro_torch.kernels import build
+    from repro_torch.launch import irm
+    listing = sc.sass_listing(build.build())
+    census = sc.census_text(listing, select="^stream_")
+    fns = sc.split_functions(listing)
+    looped = [name for name in fns if "paged_" in name]
+    for name in looped:                 # the census must see their loops
+        try:
+            sc.count_function(name, fns[name])
+        except sc.LoopError:
+            continue
+        raise AssertionError(f"census found no loop in {name}")
+    for name, k in sorted(census.items()):
+        log(f"[irm] census {name}: {k.warp_insts_per_warp} instructions "
+            f"per warp, loop-free, {k.forward_branches} forward branches; "
+            + ", ".join(f"{c} {v}" for c, v in k.counts.items() if v))
+    if len(census) != 11:
+        raise AssertionError(f"census found {sorted(census)}, not the 11 "
+                             f"stream kernels")
+    log(f"[irm] census: {len(census)} stream kernels loop-free; all "
+        f"{len(looped)} paged-attention instantiations refused (loops: "
+        f"their trip counts are not in the listing)")
+    log(f"[irm] card: {gpu}")
+    for line in irm.h100_report(census, res, clocks):
+        log(f"[irm] {line}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -500,6 +688,9 @@ def main() -> int:
     timing = timing_phase(torch, sv["lens"], sv["base"], sv["max_blocks"],
                           sv["n_layers"])
     parity_phase(torch)
+    res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
+    irm_phase(res, clocks, gpu)
+    ceiling = res.copy_gbs() * 1e9
 
     kernels = []
     for kind, mod, src, rep in (
@@ -508,13 +699,25 @@ def main() -> int:
             ("prefill", prefill_paged, "src/repro_torch/csrc/paged_prefill.cu",
              "src/repro/kernels/decode_attention/prefill_paged.py:145")):
         t = timing[kind]
+        cms, _ = bound_ms(t["bytes"], t["flops"], t["flops_per_s"], ceiling)
+        log(f"[timing] {kind} copy_rate_ms={cms:.5f} (its bytes over the "
+            f"port copy's measured rate; not a bound)")
         kernels.append({
             "name": mod.KERNEL.symbol, "route": "cuda", "source": src,
             "replaces": rep, "launches": launches[kind],
             "max_abs_err": errs[kind], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    log(f"[summary] serve tokens/s {tok_s:.1f} on {gpu}")
+    for name, line in STREAM_REPLACES.items():
+        t = s_timing[name]
+        kernels.append({
+            "name": f"stream_{name}", "route": "cuda",
+            "source": STREAM_SOURCE,
+            "replaces": f"src/repro/kernels/stream/stream.py:{line}",
+            "launches": s_launches[name], "max_abs_err": s_errs[name],
+            **t})
+    log(f"[summary] serve tokens/s {tok_s:.1f}; memory ceiling "
+        f"{res.copy_gbs():.3f} GB/s; on {gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,22 @@
 """The CUDA kernels' own source, compiled for the CPU and held against the
 plain versions.
 
-The paged-attention kernels (``src/repro_torch/csrc/*.cu``) build only with
-nvcc, on the card.  Here the same sources are compiled with g++ against
-small stand-ins for ``cuda_runtime.h`` and ``cuda_bf16.h``: each thread
-block runs as 128 ``std::thread``s sharing one ``std::barrier`` for
-``__syncthreads()``, blocks run one after another, and the two CUDA-only
-spellings (``<<<...>>>`` and ``extern __shared__``) are rewritten.  The
-kernels are then driven through the real wrappers — their argument
+The CUDA kernels (``src/repro_torch/csrc/*.cu``: paged attention and
+BabelStream's five) build only with nvcc, on the card.  Here the same
+sources are compiled with g++ against small stand-ins for
+``cuda_runtime.h`` and ``cuda_bf16.h``: each thread block runs as many
+``std::thread``s as its launch asks for (128 for the paged kernels, 1024
+for the stream kernels), sharing one ``std::barrier`` for
+``__syncthreads()``; blocks run one after another, and the two CUDA-only
+spellings (``<<<...>>>`` and ``extern __shared__``) are rewritten.
+``__shfl_down_sync`` is a slot per thread and two block barriers, which
+is right only because every warp of the stream kernels runs its shuffles
+on one uniform path — the property their instruction census relies on.
+The kernels are then driven through the real wrappers — their argument
 checks, ctypes marshalling and launch counters — on CPU tensors.  This
-checks the kernels' indexing, masking, row tiling and online softmax
-before they reach the card; what nvcc accepts, and the kernels' speed,
-only ``chip_smoke.py`` on the card can show.
+checks the kernels' indexing, masking, row tiling, online softmax and
+the dot reduction chain before they reach the card; what nvcc accepts,
+and the kernels' speed, only ``chip_smoke.py`` on the card can show.
 """
 import contextlib
 import ctypes
@@ -28,6 +33,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import paged, prefill_paged
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, paged_prefill_attention_ref)
+from repro_torch.kernels.stream import ref as stream_ref
+from repro_torch.kernels.stream import stream
 from repro_torch.models.kv_quant import quantize_rows
 
 CUDA_RUNTIME = r"""
@@ -51,28 +58,43 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* emu_barrier = nullptr;
 inline thread_local float* emu_shared = nullptr;
+inline thread_local float* emu_shfl = nullptr;   // one slot per thread
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+inline float __shfl_down_sync(unsigned, float v, int delta) {
+  const unsigned t = threadIdx.x;
+  emu_shfl[t] = v;
+  __syncthreads();
+  const float r = t % 32 + delta < 32 ? emu_shfl[t + delta] : v;
+  __syncthreads();
+  return r;
+}
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
-template <class K, class P>
+template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
-                const P& p) {
+                const A&... args) {
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::vector<float> shared(smem / sizeof(float) + 1, NAN);
+      std::vector<float> shfl(threads, NAN);
       std::barrier<> bar(threads);
       std::vector<std::thread> pool;
       for (int t = 0; t < threads; ++t)
         pool.emplace_back([&, t] {
           threadIdx = dim3(t);
           blockIdx = dim3(bx, by);
+          blockDim = dim3(threads);
+          gridDim = grid;
           emu_barrier = &bar;
           emu_shared = shared.data();
-          kernel(p);
+          emu_shfl = shfl.data();
+          kernel(args...);
         });
       for (auto& th : pool) th.join();
     }
@@ -115,8 +137,8 @@ def emulated(tmp_path_factory):
         out = f.name.replace(".cu", ".cpp") if f.suffix == ".cu" else f.name
         (d / out).write_text(_rewrite(f.read_text()))
     lib = d / "libemu.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-pthread", f"-I{d}", "-o", str(lib),
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-pthread", f"-I{d}", "-o", str(lib),
                     *map(str, sorted(d.glob("*.cpp")))], check=True)
     return ctypes.CDLL(str(lib))
 
@@ -131,6 +153,10 @@ def cuda_path_on_cpu(emulated, monkeypatch):
         monkeypatch.setattr(mod, "check_args",
                             lambda kind, *a: paged.check_layout(kind, *a))
         monkeypatch.setattr(mod.KERNEL, "_fn", None)
+    monkeypatch.setattr(stream, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(stream, "check_device", lambda *a: None)
+    for kernel in stream.KERNELS.values():
+        monkeypatch.setattr(kernel, "_fn", None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -213,3 +239,56 @@ def test_emulated_decode_at_page_boundaries(cuda_path_on_cpu):
     got = paged.paged_decode_attention(q, kp, vp, tbl, kv_len, layer)
     want = paged_decode_attention_ref(q, kp, vp, tbl, kv_len, layer)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# (rows, cols): one full block; a ragged 3-block array (guard, and a
+# two-launch dot chain 3000 -> 3 -> 1); 4 blocks with a ragged last one
+STREAM_SHAPES = [(8, 128), (3, 1000), (16, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", STREAM_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_emulated_stream_kernels_match_plain(shape, dtype, cuda_path_on_cpu):
+    """copy, mul, add and triad bit-identical to the plain versions (the
+    kernels round where they round); dot within 2^-20 of sum |a b|, the
+    kernel's fixed tree of f32 sums against torch's order, each within
+    log2(n) f32 epsilons of it."""
+    rng = np.random.default_rng(sum(shape))
+    a, b, c = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(dtype) for _ in range(3))
+    n0 = stream.launch_counts()
+    assert torch.equal(stream.copy(a), stream_ref.copy(a))
+    assert torch.equal(stream.mul(c), stream_ref.mul(c))
+    assert torch.equal(stream.add(a, b), stream_ref.add(a, b))
+    assert torch.equal(stream.triad(b, c), stream_ref.triad(b, c))
+    got, want = stream.dot(a, b), stream_ref.dot(a, b)
+    assert got.dtype == torch.float32 and got.shape == ()
+    scale = (a.float() * b.float()).abs().sum().item()
+    assert abs(got.item() - want.item()) <= 2.0 ** -20 * scale
+    passes = len(stream.dot_passes(a.numel()))
+    assert {k: v - n0[k] for k, v in stream.launch_counts().items()} == \
+        {"copy": 1, "mul": 1, "add": 1, "triad": 1, "dot": passes}
+
+
+def test_emulated_stream_in_place_chain(cuda_path_on_cpu):
+    """BabelStream's in-place chain through ``out=`` (each kernel writing
+    an array another reads) and a dot of identical products, which the
+    fixed tree sums exactly: n * a * b."""
+    a, b, c = (torch.full((4, 512), v) for v in (0.1, 0.2, 0.0))
+    for _ in range(3):
+        stream.copy(a, out=c)
+        stream.mul(c, out=b)
+        stream.add(a, b, out=c)
+        stream.triad(b, c, out=a)
+    s = stream_ref.scalar_in(torch.float32)
+    ga, gb, gc = (torch.tensor(v) for v in (0.1, 0.2, 0.0))
+    for _ in range(3):
+        gc = ga.clone()
+        gb = s * gc
+        gc = ga + gb
+        ga = gb + s * gc
+    for x, g in ((a, ga), (b, gb), (c, gc)):
+        assert torch.equal(x, torch.full_like(x, g.item()))
+    assert stream.dot(a, b).item() == (ga * gb).item() * a.numel()
