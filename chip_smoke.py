@@ -24,8 +24,23 @@ Phases, each failing loudly (non-zero exit, no result line):
                rise on this path, and one prefill chunk's and one decode
                step's logits on the kernel path are held against the plain
                path.
-  4. parity  — qwen2-0.5b (reduced) in f32 through the engine, kernel path
-               against plain path: greedy tokens identical.
+     whole-batch — the same model and weights through ``ServingEngine``
+               (lockstep whole-batch serving): 4 prompts of 64-500 tokens,
+               32 new tokens, greedy.  The flash kernel must run for every
+               layer of the prefill and the dense decode kernel for every
+               layer of every decode step; the fused loop and the legacy
+               loop give identical tokens; the prefill's and one decode
+               step's logits on the kernel path are held against the
+               plain path.  Before it, both dense kernels are held against
+               their plain versions (GQA, MQA, MHA; f32 and bf16; decode
+               over caches of 24-2080 rows with random windows, no window
+               and an empty one; flash causal and not, S = T from 37 to
+               2048, and S != T), and after it timed at the whole-batch
+               path's shapes beside their bounds and SDPA.
+  4. parity  — qwen2-0.5b (reduced) in f32, kernel path against plain path:
+               greedy tokens identical, through the engine and through
+               ``ServingEngine`` (prompts of multiples of 32 tokens, so
+               the plain side takes the chunked flash reference).
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, an odd
                shape that exercises the bounds guard, and BabelStream's
@@ -73,6 +88,14 @@ TOL = {
                        "and to bf16 in the plain version"),
 }
 LOGIT_ULPS = 8                   # serve-phase logit bound, in bf16 ulps
+DENSE_KERNELS = {                # name: (source, the TPU kernel it replaces)
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/decode.py:93"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash.py:83"),
+}
+# kernels with loops, which the SASS census must refuse (matched by name)
+LOOPED = ("paged_", "decode_attention_kernel", "flash_attention_kernel")
 
 
 def log(msg: str) -> None:
@@ -88,14 +111,15 @@ def gpu_line() -> str:
 
 def log_ptxas(path: Path) -> None:
     """One line per kernel from ``-Xptxas -v``: the range of registers
-    over its instantiations (paged kernels: head dims and types; stream
-    kernels: f32 and bf16) and the spill bytes."""
+    over its instantiations (attention kernels: head dims and types;
+    stream kernels: f32 and bf16) and the spill bytes."""
     import re
     stats = {}
     kernel = None
     for line in path.read_text().splitlines():
         m = re.search(r"entry function '[^']*?(paged_(?:decode|prefill)_"
-                      r"kernel|stream_[a-z]+)", line)
+                      r"kernel|decode_attention_kernel|flash_attention_kernel"
+                      r"|stream_[a-z]+)", line)
         if m:
             kernel = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
@@ -123,6 +147,19 @@ def time_ms(fn, iters: int = 36, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def check_close(what, got, want, tol) -> float:
+    """max |got - want|; raises unless finite and within rtol = atol =
+    tol."""
+    import torch
+    a, b = got.float(), want.float()
+    err = (a - b).abs().max().item()
+    if not torch.isfinite(a).all() or not torch.allclose(a, b, rtol=tol,
+                                                         atol=tol):
+        raise AssertionError(f"{what}: kernel differs from plain by "
+                             f"{err:.3e} > tol {tol}")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -278,13 +315,8 @@ def kernel_phase(torch):
                         raise AssertionError(
                             f"{gname} {pool} prefill: the empty slot "
                             f"(new_len == 0) must be exact zeros")
-                a, b = got[live].float(), want[live].float()
-                err = (a - b).abs().max().item()
-                if not torch.isfinite(a).all() or not torch.allclose(
-                        a, b, rtol=tol, atol=tol):
-                    raise AssertionError(
-                        f"{gname} {pool} pool, q {tname}, {kind}: kernel "
-                        f"differs from plain by {err:.3e} > tol {tol}")
+                err = check_close(f"{gname} {pool} pool, q {tname}, {kind}",
+                                  got[live], want[live], tol)
                 errs[kind] = max(errs[kind], err)
                 log(f"[kernels] {kind:7s} {gname:10s} q={tname:8s} "
                     f"pool={pool:4s} max|kernel-plain|={err:.3e} "
@@ -398,9 +430,8 @@ def serve_phase(torch, decode_kernel, prefill_kernel):
     sv = {"lens": [int(n) + new_tokens // 2 for n in prompt_lens[:4]],
           "base": [int(n) - int(n) % 32 for n in prompt_lens[:4]],
           "max_blocks": engine.kv.max_blocks, "n_layers": cfg.n_layers}
-    del engine, params
-    torch.cuda.empty_cache()
-    return launches, n_out / dt, sv
+    del engine
+    return launches, n_out / dt, sv, cfg, params
 
 
 def _leaves(tree):
@@ -502,6 +533,285 @@ def parity_phase(torch):
         f"{same}/{len(work)} requests token-identical")
     if same != len(work):
         raise AssertionError("kernel path and plain path disagree in f32")
+
+
+# ---------------------------------------------------------------------------
+# whole-batch serving: the dense decode and flash kernels
+# ---------------------------------------------------------------------------
+
+DECODE_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
+                "qwen2 GQA": dict(H=14, KV=2, D=64),
+                "MQA": dict(H=16, KV=1, D=128),
+                "MHA": dict(H=8, KV=8, D=64)}
+FLASH_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
+               "MQA": dict(H=8, KV=1, D=64),
+               "MHA": dict(H=8, KV=8, D=64)}
+
+
+def dense_inputs(gen, B, S, T, H, KV, D, dtype):
+    """Random q (B, S, H, D) and k, v (B, T, KV, D) on the card."""
+    import torch
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+def dense_checks(torch):
+    """The dense decode and flash kernels against their plain versions;
+    returns {name: max_abs_err}."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import decode
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.attention import repeat_kv
+    from repro_torch.models.flash import flash_attention_ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    rng = np.random.RandomState(4321)
+    errs = dict.fromkeys(DENSE_KERNELS, 0.0)
+    B = 4
+    for tname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol, _ = TOL[tname]
+        for gname, g in DECODE_GEOMS.items():
+            err = 0.0
+            for T in (24, 48, 544, 2080):
+                q, k, v = dense_inputs(gen, B, 1, T, dtype=dtype, **g)
+                kv_len = int(rng.randint(1, T + 1))
+                kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+                start = torch.from_numpy(rng.randint(
+                    0, kv_len, size=B).astype(np.int32)).cuda()
+                what = f"decode {gname} {tname} T={T} kv_len={kv_len}"
+                for s in (start, None):
+                    err = max(err, check_close(
+                        what, decode.decode_attention(q, k, v, kvl, s),
+                        decode_attention_ref(q, k, v, kvl, s), tol))
+                empty = start.clone()
+                empty[2] = kv_len                 # slot 2: an empty window
+                got = decode.decode_attention(q, k, v, kvl, empty)
+                want = decode_attention_ref(q, k, v, kvl, empty)
+                torch.cuda.synchronize()
+                if got[2].abs().max().item() != 0.0:
+                    raise AssertionError(f"{what}: an empty window must "
+                                         f"give exact zeros")
+                keep = torch.arange(B, device="cuda") != 2
+                err = max(err, check_close(what, got[keep], want[keep], tol))
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+            log(f"[dense] decode {gname:11s} q={tname:8s} T in 24/48/544/"
+                f"2080, random and no kv_start: max|kernel-plain|={err:.3e} "
+                f"(tol {tol}); empty window exact zeros")
+        for gname, g in FLASH_GEOMS.items():
+            err = 0.0
+            shapes = [(S, S, c) for S in (37, 200, 512, 1024, 2048)
+                      for c in (True, False)]
+            shapes += [(200, 1024, False), (512, 1536, False),
+                       (37, 24, False)]
+            for S, T, causal in shapes:
+                q, k, v = dense_inputs(gen, 2 if S <= 512 else 1, S, T,
+                                       dtype=dtype, **g)
+                H = g["H"]
+                got = flash.flash_attention(q, k, v, causal=causal)
+                want = flash_attention_ref(q, repeat_kv(k, H),
+                                           repeat_kv(v, H), causal,
+                                           min(512, S), min(512, T))
+                err = max(err, check_close(
+                    f"flash {gname} {tname} S={S} T={T} causal={causal}",
+                    got, want, tol))
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            log(f"[dense] flash  {gname:11s} q={tname:8s} S = T in 37/200/"
+                f"512/1024/2048 causal and not, S != T: max|kernel-plain|="
+                f"{err:.3e} (tol {tol})")
+    return errs
+
+
+def dense_timing(torch, S):
+    """Kernel, plain and SDPA times at the whole-batch path's shapes
+    (granite-8b, bf16, B = 4): decode over a T = S + 32 row cache (all
+    rows live, the last decode step's work), cycling through 36 layers'
+    caches; flash at S = 512, causal, cycling through 8 inputs, so that
+    every call reads from memory and not from the 50 MB L2."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.attention import repeat_kv
+    from repro_torch.models.flash import flash_attention_ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    B, H, KV, D, bf = 4, 32, 8, 128, torch.bfloat16
+    rows = {}
+
+    T, L = S + 32, 36
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(bf)
+    kc, vc = (torch.randn(L, B, T, KV, D, generator=gen, device="cuda")
+              .to(bf) for _ in range(2))
+    kvl = torch.tensor(T, dtype=torch.int32, device="cuda")
+    start = torch.zeros(B, dtype=torch.int32, device="cuda")
+    calls = (
+        lambda i: decode.decode_attention(q, kc[i % L], vc[i % L], kvl,
+                                          start),
+        lambda i: decode_attention_ref(q, kc[i % L], vc[i % L], kvl, start),
+        lambda i: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc[i % L].transpose(1, 2),
+            vc[i % L].transpose(1, 2), enable_gqa=True))
+    nbytes = 2 * q.numel() * 2 + 2 * B * T * KV * D * 2 + 4 + 4 * B
+    rows["decode_attention"] = dict(
+        zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
+        shape=f"B={B} T={T} kv_len={T} H={H} KV={KV} D={D}", bytes=nbytes,
+        flops=4 * B * T * H * D)
+    del kc, vc
+
+    Sf, L = 512, 8
+    qs, ks, vs = zip(*(dense_inputs(gen, B, Sf, Sf, H, KV, D, bf)
+                       for _ in range(L)))
+    calls = (
+        lambda i: flash.flash_attention(qs[i % L], ks[i % L], vs[i % L]),
+        lambda i: flash_attention_ref(qs[i % L], repeat_kv(ks[i % L], H),
+                                      repeat_kv(vs[i % L], H), True, Sf, Sf),
+        lambda i: F.scaled_dot_product_attention(
+            qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
+            vs[i % L].transpose(1, 2), is_causal=True, enable_gqa=True))
+    rows["flash_attention"] = dict(
+        zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
+        shape=f"B={B} S=T={Sf} causal H={H} KV={KV} D={D}",
+        bytes=2 * B * Sf * H * D * 2 + 2 * B * Sf * KV * D * 2,
+        flops=4 * D * B * H * Sf * (Sf + 1) // 2)
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
+                                                BF16_FLOPS_PER_S)
+        log(f"[timing] {name} granite-8b bf16 {r['shape']}: kernel_ms="
+            f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
+            f"{r['library_ms']:.4f} (SDPA) bound_ms={r['bound_ms']:.5f} (by "
+            f"{r['bound_by']}: {r['bytes']} bytes over 3.35 TB/s, "
+            f"{r['flops']} flops over 989 TFLOP/s)")
+    return rows
+
+
+def whole_batch_phase(torch, cfg, params):
+    """granite-8b (the serve phase's weights) through ``ServingEngine``:
+    the fused loop as the slice's main path (its launch counts), the
+    legacy loop, ``benchmark_decode``, then the logits of the kernel path
+    against the plain path."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import decode
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    rng = np.random.RandomState(17)
+    prompt_lens = rng.randint(64, 501, size=4)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
+               for n in prompt_lens]
+    new_tokens, S = 32, int(prompt_lens.max())
+    engine = ServingEngine(get_model(cfg), params,
+                           ServeConfig(max_new_tokens=new_tokens))
+    torch.cuda.reset_peak_memory_stats()
+    decode.KERNEL.launches = 0                   # counts of the main path
+    flash.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    fused = engine.generate_batch(prompts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"decode_attention": decode.KERNEL.launches,
+                "flash_attention": flash.KERNEL.launches}
+    t0 = time.perf_counter()
+    legacy = engine.generate_batch(prompts, fused=False)
+    torch.cuda.synchronize()
+    dt_legacy = time.perf_counter() - t0
+    bench = engine.benchmark_decode(batch=4, seq=1024, steps=8)
+    n_out = sum(len(o) for o in fused)
+    log(f"[whole-batch] granite-8b, prompts {prompt_lens.tolist()} "
+        f"(right-aligned to S={S}), {new_tokens} new tokens each: fused "
+        f"{n_out} tokens in {dt:.2f} s = {n_out / dt:.1f} tokens/s, legacy "
+        f"loop {dt_legacy:.2f} s = {n_out / dt_legacy:.1f} tokens/s (host "
+        f"clock, prefill included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[whole-batch] benchmark_decode(batch=4, seq=1024, steps=8): "
+        f"fused {bench['s_per_step_fused'] * 1e3:.2f} ms/step "
+        f"({bench['tokens_per_s_fused']:.1f} tokens/s), loop "
+        f"{bench['s_per_step_loop'] * 1e3:.2f} ms/step "
+        f"({bench['tokens_per_s_loop']:.1f} tokens/s)")
+    log(f"[whole-batch] launches on this path: flash_attention="
+        f"{launches['flash_attention']} ({cfg.n_layers} per prefill), "
+        f"decode_attention={launches['decode_attention']} ({cfg.n_layers} "
+        f"per step x {new_tokens - 1} steps = "
+        f"{cfg.n_layers * (new_tokens - 1)})")
+    if not all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size
+                                            for t in o) for o in fused):
+        raise AssertionError("whole-batch: a request did not get "
+                             f"{new_tokens} in-vocab tokens")
+    if fused != legacy:
+        raise AssertionError("whole-batch: fused and legacy loop disagree")
+    if launches["flash_attention"] < cfg.n_layers or \
+            launches["decode_attention"] < cfg.n_layers * (new_tokens - 1):
+        raise AssertionError(f"whole-batch: a kernel was not launched for "
+                             f"every layer: {launches}")
+    log("[whole-batch] fused and legacy loop: 4/4 requests token-identical")
+    compare_whole_batch_logits(torch, cfg, params, prompts)
+    return dict(launches=launches, tok_s=n_out / dt, S=S)
+
+
+def compare_whole_batch_logits(torch, cfg, params, prompts):
+    """The prefill's last-position logits and one decode step's logits of
+    the kernel path against the plain path, from the same prompts."""
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    kern, plain = get_model(cfg), get_model(cfg, plain_attention=True)
+    with torch.no_grad():
+        lk, ck = ServingEngine(kern, params, ServeConfig())._prefill_cache(
+            prompts, 2)
+        lp, cp = ServingEngine(plain, params, ServeConfig())._prefill_cache(
+            prompts, 2)
+        nxt = lp.argmax(-1).to(torch.int32)[:, None]
+        dk, _ = kern.decode_step(params, nxt, ck)
+        dp, _ = plain.decode_step(params, nxt, cp)
+    for name, a, b in (("prefill", lk, lp), ("decode step", dk, dp)):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        lim = LOGIT_ULPS * 2.0 ** -8 * scale
+        log(f"[whole-batch] {name} logits, kernel vs plain path: max|diff|="
+            f"{err:.4e}, bound {lim:.4e} ({LOGIT_ULPS} bf16 ulps of the logit "
+            f"scale {scale:.3f}); argmax agree "
+            f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{a.shape[0]}")
+        if not (err <= lim):
+            raise AssertionError(f"whole-batch {name}: kernel path logits "
+                                 f"drift {err:.4e} > {lim:.4e}")
+
+
+def whole_batch_parity(torch):
+    """qwen2-0.5b (reduced) in f32 through ``ServingEngine``: the kernel
+    path's greedy tokens equal the plain path's.  Prompts of 32-96 tokens
+    in multiples of 32 (the plain side's chunked flash reference, chunks of
+    32) and a batch of short ones (its direct attention)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(configs.get("qwen2-0.5b").reduced(),
+                              dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    params = get_model(cfg).init(gen, "cuda")
+    rng = np.random.RandomState(9)
+    same = total = 0
+    for lens in ((32, 64, 96), (96, 96, 32, 64), (7, 30, 19)):
+        prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in lens]
+        outs = [ServingEngine(get_model(cfg, plain_attention=plain), params,
+                              ServeConfig(max_new_tokens=12)
+                              ).generate_batch(prompts)
+                for plain in (False, True)]
+        same += sum(a == b for a, b in zip(*outs))
+        total += len(prompts)
+    log(f"[parity] qwen2-0.5b-reduced f32 ServingEngine, kernel vs plain "
+        f"path: {same}/{total} requests token-identical")
+    if same != total:
+        raise AssertionError("whole-batch kernel path and plain path "
+                             "disagree in f32")
 
 
 # ---------------------------------------------------------------------------
@@ -638,7 +948,10 @@ def irm_phase(res, clocks, gpu):
     listing = sc.sass_listing(build.build())
     census = sc.census_text(listing, select="^stream_")
     fns = sc.split_functions(listing)
-    looped = [name for name in fns if "paged_" in name]
+    looped = [name for name in fns if any(k in name for k in LOOPED)]
+    missing = [k for k in LOOPED if not any(k in name for name in looped)]
+    if missing:
+        raise AssertionError(f"no SASS function found for {missing}")
     for name in looped:                 # the census must see their loops
         try:
             sc.count_function(name, fns[name])
@@ -653,8 +966,9 @@ def irm_phase(res, clocks, gpu):
         raise AssertionError(f"census found {sorted(census)}, not the 11 "
                              f"stream kernels")
     log(f"[irm] census: {len(census)} stream kernels loop-free; all "
-        f"{len(looped)} paged-attention instantiations refused (loops: "
-        f"their trip counts are not in the listing)")
+        f"{len(looped)} attention-kernel instantiations (paged, dense "
+        f"decode, flash) refused (loops: their trip counts are not in the "
+        f"listing)")
     log(f"[irm] card: {gpu}")
     for line in irm.h100_report(census, res, clocks):
         log(f"[irm] {line}")
@@ -683,11 +997,17 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     errs = kernel_phase(torch)
-    launches, tok_s, sv = serve_phase(torch, paged.KERNEL,
-                                      prefill_paged.KERNEL)
+    d_errs = dense_checks(torch)
+    launches, tok_s, sv, cfg, params = serve_phase(torch, paged.KERNEL,
+                                                   prefill_paged.KERNEL)
+    wb = whole_batch_phase(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
     timing = timing_phase(torch, sv["lens"], sv["base"], sv["max_blocks"],
                           sv["n_layers"])
+    d_timing = dense_timing(torch, wb["S"])
     parity_phase(torch)
+    whole_batch_parity(torch)
     res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
     irm_phase(res, clocks, gpu)
     ceiling = res.copy_gbs() * 1e9
@@ -708,6 +1028,17 @@ def main() -> int:
             "max_abs_err": errs[kind], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for name, (src, rep) in DENSE_KERNELS.items():
+        t = d_timing[name]
+        cms, _ = bound_ms(t["bytes"], t["flops"], BF16_FLOPS_PER_S, ceiling)
+        log(f"[timing] {name} copy_rate_ms={cms:.5f} (its bytes over the "
+            f"port copy's measured rate; not a bound)")
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": wb["launches"][name], "max_abs_err": d_errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     for name, line in STREAM_REPLACES.items():
         t = s_timing[name]
         kernels.append({
@@ -716,7 +1047,8 @@ def main() -> int:
             "replaces": f"src/repro/kernels/stream/stream.py:{line}",
             "launches": s_launches[name], "max_abs_err": s_errs[name],
             **t})
-    log(f"[summary] serve tokens/s {tok_s:.1f}; memory ceiling "
+    log(f"[summary] serve tokens/s {tok_s:.1f}; whole-batch tokens/s "
+        f"{wb['tok_s']:.1f}; memory ceiling "
         f"{res.copy_gbs():.3f} GB/s; on {gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,261 @@
+// Flash-attention forward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel
+//   src/repro/kernels/flash_attention/flash.py::flash_attention_fwd
+// (Pallas body `_kernel`): q (B, S, H, D) attends over k, v (B, T, KV, D),
+// causal (top-left aligned: query row s sees key positions <= s) or not,
+// with an f32 online softmax finished as acc / max(l, 1e-30), and written
+// out in q's dtype.  The JAX kernel takes k and v already repeated to H
+// heads; here query head h reads kv head h / (H / KV), so the caller
+// passes them unrepeated (KV == H is the JAX signature).
+//
+// The Pallas grid (B * H, S / bq, T / bkv) ran the kv blocks as its
+// sequential minor axis with m, l and acc in VMEM scratch.  Here one
+// thread block takes one (q tile of kBQ rows, batch * head), and a loop
+// inside it streams the k/v tiles of kBK positions through shared memory,
+// keeping the q tile, m, l and p in shared memory and acc in registers.
+// Under causal masking the loop stops at the tile's last row: later k/v
+// tiles are fully masked for every row (the Pallas kernel's skip of
+// blocks past the diagonal, flash.py:47-52).  The tiles are the
+// kernel's own, not the Pallas blocks: the ragged last q tile and the
+// ragged last k/v tile are masked here, so any S and T work (the JAX
+// kernel takes any S <= 512 as one block; the Python wrapper still
+// refuses the shapes its asserts refuse).  The first k/v tile always
+// holds a live position for every row (position 0), so no row is ever
+// fully masked.  Heavier causal q tiles are launched first.
+//
+// Arithmetic: the scores are a 64 x 32 tile per step, each of the 256
+// threads computing a 4 x 2 block of them from shared memory (rows
+// ty + 16 i, columns tx + 16 j: 6 loads feed 8 FMAs), and p @ v
+// accumulates a 4 x (D / 16) block of the output per thread (4 + D / 16
+// loads feed 4 D / 16 FMAs).  All on the CUDA cores in f32.
+//
+// What bounds it on this card: at the serving shape (B = 4, S = 512,
+// H = 32, KV = 8, D = 128, causal, bf16) it must read q, k and v once and
+// write o once, ~42 MB, 0.0125 ms at 3.35 TB/s, against 8.6 GFLOP of
+// causal scores and p @ v, 0.0087 ms on the tensor cores — so the card's
+// bound is the bytes, barely.  This kernel does its math on the CUDA
+// cores (67 TFLOP/s in f32), where the same flops take at least 0.13 ms,
+// and from shared memory, which feeds only 1.3 FMAs per load in the score
+// loop: its own arithmetic, not memory, is its limit.
+//
+// What holds it back (left for later work): scores and p @ v belong on
+// the tensor cores (mma.sync or wgmma on bf16 tiles), tiles should arrive
+// by cp.async or TMA while the previous tile is in use, and k/v are read
+// once per query head where GQA lets one block serve the G heads that
+// share a kv head.
+#include "attention_common.cuh"
+
+namespace {
+
+using namespace attn;
+
+constexpr int kThreads = 256;                // a 16 x 16 thread grid
+constexpr int kBQ = 64;                      // query rows per block
+constexpr int kBK = 32;                      // key positions per tile
+
+struct Params {
+  void* out;                                 // (B, S, H, D), q's dtype
+  const void* q;                             // (B, S, H, D)
+  const void* k;                             // (B, T, KV, D), q's dtype
+  const void* v;
+  int S, T, H, KV;
+  int causal;
+  float scale;                               // 1 / sqrt(D)
+};
+
+// Dynamic shared memory of one block, in bytes.
+inline size_t smem_bytes(int D) {
+  return sizeof(float) * ((size_t)kBQ * (D + 1)    // q tile (padded rows)
+                          + (size_t)kBK * (D + 1)  // k tile (padded rows)
+                          + (size_t)kBK * D        // v tile
+                          + (size_t)kBQ * (kBK + 1)  // scores / p
+                          + 3 * (size_t)kBQ);      // m, l, corr
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_kernel(Params p) {
+  static_assert(D % 16 == 0, "head dim must split over 16 columns");
+  constexpr int DP = D + 1;
+  constexpr int NJ = D / 16;                 // output columns per thread
+  constexpr int SP = kBK + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;                          // kBQ x DP
+  float* ks = qs + kBQ * DP;                 // kBK x DP
+  float* vs = ks + kBK * DP;                 // kBK x D
+  float* ps = vs + kBK * D;                  // kBQ x SP
+  float* ms = ps + kBQ * SP;                 // kBQ
+  float* ls = ms + kBQ;                      // kBQ
+  float* cs = ls + kBQ;                      // kBQ
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int hk = h / (p.H / p.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  T* out = static_cast<T*>(p.out);
+
+  for (int e = tid; e < kBQ * D; e += kThreads) {
+    const int r = e / D, d = e % D, s = q0 + r;
+    qs[r * DP + d] =
+        s < p.S ? to_f32(q[(((size_t)b * p.S + s) * p.H + h) * D + d])
+                : 0.f;                       // pad rows: never stored
+  }
+  for (int r = tid; r < kBQ; r += kThreads) {
+    ms[r] = kNegInf;
+    ls[r] = 0.f;
+  }
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  const int t_end =
+      p.causal ? imin(p.T, imin(q0 + kBQ, p.S)) : p.T;  // past: all masked
+  __syncthreads();
+
+  for (int k0 = 0; k0 < t_end; k0 += kBK) {
+    for (int e = tid; e < kBK * D; e += kThreads) {
+      const int t = e / D, d = e % D, pos = k0 + t;
+      float kx = 0.f, vx = 0.f;
+      if (pos < p.T) {
+        const size_t idx = (((size_t)b * p.T + pos) * p.KV + hk) * D + d;
+        kx = to_f32(k[idx]);
+        vx = to_f32(v[idx]);
+      }
+      ks[t * DP + d] = kx;
+      vs[t * D + d] = vx;
+    }
+    __syncthreads();
+
+    float s[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * DP + d];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) kv[j] = ks[(tx + 16 * j) * DP + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = ty + 16 * i, t = tx + 16 * j;
+        const int kpos = k0 + t;
+        const bool live = kpos < p.T && (!p.causal || kpos <= q0 + r);
+        ps[r * SP + t] = live ? s[i][j] * p.scale : kNegInf;
+      }
+    __syncthreads();
+
+    for (int r = tid; r < kBQ; r += kThreads) {
+      float* pr = ps + r * SP;
+      float mx = kNegInf;
+      for (int t = 0; t < kBK; ++t) mx = fmaxf(mx, pr[t]);
+      const float m_prev = ms[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int t = 0; t < kBK; ++t) {
+        const float pt = expf(pr[t] - m_new);
+        pr[t] = pt;
+        sum += pt;
+      }
+      const float corr = expf(m_prev - m_new);
+      ls[r] = ls[r] * corr + sum;
+      ms[r] = m_new;
+      cs[r] = corr;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float c = cs[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= c;
+    }
+    for (int t = 0; t < kBK; ++t) {
+      float pv[4], vv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * SP + t];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) vv[j] = vs[t * D + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+    __syncthreads();                         // before the next tile lands
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i, s = q0 + r;
+    if (s < p.S) {
+      const float l = fmaxf(ls[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        store_f32(out, (((size_t)b * p.S + s) * p.H + h) * D + tx + 16 * j,
+                  acc[i][j] / l);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t run_typed(const Params& p, int B, int D, cudaStream_t stream) {
+  const dim3 grid(B * p.H, (p.S + kBQ - 1) / kBQ);
+  const size_t smem = smem_bytes(D);
+  switch (D) {
+    case 16:
+      return launch_smem(flash_attention_kernel<T, 16>, grid, kThreads, smem,
+                         stream, p);
+    case 32:
+      return launch_smem(flash_attention_kernel<T, 32>, grid, kThreads, smem,
+                         stream, p);
+    case 64:
+      return launch_smem(flash_attention_kernel<T, 64>, grid, kThreads, smem,
+                         stream, p);
+    case 128:
+      return launch_smem(flash_attention_kernel<T, 128>, grid, kThreads,
+                         smem, stream, p);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// out, q: (B, S, H, D); k, v: (B, T, KV, D), all of dtype code `dtype`
+// (0 f32, 1 bf16), H a multiple of KV; causal 0 or 1.  All device
+// pointers, all contiguous.  Returns the launch's cudaError_t (0 =
+// launched); cudaErrorInvalidValue for a head dim or dtype no kernel was
+// built for (the Python wrapper refuses those before calling).
+extern "C" int flash_attention(void* out, const void* q, const void* k,
+                               const void* v, int B, int S, int T, int H,
+                               int KV, int D, int causal, int dtype,
+                               void* stream) {
+  Params p;
+  p.out = out;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.S = S;
+  p.T = T;
+  p.H = H;
+  p.KV = KV;
+  p.causal = causal;
+  p.scale = (float)(1.0 / sqrt((double)D));  // as math.sqrt in Python
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) return (int)run_typed<float>(p, B, D, s);
+  if (dtype == kBF16) return (int)run_typed<__nv_bfloat16>(p, B, D, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -35,37 +35,13 @@
 // row, so skipping it leaves m, l and acc exactly as visiting it would.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace paged {
 
-constexpr float kNegInf = -1e30f;
+using namespace attn;  // kNegInf, DType, to_f32, store_f32, imin, launch_smem
+
 constexpr int kThreads = 128;
-
-// dtype codes shared with the Python wrappers (kernels/build.py)
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
-
-__device__ __forceinline__ void store_f32(float* p, size_t i, float x) {
-  p[i] = x;
-}
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, size_t i,
-                                          float x) {
-  p[i] = __float2bfloat16_rn(x);
-}
-
-__host__ __device__ __forceinline__ int imin(int a, int b) {
-  return a < b ? a : b;
-}
 
 struct Params {
   void* out;               // same layout and dtype as q
@@ -250,19 +226,5 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
     PAGED_DISPATCH_D(__nv_bfloat16, int8_t)                                 \
   }                                                                         \
   return cudaErrorInvalidValue;
-
-// Runs kernel<<<grid, kThreads, smem, stream>>>(p) after raising the
-// block's dynamic shared memory limit where it needs more than 48 KB.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   const Params& p) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
 
 }  // namespace paged

@@ -55,7 +55,8 @@ cudaError_t run(const paged::Params& p, int B, int D, int q_dtype,
   const dim3 grid(p.KV, B);
   const size_t smem = paged::smem_bytes(D, kRows, p.page);
 #define LAUNCH(QT, KVT, DD) \
-  paged::launch(paged_prefill_kernel<QT, KVT, DD>, grid, smem, stream, p)
+  paged::launch_smem(paged_prefill_kernel<QT, KVT, DD>, grid, \
+                    paged::kThreads, smem, stream, p)
   PAGED_DISPATCH(q_dtype, kv_dtype)
 #undef LAUNCH
 }

@@ -1,0 +1,95 @@
+"""Dense single-token decode attention over the whole-batch cache: the
+CUDA kernel ``csrc/decode_attention.cu`` (replacing the Pallas kernel
+``repro/kernels/decode_attention/decode.py::decode_attention_fwd``) and
+its wrapper.
+
+The wrapper takes the plain version (``ref.decode_attention_ref``) only
+when every tensor lies on the CPU.  For CUDA tensors it checks the
+arguments, launches the kernel on the current stream, or raises — it
+never falls back.  The one place the two differ by design: a slot whose
+window is empty (kv_start[b] >= kv_len) gives exact zeros from the kernel
+and a uniform softmax from the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.decode_attention.paged import HEAD_DIMS, on_cpu
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = Kernel("decode_attention", [_P] * 6 + [_I] * 6 + [_P])
+
+
+def dense_layout(kind: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
+    """q (B, S, H, D) and k, v (B, T, KV, D): contiguous, one dtype (f32
+    or bf16), KV dividing H, a head dim the kernels are built for, and
+    nothing empty.  Returns (B, S, T, H, KV, D); raises ValueError."""
+    if q.ndim != 4 or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{kind}: q must be (B, S, H, D) f32 or bf16, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if k.ndim != 4 or k.shape != v.shape or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{kind}: k and v must be equal (B, T, KV, D) "
+                         f"tensors of q's dtype")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"{kind}: tensors must be contiguous")
+    B, S, H, D = q.shape
+    Bk, T, KV, Dk = k.shape
+    if Bk != B or Dk != D or KV == 0 or H % KV:
+        raise ValueError(f"{kind}: k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (KV must divide H)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{kind}: head dim {D} not in {HEAD_DIMS}")
+    if 0 in (B, S, T, H):
+        raise ValueError(f"{kind}: empty q or cache")
+    return B, S, T, H, KV, D
+
+
+def check_dense(kind: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
+    """``dense_layout``, with every tensor on q's CUDA device."""
+    ts = (q, k, v)
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(f"{kind}: all tensors must lie on one CUDA device "
+                         f"(got {sorted({str(t.device) for t in ts})})")
+    return dense_layout(kind, q, k, v)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: Union[int, torch.Tensor],
+                     kv_start: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """q (B, 1, H, D); k, v (B, T, KV, D) (a layer of the whole-batch
+    cache); kv_len a scalar int or 0-d int tensor (positions >= kv_len
+    masked); kv_start (B,) int tensor or None (positions < kv_start[b]
+    masked).  Returns (B, 1, H, D) in q's dtype."""
+    lens = [t for t in (kv_len, kv_start) if isinstance(t, torch.Tensor)]
+    if on_cpu(q, k, v, *lens):
+        return decode_attention_ref(q, k, v, kv_len, kv_start)
+    B, S, T, H, KV, D = check_dense("decode", q, k, v)
+    if S != 1:
+        raise ValueError("decode attention takes one query token per slot")
+    kvl = torch.as_tensor(kv_len, dtype=torch.int32,
+                          device=q.device).reshape(-1)
+    if kvl.numel() != 1:
+        raise ValueError("decode attention: kv_len must be a scalar")
+    if kv_start is None:
+        start = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    else:
+        start = kv_start.to(device=q.device, dtype=torch.int32).contiguous()
+        if start.shape != (B,):
+            raise ValueError("decode attention: kv_start must be (B,)")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        KERNEL(out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               kvl.data_ptr(), start.data_ptr(), B, T, H, KV, D,
+               DTYPE_CODES[q.dtype],
+               torch.cuda.current_stream(q.device).cuda_stream)
+    return out

@@ -1,12 +1,13 @@
-"""Plain PyTorch versions of the two paged-attention kernels — port of
-``repro/kernels/decode_attention/ref.py``.
+"""Plain PyTorch versions of the dense and the two paged decode-attention
+kernels — port of ``repro/kernels/decode_attention/ref.py``.
 
-A block-table gather materializes each slot's logical view of the pool
-(live pages plus null-page padding, never the whole pool), then
-``direct_attention`` masks and softmaxes it.  The CPU tests hold these
-against the JAX package's Pallas kernels and oracles, the kernel wrappers
-take them for CPU tensors, and ``chip_smoke.py`` holds the CUDA kernels
-against them on the card.
+``decode_attention_ref`` is ``direct_attention`` with the whole-batch
+cache's masks.  For the paged pair, a block-table gather materializes
+each slot's logical view of the pool (live pages plus null-page padding,
+never the whole pool), then ``direct_attention`` masks and softmaxes it.
+The CPU tests hold these against the JAX package's Pallas kernels and
+oracles, the kernel wrappers take them for CPU tensors, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -15,6 +16,18 @@ from typing import Optional
 import torch
 
 from repro_torch.models.attention import direct_attention
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len, kv_start: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """q (B, 1, H, D); k, v (B, T, KV, D); kv_len a scalar (positions >=
+    kv_len masked); kv_start (B,) or None (positions < kv_start[b]
+    masked).  A slot whose window is empty softmaxes uniformly over all T
+    positions here, where the CUDA kernel gives zeros.  Returns
+    (B, 1, H, D)."""
+    return direct_attention(q, k, v, causal=True, q_offset=kv_len - 1,
+                            kv_len=kv_len, kv_start=kv_start)
 
 
 def _gather_logical(q, k_pool, v_pool, block_table, layer,

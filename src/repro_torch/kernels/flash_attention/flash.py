@@ -1,0 +1,64 @@
+"""Flash-attention forward: the CUDA kernel ``csrc/flash_attention.cu``
+(replacing the Pallas kernel
+``repro/kernels/flash_attention/flash.py::flash_attention_fwd`` and its
+jitted wrapper ``ops.py::flash_attention``) and its wrapper.
+
+k and v come unrepeated, (B, T, KV, D) with KV dividing H: query head h
+reads kv head h // (H / KV); KV == H is the JAX signature.  The wrapper
+refuses the shapes the JAX wrapper's asserts refuse (a block size of
+min(512, S) that does not divide S, likewise for T), though the kernel's
+own tiles would take them.  For CPU tensors it takes the plain version —
+the chunked flash reference on repeated kv heads, at the JAX wrapper's
+block sizes; for CUDA tensors it launches the kernel on the current
+stream or raises.
+
+Forward only.  The JAX wrapper's backward (autograd through the chunked
+reference under a custom VJP) belongs to the training slice, so a CUDA
+call that would need a gradient raises instead of returning a detached
+result.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.decode_attention.decode import check_dense
+from repro_torch.kernels.decode_attention.paged import on_cpu
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models.attention import repeat_kv
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = Kernel("flash_attention", [_P] * 4 + [_I] * 8 + [_P])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 512,
+                    block_kv: int = 512) -> torch.Tensor:
+    """q (B, S, H, D); k, v (B, T, KV, D), KV dividing H; causal masking is
+    top-left aligned (row s sees positions <= s).  ``block_q`` and
+    ``block_kv`` are the JAX wrapper's: they decide which shapes are taken
+    and the plain version's chunks, not the kernel's tiles.  Returns
+    (B, S, H, D) in q's dtype."""
+    S, T, H = q.shape[1], k.shape[1], q.shape[2]
+    bq, bkv = min(block_q, S), min(block_kv, T)
+    if bq < 1 or bkv < 1 or S % bq or T % bkv:
+        raise ValueError(f"flash attention: blocks of min({block_q}, S) and "
+                         f"min({block_kv}, T) must divide S = {S} and T = "
+                         f"{T}, as in the JAX wrapper")
+    if on_cpu(q, k, v):
+        return flash_attention_ref(q, repeat_kv(k, H), repeat_kv(v, H),
+                                   causal, bq, bkv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash attention on the card is forward only: its backward "
+            "comes with the training slice of the port")
+    B, S, T, H, KV, D = check_dense("flash", q, k, v)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        KERNEL(out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               B, S, T, H, KV, D, int(bool(causal)), DTYPE_CODES[q.dtype],
+               torch.cuda.current_stream(q.device).cuda_stream)
+    return out

@@ -1,15 +1,18 @@
-"""Serving launcher of the port: the paged continuous-batching engine on
-one card.
+"""Serving launcher of the port: the paged continuous-batching engine, or
+whole-batch lockstep generation, on one card.
 
     python -m repro_torch.launch.serve                    # granite-8b, cuda
+    python -m repro_torch.launch.serve --whole-batch      # ServingEngine
+    python -m repro_torch.launch.serve --whole-batch --legacy-loop
     python -m repro_torch.launch.serve --local-smoke --device cpu
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device
-(nothing is downloaded).  The demo workload is the JAX launcher's: twice
-``--batch`` requests of a shared system prompt plus a short random tail,
-with staggered output budgets.  Prefix sharing, retention, preemption,
-deadlines, speculation, snapshots and int8 pools are not ported yet, so
-their flags are absent.
+(nothing is downloaded).  The demo workloads are the JAX launcher's: for
+the paged engine, twice ``--batch`` requests of a shared system prompt
+plus a short random tail, with staggered output budgets; for
+``--whole-batch``, ``--batch`` random prompts of 4-15 tokens.  Prefix
+sharing, retention, preemption, deadlines, speculation, snapshots and
+int8 pools are not ported yet, so their flags are absent.
 """
 import argparse
 import sys
@@ -27,6 +30,12 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--whole-batch", action="store_true",
+                    help="lockstep whole-batch generation (ServingEngine) "
+                         "instead of the paged continuous-batching engine")
+    ap.add_argument("--legacy-loop", action="store_true",
+                    help="with --whole-batch: per-token host loop instead "
+                         "of the fused decode_many")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=4,
                     help="decode steps per engine tick")
@@ -37,6 +46,9 @@ def main() -> int:
                     help="accepted by the paged kernels; changes no result")
     ap.add_argument("--sys-prompt-tokens", type=int, default=16)
     args = ap.parse_args()
+    if args.legacy_loop and not args.whole_batch:
+        ap.error("--legacy-loop only applies to --whole-batch generation "
+                 "(the paged engine always runs the fused decode cell)")
     if args.page_size < 1:
         ap.error("--page-size must be >= 1 (tokens per KV page)")
     if args.pages_per_step < 1:
@@ -50,7 +62,8 @@ def main() -> int:
 
     from repro_torch import configs
     from repro_torch.models.model import get_model
-    from repro_torch.serve.engine import PagedEngine, ServeConfig
+    from repro_torch.serve.engine import (PagedEngine, ServeConfig,
+                                          ServingEngine)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("[launch.serve] no CUDA device: the port serves on the card "
@@ -71,12 +84,16 @@ def main() -> int:
     scfg = ServeConfig(max_batch=args.batch, max_seq=max_seq,
                        max_new_tokens=args.new_tokens,
                        temperature=args.temperature,
+                       fused=not args.legacy_loop,
                        page_size=args.page_size,
                        prefill_chunk=args.prefill_chunk,
                        prefill_chunk_tokens=args.prefill_chunk_tokens,
                        prefix_sharing=False, retain_prefixes=False)
-    engine = PagedEngine(model, params, scfg)
     rng = np.random.RandomState(0)
+    if args.whole_batch:
+        return whole_batch(ServingEngine(model, params, scfg), rng, cfg,
+                           args, device)
+    engine = PagedEngine(model, params, scfg)
     sys_prompt = rng.randint(0, cfg.vocab_size,
                              size=args.sys_prompt_tokens).astype(np.int32)
     rids = [engine.submit(
@@ -101,6 +118,30 @@ def main() -> int:
           f"{n_tok} tokens, {engine.joins} joins over {args.batch} slots "
           f"in {engine.steps_run} ticks, {dt:.2f} s "
           f"({n_tok / dt:.1f} tokens/s, host clock)")
+    return 0
+
+
+def whole_batch(engine, rng, cfg, args, device) -> int:
+    """``--batch`` random prompts of 4-15 tokens through
+    ``ServingEngine.generate_batch``; prints the tokens and host-clock
+    tokens/s."""
+    import torch
+    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(4, 16)
+                           ).astype(np.int32) for _ in range(args.batch)]
+    t0 = time.perf_counter()
+    outs = engine.generate_batch(prompts)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(o) for o in outs)
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        print("[launch.serve] out-of-vocab tokens", file=sys.stderr)
+        return 1
+    mode = ("legacy per-token loop" if args.legacy_loop
+            else "fused decode_many")
+    print(f"[launch.serve] {cfg.name} on {device}: generated {n_tok} tokens "
+          f"across {len(outs)} requests ({mode}), {dt:.2f} s "
+          f"({n_tok / dt:.1f} tokens/s, host clock, prefill included)")
     return 0
 
 

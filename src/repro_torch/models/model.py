@@ -1,10 +1,12 @@
-"""Model facade for the paged serving path — port of the paged subset of
+"""Model facade for the serving paths — port of the dense subset of
 ``repro/models/model.py``.
 
-``Model(cfg)`` exposes init, the paged cache and the paged steps.  The
-JAX cells are ``lax.scan``s jitted with donated caches; here they are
-Python loops over steps, updating the cache in place, with sampling on
-the device.  Randomness comes from an explicit ``torch.Generator``.
+``Model(cfg)`` exposes init, the whole-batch cache and its steps
+(``prefill``, ``decode_step``, ``decode_many``), and the paged cache and
+its steps.  The JAX cells are ``lax.scan``s jitted with donated caches;
+here they are Python loops over steps, updating the cache in place, with
+sampling on the device.  Randomness comes from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 @dataclasses.dataclass
 class Model:
-    """``plain_attention=True`` routes the paged attention through the
+    """``plain_attention=True`` routes every attention call through the
     plain PyTorch versions on every device: the reference the kernel path
     is held against on the card.  Serving leaves it False."""
     cfg: ArchConfig
@@ -43,6 +45,63 @@ class Model:
 
     def init(self, generator: torch.Generator, device="cuda"):
         return init_params(self.cfg, generator, device)
+
+    # -- whole-batch cache and steps ------------------------------------
+
+    def cache_decls(self, batch: int, max_seq: int):
+        return T.cache_decls(self.cfg, batch, max_seq)
+
+    def init_cache(self, batch: int, max_seq: int,
+                   device="cuda") -> Dict[str, Any]:
+        return init_from_schema(self.cache_decls(batch, max_seq), None,
+                                device, self.cfg.param_dtype)
+
+    def prefill(self, params, batch: Dict[str, Any]):
+        """batch {"tokens": (B, S) int, "positions": optional (B, S)}.
+        Returns (last-position logits (B, V) f32, cache parts {"k", "v"}
+        (L, B, S, KV, hd))."""
+        inputs = batch["tokens"]
+        positions = batch.get("positions")
+        if positions is None:
+            B, S = inputs.shape
+            positions = torch.arange(S, device=inputs.device)[None].expand(
+                B, S)
+        logits, _, cache = T.lm_forward(params, self.cfg, inputs, positions,
+                                        mode="prefill",
+                                        plain=self.plain_attention)
+        return logits[:, -1], cache
+
+    def decode_step(self, params, tokens, cache):
+        """tokens (B, 1) int; returns (logits (B, V) f32, cache)."""
+        return T.lm_decode(params, self.cfg, tokens, cache,
+                           self.plain_attention)
+
+    def decode_many(self, params, tokens, cache, generator, num_steps: int,
+                    temperature: float = 0.0, eos_id: int = -1,
+                    pad_id: int = 0):
+        """``num_steps`` lockstep decode steps with sampling on the device:
+        tokens (B, 1) — the last sampled token per slot.  ``eos_id < 0``
+        disables stop conditions; a finished slot keeps advancing the
+        cache but emits ``pad_id``.  Returns (out_tokens (num_steps, B)
+        int32, cache, done (B,) bool)."""
+        B = tokens.shape[0]
+        done = (tokens[:, 0] == eos_id) if eos_id >= 0 else torch.zeros(
+            B, dtype=torch.bool, device=tokens.device)
+        pad = torch.tensor(pad_id, dtype=torch.int32, device=tokens.device)
+        tok, out = tokens, []
+        for _ in range(num_steps):
+            logits, cache = self.decode_step(params, tok, cache)
+            nxt = sample_token(logits, generator, temperature)
+            nxt = torch.where(done, pad, nxt)
+            if eos_id >= 0:
+                done = done | (nxt == eos_id)
+            tok = nxt[:, None]
+            out.append(nxt)
+        toks = torch.stack(out) if out else torch.zeros(
+            (0, B), dtype=torch.int32, device=tokens.device)
+        return toks, cache, done
+
+    # -- paged cache and steps ------------------------------------------
 
     def init_paged_cache(self, batch: int, max_blocks: int, page_size: int,
                          num_pages: int, device="cuda") -> Dict[str, Any]:

@@ -1,18 +1,23 @@
-"""The paged decoder-only LM: schema, the two paged attention paths
-(decode and ragged prefill), the dense FFN and the paged forward passes.
+"""The dense decoder-only LM: schema, the whole-batch forward
+(``lm_forward``: train / prefill / hidden) and decode step
+(``lm_decode``) over a (L, B, T, KV, hd) cache, the two paged attention
+paths (decode and ragged prefill), the dense FFN and the paged forward
+passes.
 
-Port of the dense paged subset of ``repro/models/transformer.py``.  The
+Port of the dense subset of ``repro/models/transformer.py``.  The
 ``lax.scan`` over stacked layers becomes a Python loop over the layer
-index; the pools are updated IN PLACE (``index_put_``) where the JAX
-functions return updated copies, so the returned cache holds the same
-pool tensors it was given.  Sharding constraints have no counterpart on
-one card and are dropped.
+index; caches and pools are updated IN PLACE where the JAX functions
+return updated copies, so the returned cache holds the same tensors it
+was given.  The remat grouping of ``lm_forward`` does nothing in a
+forward pass and is dropped, as are the sharding constraints, which have
+no counterpart on one card.
 
 Attention: ``plain=False`` (the default, and the serving path) calls the
 kernel wrappers, which launch the CUDA kernels for CUDA tensors and run
-the plain version for CPU tensors.  ``plain=True`` calls the plain
-versions on any device — the reference that ``chip_smoke.py`` holds the
-kernel path against on the card.
+the plain version for CPU tensors (for the flash kernel, ``attention``
+keeps the JAX reference dispatch on the CPU).  ``plain=True`` calls the
+plain versions on any device — the reference that ``chip_smoke.py``
+holds the kernel path against on the card.
 """
 from __future__ import annotations
 
@@ -22,9 +27,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import (
-    paged_decode_attention, paged_prefill_attention)
+    decode_attention, paged_decode_attention, paged_prefill_attention)
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, paged_prefill_attention_ref)
+from repro_torch.models.attention import attention, direct_attention
 from repro_torch.models.kv_quant import quantize_rows
 from repro_torch.models.layers import (
     apply_rope, dense, embed, rmsnorm, rope_angles, swiglu, unembed)
@@ -33,8 +39,9 @@ from repro_torch.models.params import ParamDecl, map_schema, stacked
 
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.mamba_version or cfg.is_encoder_decoder:
-        raise ValueError("paged serving requires a decoder-only attention "
-                         "LM (per-slot page tables)")
+        raise ValueError("the port serves decoder-only attention LMs "
+                         "(the SSM and encoder-decoder families are not "
+                         "ported)")
     for what, unsupported in (("MoE", cfg.n_experts),
                               ("M-RoPE", cfg.mrope_sections),
                               ("layernorm", cfg.norm_kind != "rmsnorm"),
@@ -88,6 +95,23 @@ def schema(cfg: ArchConfig) -> Dict[str, Any]:
              "attn": _attn_decls(cfg), "ffn": _ffn_decls(cfg)}
     sch["blocks"] = map_schema(lambda x: stacked(x, cfg.n_layers), block)
     return sch
+
+
+def cache_decls(cfg: ArchConfig, batch: int, max_seq: int
+                ) -> Dict[str, Any]:
+    """Whole-batch decode cache of the dense family: the shared position
+    ``pos`` (the row the next token is written to, and its rope
+    position), the per-slot window base ``start`` (0 for whole-batch
+    generation: slot b attends [start[b], pos]) and (L, batch, max_seq,
+    KV, hd) k/v caches in the param dtype."""
+    _check_supported(cfg)
+    hd, KV, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
+    return {
+        "pos": ParamDecl((), "zeros", torch.int32),
+        "start": ParamDecl((batch,), "zeros", torch.int32),
+        "k": ParamDecl((L, batch, max_seq, KV, hd), "zeros"),
+        "v": ParamDecl((L, batch, max_seq, KV, hd), "zeros"),
+    }
 
 
 def paged_cache_decls(cfg: ArchConfig, batch: int, max_blocks: int,
@@ -155,6 +179,44 @@ def _write_rows(cache, layer: int, phys, off, k, v) -> None:
     else:
         cache["k"][layer, phys, off] = k.to(cache["k"].dtype)
         cache["v"][layer, phys, off] = v.to(cache["v"].dtype)
+
+
+def attn_apply(h, p, cfg: ArchConfig, rope, causal: bool = True,
+               plain: bool = False):
+    """Train/prefill attention over the whole sequence: h (B, S, d); p is
+    the block's parameters (ln1 + attn).  Returns (out, (k, v)) — k and v
+    (B, S, KV, hd) after rope, for the prefill cache."""
+    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    a = p["attn"]
+    q, k, v = _qkv(hn, a, cfg, rope)
+    out = attention(q, k, v, causal=causal, chunk_q=cfg.attn_chunk_q,
+                    chunk_kv=cfg.attn_chunk_kv, plain=plain)
+    B, S = out.shape[:2]
+    return dense(out.reshape(B, S, -1), a["wo"]), (k, v)
+
+
+def attn_decode(h, p, cfg: ArchConfig, rope, k_cache, v_cache, pos,
+                start=None, plain: bool = False):
+    """Whole-batch decode: h (B, 1, d); k_cache, v_cache (B, T, KV, hd),
+    one layer's contiguous view of the stacked cache; pos a 0-d int
+    tensor.  Writes this step's K/V IN PLACE at row ``pos`` (clamped into
+    the cache, as ``dynamic_update_slice`` clamps) and attends over
+    [start[b], pos] (``start`` None -> 0).  Returns (out, k_cache,
+    v_cache)."""
+    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    a = p["attn"]
+    q, k, v = _qkv(hn, a, cfg, rope)
+    row = torch.clamp(pos, 0, k_cache.shape[1] - 1).reshape(1).long()
+    k_cache.index_copy_(1, row, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, row, v.to(v_cache.dtype))
+    if plain:
+        out = direct_attention(q, k_cache, v_cache, causal=True,
+                               q_offset=pos, kv_len=pos + 1, kv_start=start)
+    else:
+        out = decode_attention(q, k_cache, v_cache, kv_len=pos + 1,
+                               kv_start=start)
+    B = h.shape[0]
+    return dense(out.reshape(B, 1, -1), a["wo"]), k_cache, v_cache
 
 
 def attn_decode_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
@@ -228,6 +290,17 @@ def decode_ffn(h, p, cfg: ArchConfig):
     return h + ffn_apply(h, p, cfg)
 
 
+def dense_block(h, p, cfg: ArchConfig, rope, plain: bool = False):
+    """One dense block over the whole sequence.  Returns (h, aux, (k, v));
+    aux is the MoE load-balance loss, 0 for the dense FFN (MoE is refused
+    by ``_check_supported``)."""
+    out, kv = attn_apply(h, p, cfg, rope, causal=cfg.causal, plain=plain)
+    h = h + out
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = h + ffn_apply(h, p, cfg)
+    return h, aux, kv
+
+
 def _embed_in(params, cfg: ArchConfig, tokens):
     return embed(tokens, params["embed"]).to(cfg.param_dtype)
 
@@ -237,6 +310,67 @@ def _logits_exact(params, cfg: ArchConfig, h):
     h = rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed(h.to(torch.float32), table.to(torch.float32))
+
+
+def _logits(params, cfg: ArchConfig, h):
+    """Logits in the activation dtype (training's full-sequence logits)."""
+    h = rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return unembed(h, table)
+
+
+# ---------------------------------------------------------------------------
+# whole-batch forward passes
+# ---------------------------------------------------------------------------
+
+def lm_forward(params, cfg: ArchConfig, inputs, positions,
+               mode: str = "train", plain: bool = False):
+    """inputs: tokens (B, S) int; positions (B, S).  mode: train | prefill
+    | hidden — hidden returns the post-ln_f hidden states; prefill returns
+    only the LAST position's logits, (B, 1, V) at f32, and the cache parts
+    {"k", "v"}: (L, B, S, KV, hd) stacks of every layer's K/V.  Returns
+    (logits_or_hidden, aux, cache_parts or None)."""
+    assert mode in ("train", "prefill", "hidden")
+    _check_supported(cfg)
+    h = _embed_in(params, cfg, inputs)
+    rope = _rope(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    ks, vs = [], []
+    for li in range(cfg.n_layers):
+        p = layer_params(params["blocks"], li)
+        h, aux_i, (k, v) = dense_block(h, p, cfg, rope, plain)
+        aux = aux + aux_i
+        if mode == "prefill":
+            ks.append(k)
+            vs.append(v)
+    if mode == "hidden":
+        return rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps), aux, None
+    if mode == "prefill":
+        return (_logits_exact(params, cfg, h[:, -1:]), aux,
+                {"k": torch.stack(ks), "v": torch.stack(vs)})
+    return _logits(params, cfg, h), aux, None
+
+
+def lm_decode(params, cfg: ArchConfig, tokens, cache, plain: bool = False):
+    """tokens (B, 1) int; cache {"pos", "start", "k", "v"} from
+    ``cache_decls``.  ``pos`` is both the cache ROW the new token is
+    written to and its rope position (whole-batch generation never
+    rebases rows).  Returns (logits (B, V) f32, cache) — the k/v caches
+    updated in place, "pos" advanced by one."""
+    _check_supported(cfg)
+    B = tokens.shape[0]
+    pos = cache["pos"]
+    positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
+    rope = _rope(cfg, positions)
+    h = _embed_in(params, cfg, tokens)
+    start = cache.get("start")
+    for li in range(cfg.n_layers):
+        p = layer_params(params["blocks"], li)
+        out, _, _ = attn_decode(h, p, cfg, rope, cache["k"][li],
+                                cache["v"][li], pos, start, plain)
+        h = decode_ffn(h + out, p, cfg)
+    cache["pos"] = pos + 1
+    return _logits_exact(params, cfg, h)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,15 @@
-"""The paged continuous-batching engine — port of
-``repro/serve/engine.py::PagedEngine`` (prefill lane plus the plain decode
-twin).
+"""Serving engines — port of ``repro/serve/engine.py``: ``ServingEngine``
+(whole-batch lockstep generation) and ``PagedEngine`` (paged continuous
+batching: the prefill lane plus the plain decode twin).
 
-Each tick: admit queued requests into free slots, let the
+``ServingEngine`` prefills every prompt at once (right-aligned, pad 0,
+and — as in the JAX package — no pad mask) through the flash kernel,
+scatters the prefill K/V into a fresh (L, B, S + new, KV, hd) cache, and
+decodes all sequences in lockstep through the dense decode kernel: fused
+(``Model.decode_many``, sampling on the device) or as the legacy loop
+with a host round trip per token.
+
+``PagedEngine``: each tick: admit queued requests into free slots, let the
 ``TickScheduler`` grant per-slot work over the ``PagedKVCache``, patch the
 device copies of the block table and lengths at the rows that changed,
 then run at most two steps on the device — one ragged prefill chunk
@@ -24,12 +31,13 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, sample_token
 from repro_torch.serve.cache import PagedKVCache
 from repro_torch.serve.scheduler import TickScheduler
 
@@ -47,7 +55,8 @@ class ServeConfig:
     seed: int = 0
     eos_id: int = -1                  # < 0: no stop condition
     pad_id: int = 0
-    fused: bool = True                # whole-batch engine only
+    fused: bool = True                # ServingEngine: decode_many vs the
+                                      # per-token loop
     page_size: int = 16
     max_blocks: int = 0               # 0: ceil(max_seq / page_size)
     num_pages: int = 0                # 0: fit every slot's full table
@@ -105,6 +114,137 @@ class _Slot:
     served: int = 0
     prompt_left: int = 0
     active: bool = False
+
+
+class ServingEngine:
+    """Whole-batch greedy/temperature generation over a shared batched KV
+    cache (see the module docstring).  The JAX engine's donated ``jit``
+    cells become direct calls that update the cache in place; its sampler
+    key becomes one ``torch.Generator`` on the parameters' device, seeded
+    from ``cfg.seed`` and carried across calls."""
+
+    def __init__(self, model: Model, params, cfg: ServeConfig):
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        self.device = params["embed"].device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        return sample_token(logits, self.generator, self.cfg.temperature)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _prefill_cache(self, prompts: List[np.ndarray], mnt: int):
+        """Right-aligns the prompts to a common length S with pad 0 (no pad
+        mask, as in the JAX package), prefills once, and copies the prefill
+        K/V into a fresh decode cache of S + mnt rows."""
+        B = len(prompts)
+        S = max(len(p) for p in prompts)
+        toks = np.zeros((B, S), np.int32)
+        for i, p in enumerate(prompts):            # right-align
+            toks[i, S - len(p):] = p
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        last_logits, cache_parts = self.model.prefill(self.params, batch)
+        cache = self.model.init_cache(B, S + mnt, self.device)
+        for k, src in (cache_parts or {}).items():
+            cache[k][tuple(slice(0, n) for n in src.shape)] = src.to(
+                cache[k].dtype)
+        cache["pos"] = torch.tensor(S, dtype=torch.int32, device=self.device)
+        return last_logits, cache
+
+    def generate_batch(self, prompts: List[np.ndarray],
+                       max_new_tokens: Optional[int] = None,
+                       fused: Optional[bool] = None) -> List[List[int]]:
+        """Prefill once, then decode all sequences in lockstep.  ``fused``
+        (default ``cfg.fused``) runs the token loop with sampling on the
+        device and one read back at the end; ``fused=False`` is the legacy
+        loop, reading every token back to the host (same tokens)."""
+        cfg = self.cfg
+        mnt = max_new_tokens or cfg.max_new_tokens
+        fused = cfg.fused if fused is None else fused
+        B = len(prompts)
+
+        last_logits, cache = self._prefill_cache(prompts, mnt)
+        first = self._sample(last_logits)
+        if fused:
+            toks, cache, _done = self.model.decode_many(
+                self.params, first[:, None], cache, self.generator,
+                num_steps=mnt - 1, temperature=cfg.temperature,
+                eos_id=cfg.eos_id, pad_id=cfg.pad_id)
+            all_toks = torch.cat([first[None], toks]).cpu().numpy()
+        else:
+            tok = first[:, None]
+            rows = [first.cpu().numpy()]
+            for _ in range(mnt - 1):
+                logits, cache = self.model.decode_step(self.params, tok,
+                                                       cache)
+                t = self._sample(logits)
+                tok = t[:, None]
+                rows.append(t.cpu().numpy())       # per-token host sync
+            all_toks = np.stack(rows, axis=0)
+
+        outs: List[List[int]] = []
+        for i in range(B):
+            col = [int(t) for t in all_toks[:, i]]
+            if cfg.eos_id >= 0 and cfg.eos_id in col:
+                col = col[: col.index(cfg.eos_id) + 1]
+            outs.append(col)
+        return outs
+
+    def benchmark_decode(self, batch: int, seq: int, steps: int = 8
+                         ) -> Dict[str, float]:
+        """Host-clock decode throughput on the engine's device: the fused
+        loop against the legacy per-step loop, each from a fresh cache at
+        position seq // 2, after one warm-up call."""
+        assert seq // 2 + 2 * steps + 2 <= seq, \
+            f"steps={steps} overruns the cache (seq={seq})"
+
+        def fresh_cache():
+            cache = self.model.init_cache(batch, seq, self.device)
+            cache["pos"] = torch.tensor(seq // 2, dtype=torch.int32,
+                                        device=self.device)
+            return cache
+
+        tok0 = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
+
+        # legacy: one step + argmax + host read per token
+        cache = fresh_cache()
+        logits, cache = self.model.decode_step(self.params, tok0, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = self.model.decode_step(self.params, tok, cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            tok.cpu()                              # the per-token round trip
+        dt_loop = (time.perf_counter() - t0) / steps
+
+        # fused: the whole token loop, read back once
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.cfg.seed)
+        cache = fresh_cache()
+        toks, cache, _ = self.model.decode_many(self.params, tok0, cache, gen,
+                                                num_steps=steps)
+        self._sync()
+        t0 = time.perf_counter()
+        toks, cache, _ = self.model.decode_many(self.params, tok0, cache, gen,
+                                                num_steps=steps)
+        self._sync()
+        dt_fused = (time.perf_counter() - t0) / steps
+
+        return {
+            "s_per_step": dt_fused,
+            "tokens_per_s": batch / dt_fused,
+            "s_per_step_fused": dt_fused,
+            "tokens_per_s_fused": batch / dt_fused,
+            "s_per_step_loop": dt_loop,
+            "tokens_per_s_loop": batch / dt_loop,
+            "fused_speedup": dt_loop / dt_fused,
+        }
 
 
 def _refuse_unported(cfg: ServeConfig, model: Model, full_pool: int) -> None:

@@ -1,12 +1,13 @@
 """The CUDA kernels' own source, compiled for the CPU and held against the
 plain versions.
 
-The CUDA kernels (``src/repro_torch/csrc/*.cu``: paged attention and
-BabelStream's five) build only with nvcc, on the card.  Here the same
-sources are compiled with g++ against small stand-ins for
-``cuda_runtime.h`` and ``cuda_bf16.h``: each thread block runs as many
-``std::thread``s as its launch asks for (128 for the paged kernels, 1024
-for the stream kernels), sharing one ``std::barrier`` for
+The CUDA kernels (``src/repro_torch/csrc/*.cu``: paged attention, dense
+decode attention, flash attention and BabelStream's five) build only with
+nvcc, on the card.  Here the same sources are compiled with g++ against
+small stand-ins for ``cuda_runtime.h`` and ``cuda_bf16.h``: each thread
+block runs as many ``std::thread``s as its launch asks for (128 for the
+paged and decode kernels, 256 for flash, 1024 for the stream kernels),
+sharing one ``std::barrier`` for
 ``__syncthreads()``; blocks run one after another, and the two CUDA-only
 spellings (``<<<...>>>`` and ``extern __shared__``) are rewritten.
 ``__shfl_down_sync`` is a slot per thread and two block barriers, which
@@ -30,9 +31,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import paged, prefill_paged
+from repro_torch.kernels.decode_attention import decode, paged, prefill_paged
 from repro_torch.kernels.decode_attention.ref import (
-    paged_decode_attention_ref, paged_prefill_attention_ref)
+    decode_attention_ref, paged_decode_attention_ref,
+    paged_prefill_attention_ref)
+from repro_torch.kernels.flash_attention import flash
+from repro_torch.models.attention import repeat_kv
+from repro_torch.models.flash import flash_attention_ref
 from repro_torch.kernels.stream import ref as stream_ref
 from repro_torch.kernels.stream import stream
 from repro_torch.models.kv_quant import quantize_rows
@@ -153,6 +158,11 @@ def cuda_path_on_cpu(emulated, monkeypatch):
         monkeypatch.setattr(mod, "check_args",
                             lambda kind, *a: paged.check_layout(kind, *a))
         monkeypatch.setattr(mod.KERNEL, "_fn", None)
+    for mod in (decode, flash):
+        monkeypatch.setattr(mod, "on_cpu", lambda *a: False)
+        monkeypatch.setattr(mod, "check_dense",
+                            lambda kind, *a: decode.dense_layout(kind, *a))
+        monkeypatch.setattr(mod.KERNEL, "_fn", None)
     monkeypatch.setattr(stream, "on_cpu", lambda *a: False)
     monkeypatch.setattr(stream, "check_device", lambda *a: None)
     for kernel in stream.KERNELS.values():
@@ -239,6 +249,76 @@ def test_emulated_decode_at_page_boundaries(cuda_path_on_cpu):
     got = paged.paged_decode_attention(q, kp, vp, tbl, kv_len, layer)
     want = paged_decode_attention_ref(q, kp, vp, tbl, kv_len, layer)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _dense(seed, B, S, T, H, KV, D, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dtype)
+            for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+# (B, T, H, KV, D, dtype): GQA; MQA over two 64-position tiles; G = 7;
+# granite's G = 4 at D = 128; MHA
+DECODE_CASES = [(2, 24, 4, 2, 16, torch.float32),
+                (3, 150, 4, 1, 32, torch.float32),
+                (2, 40, 14, 2, 64, torch.bfloat16),
+                (2, 20, 32, 8, 128, torch.bfloat16),
+                (2, 9, 4, 4, 16, torch.float32)]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_emulated_decode_attention_matches_plain(case, cuda_path_on_cpu):
+    """A scalar kv_len below T and kv_start > 0 in every slot but the
+    first; then no kv_start at all; then an empty window (kv_start >=
+    kv_len) in slot 1, which the kernel gives as exact zeros."""
+    B, T, H, KV, D, dtype = case
+    q, k, v = _dense(T + H, B, 1, T, H, KV, D, dtype)
+    tol = TOL[dtype]
+    kv_len = torch.tensor(T - 3, dtype=torch.int32)
+    start = torch.tensor([0] + [1 + 5 * b % (T - 4) for b in range(1, B)],
+                         dtype=torch.int32)           # all below kv_len
+    n0 = decode.KERNEL.launches
+    for s in (start, None):
+        got = decode.decode_attention(q, k, v, kv_len, s)
+        want = decode_attention_ref(q, k, v, kv_len, s)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    empty = start.clone()
+    empty[1] = T - 3
+    got = decode.decode_attention(q, k, v, kv_len, empty)
+    want = decode_attention_ref(q, k, v, kv_len, empty)
+    assert (got[1] == 0).all()
+    keep = torch.arange(B) != 1
+    torch.testing.assert_close(got[keep].float(), want[keep].float(),
+                               rtol=tol, atol=tol)
+    assert decode.KERNEL.launches == n0 + 3
+
+
+# (B, S, T, H, KV, D, causal, dtype): a ragged causal S with GQA; two
+# ragged q tiles over two ragged k/v tiles, non-causal; S != T, MQA;
+# granite's head dim and group, causal; MHA, S == T == 64 exactly
+FLASH_CASES = [(2, 37, 37, 4, 2, 16, True, torch.float32),
+               (1, 70, 70, 2, 2, 32, False, torch.bfloat16),
+               (2, 20, 45, 4, 1, 16, False, torch.float32),
+               (1, 33, 33, 8, 2, 128, True, torch.bfloat16),
+               (1, 64, 64, 2, 2, 64, True, torch.float32)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_emulated_flash_attention_matches_plain(case, cuda_path_on_cpu):
+    """k and v unrepeated (KV dividing H); the plain version runs on them
+    repeated to H heads."""
+    B, S, T, H, KV, D, causal, dtype = case
+    q, k, v = _dense(S + T + D, B, S, T, H, KV, D, dtype)
+    tol = TOL[dtype]
+    n0 = flash.KERNEL.launches
+    got = flash.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, repeat_kv(k, H), repeat_kv(v, H), causal,
+                               S, T)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert flash.KERNEL.launches == n0 + 1
 
 
 # (rows, cols): one full block; a ragged 3-block array (guard, and a

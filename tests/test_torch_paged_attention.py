@@ -203,11 +203,13 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 def test_build_plumbing_without_nvcc(tmp_path, monkeypatch):
     """The package imports and its CPU paths run without nvcc; the build
     compiles each source separately for sm_90a and links one library."""
-    assert [p.name for p in build.sources()] == ["paged_decode.cu",
+    assert [p.name for p in build.sources()] == ["decode_attention.cu",
+                                                 "flash_attention.cu",
+                                                 "paged_decode.cu",
                                                  "paged_prefill.cu",
                                                  "stream.cu"]
     cmds = build.compile_commands("nvcc", tmp_path)
-    assert len(cmds) == 4 and all("arch=compute_90a,code=sm_90a" in c
+    assert len(cmds) == 6 and all("arch=compute_90a,code=sm_90a" in c
                                   for c in cmds)
     assert str(tmp_path / "libkernels.so") in cmds[-1]
     monkeypatch.setenv("PATH", str(tmp_path))
