@@ -41,6 +41,21 @@ Phases, each failing loudly (non-zero exit, no result line):
                greedy tokens identical, through the engine and through
                ``ServingEngine`` (prompts of multiples of 32 tokens, so
                the plain side takes the chunked flash reference).
+     ssm     — the selective-scan kernel against its plain version (f32
+               and bf16; B 1 and 4; N 8 and 16; d_in 128, 1000 and 8192;
+               S 1, 37, 512 and 2048; B and C strided views, as the model
+               passes them).  Then falcon-mamba-7b at full width and depth
+               (64 Mamba1 layers, bf16, random weights from a seeded
+               generator) through ``ServingEngine``: 4 prompts of 64-500
+               tokens, 32 new tokens, greedy; the scan kernel must run
+               exactly once per layer per prefill; fused and legacy loops
+               give identical tokens; the prefill's logits and state and
+               one decode step's logits on the kernel path are held
+               against the plain path.  Then falcon-mamba (reduced) in
+               f32, kernel against plain path, greedy tokens identical;
+               and the kernel and plain version timed at the phase's
+               shape beside the bound (no single PyTorch call computes a
+               selective scan, so no library time).
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, an odd
                shape that exercises the bounds guard, and BabelStream's
@@ -95,7 +110,8 @@ DENSE_KERNELS = {                # name: (source, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention/flash.py:83"),
 }
 # kernels with loops, which the SASS census must refuse (matched by name)
-LOOPED = ("paged_", "decode_attention_kernel", "flash_attention_kernel")
+LOOPED = ("paged_", "decode_attention_kernel", "flash_attention_kernel",
+          "selective_scan_kernel")
 
 
 def log(msg: str) -> None:
@@ -119,7 +135,7 @@ def log_ptxas(path: Path) -> None:
     for line in path.read_text().splitlines():
         m = re.search(r"entry function '[^']*?(paged_(?:decode|prefill)_"
                       r"kernel|decode_attention_kernel|flash_attention_kernel"
-                      r"|stream_[a-z]+)", line)
+                      r"|selective_scan_kernel|stream_[a-z]+)", line)
         if m:
             kernel = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
@@ -815,6 +831,298 @@ def whole_batch_parity(torch):
 
 
 # ---------------------------------------------------------------------------
+# whole-batch serving of falcon-mamba-7b: the selective-scan kernel
+# ---------------------------------------------------------------------------
+
+SCAN_SOURCE = "src/repro_torch/csrc/selective_scan.cu"
+SCAN_REPLACES = "src/repro/kernels/ssm_scan/scan.py:63"
+# exponentials on the special-function units: 16 MUFU.EX2 per SM per clock
+# (CUDA C++ Programming Guide, arithmetic throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz; expf takes one MUFU.EX2
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# Tolerances of the scan kernel against its plain version, with reasons
+# (rtol, atol, why):
+SCAN_TOL = {
+    "float32": (2e-5, 2e-5, "f32: only the order of the N-sum and the exp "
+                            "implementations differ (as tests/"
+                            "test_ssm_scan_kernel.py holds Pallas against "
+                            "jnp)"),
+    "bfloat16": (2.0 ** -7 + 2e-5, 2e-5,
+                 "bf16 y: the f32 bound plus one bf16 ulp (2^-7 relative), "
+                 "the output's own rounding of two f32 values that differ "
+                 "by that much; h_final is f32 on both sides from the same "
+                 "upcast inputs, so 2e-5"),
+}
+
+
+def scan_inputs(gen, B, S, d_in, N, dtype, dt_rank=256):
+    """Random scan inputs on the card, scaled as the JAX kernel test's
+    (dt a softplus of a shifted normal, A = -exp(normal * 0.3)); Bc and Cc
+    are column slices of one (B, S, dt_rank + 2N) tensor, as the model's
+    x_proj output is sliced (falcon-mamba's dt_rank is 256)."""
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn(B, S, d_in, generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(B, S, d_in, generator=gen, device="cuda")
+                    * 0.5 - 1.0).to(dtype)
+    A = -torch.exp(torch.randn(d_in, N, generator=gen, device="cuda") * 0.3)
+    dbc = torch.randn(B, S, dt_rank + 2 * N, generator=gen,
+                      device="cuda").to(dtype)
+    return x, dt, A, dbc[..., dt_rank:dt_rank + N], dbc[..., dt_rank + N:]
+
+
+def scan_checks(torch):
+    """The scan kernel against its plain version; returns max_abs_err over
+    y and h_final."""
+    from repro_torch.kernels.ssm_scan import scan
+    from repro_torch.models.ssm import mamba1_scan
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    worst = 0.0
+    for tname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        rtol, atol, _ = SCAN_TOL[tname]
+        for N in (8, 16):
+            err = 0.0
+            for B in (1, 4):
+                for d_in in (128, 1000, 8192):
+                    for S in (1, 37, 512, 2048):
+                        x, dt, A, Bc, Cc = scan_inputs(gen, B, S, d_in, N,
+                                                       dtype)
+                        y, h = scan.selective_scan(x, dt, A, Bc, Cc)
+                        want_y, want_h = mamba1_scan(x, dt, A, Bc, Cc)
+                        torch.cuda.synchronize()
+                        what = f"scan {tname} B={B} S={S} d_in={d_in} N={N}"
+                        for name, a, b, rt, at in (
+                                ("y", y, want_y, rtol, atol),
+                                ("h_final", h, want_h, 2e-5, 2e-5)):
+                            a, b = a.float(), b.float()
+                            e = (a - b).abs().max().item()
+                            if not torch.isfinite(a).all() or \
+                                    not torch.allclose(a, b, rtol=rt,
+                                                       atol=at):
+                                raise AssertionError(
+                                    f"{what} {name}: kernel differs from "
+                                    f"plain by {e:.3e} (rtol {rt}, atol "
+                                    f"{at})")
+                            err = max(err, e)
+                        if y.dtype != dtype or h.dtype != torch.float32:
+                            raise AssertionError(f"{what}: output dtypes "
+                                                 f"{y.dtype}, {h.dtype}")
+            worst = max(worst, err)
+            log(f"[ssm] scan q={tname:8s} N={N:2d} B in 1/4, d_in in 128/"
+                f"1000/8192, S in 1/37/512/2048, strided B/C: "
+                f"max|kernel-plain|={err:.3e} (y rtol {rtol:.3g} atol "
+                f"{atol}; h_final 2e-5)")
+    for tname, (rtol, atol, why) in SCAN_TOL.items():
+        log(f"[ssm] tolerance {tname}: rtol={rtol:.4g} atol={atol} — {why}")
+    return worst
+
+
+def ssm_serve_phase(torch):
+    """falcon-mamba-7b at full width and depth through ``ServingEngine``:
+    the fused loop as the slice's main path (its launch count), the
+    legacy loop, ``benchmark_decode``, then the kernel path against the
+    plain path."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.ssm_scan import scan
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    cfg = configs.get("falcon-mamba-7b")         # full width and depth
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[ssm] falcon-mamba-7b: {cfg.n_layers} Mamba1 layers, d_model "
+        f"{cfg.d_model}, d_in {cfg.d_model * cfg.ssm_expand}, N "
+        f"{cfg.ssm_state}, {n_params / 1e9:.3f} B params in bf16, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(17)              # the whole-batch phase's
+    prompt_lens = rng.randint(64, 501, size=4)   # prompt lengths
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
+               for n in prompt_lens]
+    new_tokens, S = 32, int(prompt_lens.max())
+    engine = ServingEngine(model, params,
+                           ServeConfig(max_new_tokens=new_tokens))
+    torch.cuda.reset_peak_memory_stats()
+    scan.KERNEL.launches = 0                     # counts of the main path
+    t0 = time.perf_counter()
+    fused = engine.generate_batch(prompts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = scan.KERNEL.launches
+    t0 = time.perf_counter()
+    legacy = engine.generate_batch(prompts, fused=False)
+    torch.cuda.synchronize()
+    dt_legacy = time.perf_counter() - t0
+    legacy_launches = scan.KERNEL.launches - launches
+    bench = engine.benchmark_decode(batch=4, seq=1024, steps=8)
+    n_out = sum(len(o) for o in fused)
+    log(f"[ssm] falcon-mamba-7b, prompts {prompt_lens.tolist()} "
+        f"(right-aligned to S={S}), {new_tokens} new tokens each: fused "
+        f"{n_out} tokens in {dt:.2f} s = {n_out / dt:.1f} tokens/s, legacy "
+        f"loop {dt_legacy:.2f} s = {n_out / dt_legacy:.1f} tokens/s (host "
+        f"clock, prefill included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[ssm] benchmark_decode(batch=4, seq=1024, steps=8): fused "
+        f"{bench['s_per_step_fused'] * 1e3:.2f} ms/step "
+        f"({bench['tokens_per_s_fused']:.1f} tokens/s), loop "
+        f"{bench['s_per_step_loop'] * 1e3:.2f} ms/step "
+        f"({bench['tokens_per_s_loop']:.1f} tokens/s)")
+    log(f"[ssm] launches on this path: selective_scan={launches} "
+        f"({cfg.n_layers} per prefill; the legacy loop's prefill "
+        f"{legacy_launches}); decode steps run no scan")
+    if not all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size
+                                            for t in o) for o in fused):
+        raise AssertionError(f"ssm: a request did not get {new_tokens} "
+                             f"in-vocab tokens")
+    if fused != legacy:
+        raise AssertionError("ssm: fused and legacy loop disagree")
+    if launches != cfg.n_layers or legacy_launches != cfg.n_layers:
+        raise AssertionError(f"ssm: the scan kernel ran {launches} and "
+                             f"{legacy_launches} times per prefill, not "
+                             f"once per layer ({cfg.n_layers})")
+    log("[ssm] fused and legacy loop: 4/4 requests token-identical")
+    del engine
+    compare_ssm_paths(torch, cfg, params, prompts)
+    return dict(launches=launches, tok_s=n_out / dt, S=S)
+
+
+def compare_ssm_paths(torch, cfg, params, prompts):
+    """The prefill's last-position logits, its state (every layer's conv
+    and ssm parts) and one decode step's logits of the kernel path against
+    the plain path, from the same prompts.  Layer 0's scan state comes
+    from the same inputs on both paths, so it is held to the f32 scan
+    tolerance; the rest drift by bf16 roundings through the layers and are
+    held to LOGIT_ULPS bf16 ulps of their scale."""
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    kern, plain = get_model(cfg), get_model(cfg, plain_attention=True)
+    with torch.no_grad():
+        lk, ck = ServingEngine(kern, params, ServeConfig())._prefill_cache(
+            prompts, 2)
+        lp, cp = ServingEngine(plain, params, ServeConfig())._prefill_cache(
+            prompts, 2)
+        states = {k: (ck[k].clone(), cp[k].clone()) for k in ("conv", "ssm")}
+        nxt = lp.argmax(-1).to(torch.int32)[:, None]
+        dk, _ = kern.decode_step(params, nxt, ck)
+        dp, _ = plain.decode_step(params, nxt, cp)
+    h0k, h0p = states["ssm"][0][0], states["ssm"][1][0]
+    e0 = (h0k - h0p).abs().max().item()
+    if not torch.allclose(h0k, h0p, rtol=2e-5, atol=2e-5):
+        raise AssertionError(f"ssm: layer 0's prefill state differs by "
+                             f"{e0:.3e} (rtol = atol = 2e-5)")
+    log(f"[ssm] layer 0 prefill ssm state, kernel vs plain path: "
+        f"max|diff|={e0:.3e} (rtol = atol = 2e-5: the same inputs)")
+    pairs = [("prefill logits", lk, lp), ("decode step logits", dk, dp),
+             ("prefill conv state", *states["conv"]),
+             ("prefill ssm state", *states["ssm"])]
+    for name, a, b in pairs:
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        lim = LOGIT_ULPS * 2.0 ** -8 * scale
+        extra = ""
+        if "logits" in name:
+            agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+            extra = f"; argmax agree {agree}/{a.shape[0]}"
+        log(f"[ssm] {name}, kernel vs plain path: max|diff|={err:.4e}, "
+            f"bound {lim:.4e} ({LOGIT_ULPS} bf16 ulps of the scale "
+            f"{scale:.3f}){extra}")
+        if not (err <= lim):
+            raise AssertionError(f"ssm {name}: kernel path drifts {err:.4e} "
+                                 f"> {lim:.4e}")
+
+
+def ssm_parity(torch):
+    """falcon-mamba-7b (reduced) in f32 through ``ServingEngine``: the
+    kernel path's greedy tokens equal the plain path's, over prompts
+    shorter than the conv window, ragged ones, and ones over several of
+    the kernel's 32-step tiles."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(configs.get("falcon-mamba-7b").reduced(),
+                              dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    params = get_model(cfg).init(gen, "cuda")
+    rng = np.random.RandomState(13)
+    same = total = 0
+    for lens in ((5, 40, 17), (64, 100, 2, 70), (1, 2)):
+        prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in lens]
+        outs = [ServingEngine(get_model(cfg, plain_attention=plain), params,
+                              ServeConfig(max_new_tokens=12)
+                              ).generate_batch(prompts)
+                for plain in (False, True)]
+        same += sum(a == b for a, b in zip(*outs))
+        total += len(prompts)
+    log(f"[parity] falcon-mamba-7b-reduced f32 ServingEngine, kernel vs "
+        f"plain path: {same}/{total} requests token-identical")
+    if same != total:
+        raise AssertionError("ssm kernel path and plain path disagree in "
+                             "f32")
+
+
+def scan_timing(torch, S):
+    """Kernel and plain times at the phase's shape (falcon-mamba-7b, bf16,
+    B = 4, S = the longest prompt, d_in 8192, N 16), cycling through 4
+    input sets (each ~65 MB of x and dt, past the 50 MB L2), beside the
+    bound: the largest of the bytes over 3.35 TB/s, the exponentials over
+    the SFUs and the flops over 67 TFLOP/s."""
+    from repro_torch.kernels.ssm_scan import scan
+    from repro_torch.models.ssm import mamba1_scan
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    B, d_in, N, n_sets = 4, 8192, 16, 4
+    sets = [scan_inputs(gen, B, S, d_in, N, torch.bfloat16)
+            for _ in range(n_sets)]
+    ms = time_ms(lambda i: scan.selective_scan(*sets[i % n_sets]))
+    plain_ms = time_ms(lambda i: mamba1_scan(*sets[i % n_sets]), iters=8,
+                       warmup=1)
+    elems = B * S * d_in
+    nbytes = 3 * elems * 2 + 2 * B * S * N * 2 + d_in * N * 4 + \
+        B * d_in * N * 4
+    exps, flops = elems * N, 6 * elems * N + elems
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "exps": exps / SFU_EXP_PER_S,
+             "flops": flops / F32_FLOPS_PER_S}
+    by = max(times, key=times.get)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=times[by] * 1e3,
+               bound_by="bytes" if by == "bytes" else "operations")
+    log(f"[timing] selective_scan falcon-mamba-7b bf16 B={B} S={S} "
+        f"d_in={d_in} N={N}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=none (no single PyTorch call computes a selective "
+        f"scan) bound_ms={row['bound_ms']:.5f} (by {by}: {nbytes} bytes "
+        f"over 3.35 TB/s = {times['bytes'] * 1e3:.5f} ms, {exps} exps over "
+        f"{SFU_EXP_PER_S / 1e12:.3f} T/s on the SFUs = "
+        f"{times['exps'] * 1e3:.5f} ms, {flops} flops over 67 TFLOP/s = "
+        f"{times['flops'] * 1e3:.5f} ms)")
+    return row
+
+
+def ssm_phase(torch):
+    """Checks, then falcon-mamba-7b serving as the slice's main path, the
+    reduced f32 parity and the times."""
+    err = scan_checks(torch)
+    serve = ssm_serve_phase(torch)
+    torch.cuda.empty_cache()
+    ssm_parity(torch)
+    return dict(err=err, timing=scan_timing(torch, serve["S"]), **serve)
+
+
+# ---------------------------------------------------------------------------
 # 5./6. BabelStream and the instruction roofline
 # ---------------------------------------------------------------------------
 
@@ -966,9 +1274,9 @@ def irm_phase(res, clocks, gpu):
         raise AssertionError(f"census found {sorted(census)}, not the 11 "
                              f"stream kernels")
     log(f"[irm] census: {len(census)} stream kernels loop-free; all "
-        f"{len(looped)} attention-kernel instantiations (paged, dense "
-        f"decode, flash) refused (loops: their trip counts are not in the "
-        f"listing)")
+        f"{len(looped)} instantiations of the looped kernels (paged, dense "
+        f"decode, flash, selective scan) refused (their trip counts are not "
+        f"in the listing)")
     log(f"[irm] card: {gpu}")
     for line in irm.h100_report(census, res, clocks):
         log(f"[irm] {line}")
@@ -1008,6 +1316,8 @@ def main() -> int:
     d_timing = dense_timing(torch, wb["S"])
     parity_phase(torch)
     whole_batch_parity(torch)
+    ssm = ssm_phase(torch)
+    torch.cuda.empty_cache()
     res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
     irm_phase(res, clocks, gpu)
     ceiling = res.copy_gbs() * 1e9
@@ -1039,6 +1349,10 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES, "launches": ssm["launches"],
+        "max_abs_err": ssm["err"], **ssm["timing"]})
     for name, line in STREAM_REPLACES.items():
         t = s_timing[name]
         kernels.append({
@@ -1048,7 +1362,8 @@ def main() -> int:
             "launches": s_launches[name], "max_abs_err": s_errs[name],
             **t})
     log(f"[summary] serve tokens/s {tok_s:.1f}; whole-batch tokens/s "
-        f"{wb['tok_s']:.1f}; memory ceiling "
+        f"{wb['tok_s']:.1f}; falcon-mamba-7b whole-batch tokens/s "
+        f"{ssm['tok_s']:.1f}; memory ceiling "
         f"{res.copy_gbs():.3f} GB/s; on {gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -3,11 +3,12 @@
 The dataclass is copied field for field (the tests hold it equal to the
 JAX package's for every ported arch), so one config describes the same
 model in both packages.  Only the archs of the ported serving path are
-registered here: granite-8b (the serving arch) and qwen2-0.5b (the test
-arch).  ``attention_impl`` is mirrored for equality only: in the port the
-DEVICE of the tensors picks the paged-attention implementation (CUDA
-tensors always reach the hand-written kernels, CPU tensors the plain
-version), never this field.
+registered here: granite-8b (the serving arch), qwen2-0.5b (the test
+arch) and falcon-mamba-7b (the Mamba1 family, whole-batch serving).
+``attention_impl`` is mirrored for equality only: in the port the DEVICE
+of the tensors picks the paged-attention implementation (CUDA tensors
+always reach the hand-written kernels, CPU tensors the plain version),
+never this field.
 """
 from __future__ import annotations
 
@@ -124,7 +125,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def registry() -> Dict[str, ArchConfig]:
     if not _REGISTRY:
-        import repro_torch.configs.granite_8b  # noqa: F401  (populates)
+        import repro_torch.configs.falcon_mamba_7b  # noqa: F401  (populates)
+        import repro_torch.configs.granite_8b  # noqa: F401
         import repro_torch.configs.qwen2_0_5b  # noqa: F401
     return _REGISTRY
 

@@ -1,9 +1,9 @@
 // Device helpers shared by the port's attention kernels (the paged pair in
-// paged_attention.cuh, decode_attention.cu and flash_attention.cu): the
-// finite NEG_INF of the TPU kernels, the dtype codes of the C interface,
-// loads upcast to f32, stores rounded to the output's type, and a launch
-// that raises the block's dynamic shared memory limit where it needs more
-// than the default 48 KB.
+// paged_attention.cuh, decode_attention.cu and flash_attention.cu) and the
+// selective scan (selective_scan.cu): the finite NEG_INF of the TPU
+// kernels, the dtype codes of the C interface, loads upcast to f32, stores
+// rounded to the output's type, and a launch that raises the block's
+// dynamic shared memory limit where it needs more than the default 48 KB.
 #pragma once
 
 #include <cuda_bf16.h>

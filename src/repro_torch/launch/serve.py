@@ -4,15 +4,18 @@ whole-batch lockstep generation, on one card.
     python -m repro_torch.launch.serve                    # granite-8b, cuda
     python -m repro_torch.launch.serve --whole-batch      # ServingEngine
     python -m repro_torch.launch.serve --whole-batch --legacy-loop
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --whole-batch
     python -m repro_torch.launch.serve --local-smoke --device cpu
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device
 (nothing is downloaded).  The demo workloads are the JAX launcher's: for
 the paged engine, twice ``--batch`` requests of a shared system prompt
 plus a short random tail, with staggered output budgets; for
-``--whole-batch``, ``--batch`` random prompts of 4-15 tokens.  Prefix
-sharing, retention, preemption, deadlines, speculation, snapshots and
-int8 pools are not ported yet, so their flags are absent.
+``--whole-batch``, ``--batch`` random prompts of 4-15 tokens.  The SSM
+arch (falcon-mamba-7b) is served whole-batch only: the paged engine
+refuses it, as the JAX package's does.  Prefix sharing, retention,
+preemption, deadlines, speculation, snapshots and int8 pools are not
+ported yet, so their flags are absent.
 """
 import argparse
 import sys
@@ -72,6 +75,11 @@ def main() -> int:
         return 2
     device = torch.device(args.device)
     cfg = configs.get(args.arch)
+    if cfg.mamba_version and not args.whole_batch:
+        ap.error(f"{cfg.name} is an SSM arch: pass --whole-batch (the paged "
+                 f"engine refuses SSM archs, as the JAX package's "
+                 f"PagedEngine does: a slot that joins would inherit the "
+                 f"previous occupant's state)")
     if args.local_smoke:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, pages_per_step=args.pages_per_step)

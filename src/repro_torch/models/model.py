@@ -1,5 +1,5 @@
-"""Model facade for the serving paths — port of the dense subset of
-``repro/models/model.py``.
+"""Model facade for the serving paths — port of the dense and Mamba1
+subset of ``repro/models/model.py``.
 
 ``Model(cfg)`` exposes init, the whole-batch cache and its steps
 (``prefill``, ``decode_step``, ``decode_many``), and the paged cache and
@@ -37,9 +37,10 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 @dataclasses.dataclass
 class Model:
-    """``plain_attention=True`` routes every attention call through the
-    plain PyTorch versions on every device: the reference the kernel path
-    is held against on the card.  Serving leaves it False."""
+    """``plain_attention=True`` routes every kernel call (attention, and
+    the SSM family's selective scan) through the plain PyTorch versions
+    on every device: the reference the kernel path is held against on the
+    card.  Serving leaves it False."""
     cfg: ArchConfig
     plain_attention: bool = False
 
@@ -53,13 +54,17 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int,
                    device="cuda") -> Dict[str, Any]:
+        """Zeros of ``cache_decls``, each leaf in its declared dtype (the
+        SSM family's ``ssm`` states in f32), else the param dtype."""
         return init_from_schema(self.cache_decls(batch, max_seq), None,
                                 device, self.cfg.param_dtype)
 
     def prefill(self, params, batch: Dict[str, Any]):
         """batch {"tokens": (B, S) int, "positions": optional (B, S)}.
-        Returns (last-position logits (B, V) f32, cache parts {"k", "v"}
-        (L, B, S, KV, hd))."""
+        Returns (last-position logits (B, V) f32, cache parts): {"k", "v"}
+        (L, B, S, KV, hd) for the dense family; for the SSM family {"conv"
+        (L, B, K-1, d_in), "ssm" (L, B, d_in, N) f32}, every layer's state
+        after the prompt (the JAX package returns None)."""
         inputs = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:

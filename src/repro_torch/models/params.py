@@ -20,6 +20,7 @@ import torch
 class ParamDecl:
     shape: Tuple[int, ...]
     init: str = "normal"             # normal (fan-in) | zeros | ones | embed
+                                     # | ssm_a | ssm_dt
     dtype: Optional[torch.dtype] = None   # None -> the config's param dtype
 
 
@@ -40,6 +41,18 @@ def _init_leaf(d: ParamDecl, generator: torch.Generator,
         return torch.zeros(d.shape, dtype=dt, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dt, device=device)
+    if d.init == "ssm_a":
+        # mamba A_log init: log(1..N) broadcast over channels
+        a = torch.log(torch.arange(1, d.shape[-1] + 1, dtype=torch.float32,
+                                   device=device))
+        return a.to(dt).expand(d.shape).contiguous()
+    if d.init == "ssm_dt":
+        # dt bias init so that softplus(dt) spans ~[1e-3, 1e-1]
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(d.shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        return torch.log(torch.expm1(torch.exp(lo + u * (hi - lo))) + 1e-9
+                         ).to(dt)
     if d.init == "embed":
         mult = 0.02
     elif d.init == "normal":                 # fan-in normal
@@ -67,10 +80,11 @@ def init_from_schema(schema, generator: torch.Generator,
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):
     """Random parameters of ``cfg`` with the JAX schema's shapes, dtypes
-    and init kinds (fan-in normal, ``embed`` x0.02, ones, zeros), drawn
-    from ``generator`` on ``device``.  The values differ from the JAX
-    package's (a torch generator is not threefry); the tests hand both
-    packages the same weights through ``params_from_jax`` instead."""
+    and init kinds (fan-in normal, ``embed`` x0.02, ones, zeros, and
+    Mamba1's ``ssm_a`` and ``ssm_dt``), drawn from ``generator`` on
+    ``device``.  The values differ from the JAX package's (a torch
+    generator is not threefry); the tests hand both packages the same
+    weights through ``params_from_jax`` instead."""
     from repro_torch.models.transformer import schema
     return init_from_schema(schema(cfg), generator, device, cfg.param_dtype)
 

@@ -1,10 +1,11 @@
-"""The dense decoder-only LM: schema, the whole-batch forward
-(``lm_forward``: train / prefill / hidden) and decode step
-(``lm_decode``) over a (L, B, T, KV, hd) cache, the two paged attention
+"""The dense decoder-only LM and the pure-SSM LM (Mamba1, falcon-mamba):
+schema, the whole-batch forward (``lm_forward``: train / prefill /
+hidden) and decode step (``lm_decode``) over a (L, B, T, KV, hd) cache
+or the SSM family's per-layer (conv, ssm) state, the two paged attention
 paths (decode and ragged prefill), the dense FFN and the paged forward
 passes.
 
-Port of the dense subset of ``repro/models/transformer.py``.  The
+Port of the dense and Mamba1 subset of ``repro/models/transformer.py``.  The
 ``lax.scan`` over stacked layers becomes a Python loop over the layer
 index; caches and pools are updated IN PLACE where the JAX functions
 return updated copies, so the returned cache holds the same tensors it
@@ -17,7 +18,15 @@ kernel wrappers, which launch the CUDA kernels for CUDA tensors and run
 the plain version for CPU tensors (for the flash kernel, ``attention``
 keeps the JAX reference dispatch on the CPU).  ``plain=True`` calls the
 plain versions on any device — the reference that ``chip_smoke.py``
-holds the kernel path against on the card.
+holds the kernel path against on the card.  The same switch picks the
+selective-scan kernel or its plain version in the SSM family's prefill.
+
+One difference from the JAX package, in the SSM family: its
+``lm_forward(mode="prefill")`` returns no cache parts, so its
+``ServingEngine`` decodes from a zero state as if the prompt had never
+been seen.  Here the prefill returns each layer's final scan state and
+conv tail — the state the JAX package's own ``lm_decode`` leaves after
+stepping over the prompt — and decode starts from it.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention, paged_decode_attention, paged_prefill_attention)
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, paged_prefill_attention_ref)
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention, direct_attention
 from repro_torch.models.kv_quant import quantize_rows
 from repro_torch.models.layers import (
@@ -37,11 +47,23 @@ from repro_torch.models.layers import (
 from repro_torch.models.params import ParamDecl, map_schema, stacked
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.mamba_version or cfg.is_encoder_decoder:
-        raise ValueError("the port serves decoder-only attention LMs "
-                         "(the SSM and encoder-decoder families are not "
-                         "ported)")
+def check_supported(cfg: ArchConfig, paged: bool = False) -> None:
+    """Refuses what the port does not run: Mamba2, the hybrid and
+    encoder-decoder families and the features below (not ported yet), and
+    an SSM arch on the paged path, which the JAX package refuses too."""
+    if cfg.mamba_version == 2 or cfg.family == "hybrid":
+        raise NotImplementedError(f"Mamba2 and the hybrid family are not "
+                                  f"ported yet ({cfg.name})")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"the encoder-decoder family is not "
+                                  f"ported yet ({cfg.name})")
+    if paged and cfg.mamba_version:
+        raise ValueError(
+            f"paged serving requires a decoder-only attention LM (per-slot "
+            f"page tables), as in the JAX package, whose PagedEngine refuses "
+            f"SSM archs: a slot that joins would inherit the previous "
+            f"occupant's state.  Serve {cfg.name} whole-batch "
+            f"(ServingEngine, launch.serve --whole-batch)")
     for what, unsupported in (("MoE", cfg.n_experts),
                               ("M-RoPE", cfg.mrope_sections),
                               ("layernorm", cfg.norm_kind != "rmsnorm"),
@@ -82,36 +104,67 @@ def _ffn_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
             "w_down": ParamDecl((ff, d))}
 
 
+def _mamba_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
+    """The Mamba1 mixer's parameters."""
+    d = cfg.d_model
+    d_in = d * cfg.ssm_expand
+    N, K = cfg.ssm_state, cfg.ssm_conv
+    dt_rank = max(1, d // 16)
+    return {
+        "in_proj": ParamDecl((d, 2 * d_in)),
+        "conv_w": ParamDecl((d_in, K)),
+        "conv_b": ParamDecl((d_in,), "zeros"),
+        "x_proj": ParamDecl((d_in, dt_rank + 2 * N)),
+        "dt_proj": ParamDecl((dt_rank, d_in)),
+        "dt_bias": ParamDecl((d_in,), "ssm_dt"),
+        "A_log": ParamDecl((d_in, N), "ssm_a"),
+        "D": ParamDecl((d_in,), "ones"),
+        "out_proj": ParamDecl((d_in, d)),
+    }
+
+
 def schema(cfg: ArchConfig) -> Dict[str, Any]:
-    """The parameter tree of a dense decoder-only LM, leaf for leaf the
-    JAX package's ``schema`` (stacked (L, ...) block parameters)."""
-    _check_supported(cfg)
+    """The parameter tree of a dense decoder-only LM or a Mamba1 LM, leaf
+    for leaf the JAX package's ``schema`` (stacked (L, ...) block
+    parameters)."""
+    check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     sch: Dict[str, Any] = {"embed": ParamDecl((V, d), "embed")}
     if not cfg.tie_embeddings:
         sch["unembed"] = ParamDecl((V, d), "embed")
     sch["ln_f"] = _norm_decl(d)
-    block = {"ln1": _norm_decl(d), "ln2": _norm_decl(d),
-             "attn": _attn_decls(cfg), "ffn": _ffn_decls(cfg)}
+    if cfg.mamba_version:
+        block = {"ln1": _norm_decl(d), "mixer": _mamba_decls(cfg)}
+    else:
+        block = {"ln1": _norm_decl(d), "ln2": _norm_decl(d),
+                 "attn": _attn_decls(cfg), "ffn": _ffn_decls(cfg)}
     sch["blocks"] = map_schema(lambda x: stacked(x, cfg.n_layers), block)
     return sch
 
 
 def cache_decls(cfg: ArchConfig, batch: int, max_seq: int
                 ) -> Dict[str, Any]:
-    """Whole-batch decode cache of the dense family: the shared position
-    ``pos`` (the row the next token is written to, and its rope
-    position), the per-slot window base ``start`` (0 for whole-batch
-    generation: slot b attends [start[b], pos]) and (L, batch, max_seq,
-    KV, hd) k/v caches in the param dtype."""
-    _check_supported(cfg)
+    """Whole-batch decode cache: the shared position ``pos`` (the row the
+    next token is written to, and its rope position), the per-slot window
+    base ``start`` (0 for whole-batch generation: slot b attends
+    [start[b], pos]) and, for the dense family, (L, batch, max_seq, KV,
+    hd) k/v caches in the param dtype; for the SSM family, the state of
+    every layer instead: (L, batch, K-1, d_in) conv inputs in the param
+    dtype and (L, batch, d_in, N) f32 scan states."""
+    check_supported(cfg)
     hd, KV, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
-    return {
-        "pos": ParamDecl((), "zeros", torch.int32),
-        "start": ParamDecl((batch,), "zeros", torch.int32),
-        "k": ParamDecl((L, batch, max_seq, KV, hd), "zeros"),
-        "v": ParamDecl((L, batch, max_seq, KV, hd), "zeros"),
-    }
+    decls = {"pos": ParamDecl((), "zeros", torch.int32),
+             "start": ParamDecl((batch,), "zeros", torch.int32)}
+    if cfg.mamba_version:
+        d_in = cfg.d_model * cfg.ssm_expand
+        decls["conv"] = ParamDecl((L, batch, cfg.ssm_conv - 1, d_in),
+                                  "zeros")
+        decls["ssm"] = ParamDecl((L, batch, d_in, cfg.ssm_state), "zeros",
+                                 torch.float32)
+        return decls
+    decls["k"] = ParamDecl((L, batch, max_seq, KV, hd), "zeros")
+    decls["v"] = ParamDecl((L, batch, max_seq, KV, hd), "zeros")
+    return decls
 
 
 def paged_cache_decls(cfg: ArchConfig, batch: int, max_blocks: int,
@@ -119,7 +172,7 @@ def paged_cache_decls(cfg: ArchConfig, batch: int, max_blocks: int,
     """Paged decode cache: (L, num_pages, page, KV, hd) k/v pools (page 0
     is the null page), a (batch, max_blocks) int32 block table and (batch,)
     int32 lengths.  int8 pools add (L, num_pages, page, KV) f32 scales."""
-    _check_supported(cfg)
+    check_supported(cfg, paged=True)
     hd, KV, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
     pool_dt = torch.int8 if cfg.kv_quantized else cfg.param_dtype
     decls = {
@@ -293,12 +346,21 @@ def decode_ffn(h, p, cfg: ArchConfig):
 def dense_block(h, p, cfg: ArchConfig, rope, plain: bool = False):
     """One dense block over the whole sequence.  Returns (h, aux, (k, v));
     aux is the MoE load-balance loss, 0 for the dense FFN (MoE is refused
-    by ``_check_supported``)."""
+    by ``check_supported``)."""
     out, kv = attn_apply(h, p, cfg, rope, causal=cfg.causal, plain=plain)
     h = h + out
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     h = h + ffn_apply(h, p, cfg)
     return h, aux, kv
+
+
+def mamba_block_apply(h, p, cfg: ArchConfig, state=None,
+                      plain: bool = False):
+    """Residual Mamba1 block: h (B, S, d) and no state (prefill), or
+    (B, 1, d) and its layer's state (decode).  Returns (h, state)."""
+    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    out, new_state = ssm_mod.mamba1_block(hn, p["mixer"], cfg, state, plain)
+    return h + out, new_state
 
 
 def _embed_in(params, cfg: ArchConfig, tokens):
@@ -327,12 +389,17 @@ def lm_forward(params, cfg: ArchConfig, inputs, positions,
                mode: str = "train", plain: bool = False):
     """inputs: tokens (B, S) int; positions (B, S).  mode: train | prefill
     | hidden — hidden returns the post-ln_f hidden states; prefill returns
-    only the LAST position's logits, (B, 1, V) at f32, and the cache parts
-    {"k", "v"}: (L, B, S, KV, hd) stacks of every layer's K/V.  Returns
+    only the LAST position's logits, (B, 1, V) at f32, and the cache parts:
+    {"k", "v"}, (L, B, S, KV, hd) stacks of every layer's K/V, for the
+    dense family; {"conv" (L, B, K-1, d_in), "ssm" (L, B, d_in, N) f32},
+    every layer's state after the prompt, for the SSM family (the JAX
+    package returns None there; see the module docstring).  Returns
     (logits_or_hidden, aux, cache_parts or None)."""
     assert mode in ("train", "prefill", "hidden")
-    _check_supported(cfg)
+    check_supported(cfg)
     h = _embed_in(params, cfg, inputs)
+    if cfg.mamba_version:
+        return _ssm_forward(params, cfg, h, mode, plain)
     rope = _rope(cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
@@ -351,15 +418,45 @@ def lm_forward(params, cfg: ArchConfig, inputs, positions,
     return _logits(params, cfg, h), aux, None
 
 
+def _ssm_forward(params, cfg: ArchConfig, h, mode: str, plain: bool):
+    """``lm_forward`` of the SSM family (h the embedded inputs)."""
+    convs, ssms = [], []
+    for li in range(cfg.n_layers):
+        p = layer_params(params["blocks"], li)
+        h, state = mamba_block_apply(h, p, cfg, plain=plain)
+        if mode == "prefill":
+            convs.append(state.conv)
+            ssms.append(state.ssm)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if mode == "hidden":
+        return rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps), aux, None
+    if mode == "prefill":
+        return (_logits_exact(params, cfg, h[:, -1:]), aux,
+                {"conv": torch.stack(convs), "ssm": torch.stack(ssms)})
+    return _logits(params, cfg, h), aux, None
+
+
 def lm_decode(params, cfg: ArchConfig, tokens, cache, plain: bool = False):
-    """tokens (B, 1) int; cache {"pos", "start", "k", "v"} from
-    ``cache_decls``.  ``pos`` is both the cache ROW the new token is
-    written to and its rope position (whole-batch generation never
-    rebases rows).  Returns (logits (B, V) f32, cache) — the k/v caches
-    updated in place, "pos" advanced by one."""
-    _check_supported(cfg)
+    """tokens (B, 1) int; cache from ``cache_decls``: {"pos", "start",
+    "k", "v"} (dense) or {"pos", "start", "conv", "ssm"} (SSM).  ``pos``
+    is both the cache ROW the new token is written to and its rope
+    position (whole-batch generation never rebases rows); the SSM family
+    only advances it.  Returns (logits (B, V) f32, cache) — the k/v
+    caches or the layer states updated in place, "pos" advanced by one."""
+    check_supported(cfg)
     B = tokens.shape[0]
     pos = cache["pos"]
+    if cfg.mamba_version:
+        h = _embed_in(params, cfg, tokens)
+        for li in range(cfg.n_layers):
+            p = layer_params(params["blocks"], li)
+            state = ssm_mod.Mamba1State(conv=cache["conv"][li],
+                                        ssm=cache["ssm"][li])
+            h, new = mamba_block_apply(h, p, cfg, state, plain)
+            cache["conv"][li].copy_(new.conv)
+            cache["ssm"][li].copy_(new.ssm)
+        cache["pos"] = pos + 1
+        return _logits_exact(params, cfg, h)[:, 0], cache
     positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
     rope = _rope(cfg, positions)
     h = _embed_in(params, cfg, tokens)
@@ -384,7 +481,7 @@ def lm_decode_paged(params, cfg: ArchConfig, tokens, cache, active,
     positions are request-relative); inactive slots write only the null
     page and do not advance.  Returns (logits (B, V) f32, cache) — the
     pools updated in place, "length" advanced by ``active``."""
-    _check_supported(cfg)
+    check_supported(cfg, paged=True)
     lengths = cache["length"]
     rope = _rope(cfg, lengths[:, None])
     h = _embed_in(params, cfg, tokens)
@@ -404,7 +501,7 @@ def lm_prefill_paged(params, cfg: ArchConfig, tokens, cache, grants,
     grants (B,) int32 (0 = slot idle).  Returns (logits (B, V) f32 at each
     slot's last granted position, cache) — the pools updated in place,
     "length" advanced by ``grants``."""
-    _check_supported(cfg)
+    check_supported(cfg, paged=True)
     lengths = cache["length"]
     B, T = tokens.shape
     grants = grants.to(torch.int32)

@@ -3,11 +3,13 @@
 batching: the prefill lane plus the plain decode twin).
 
 ``ServingEngine`` prefills every prompt at once (right-aligned, pad 0,
-and — as in the JAX package — no pad mask) through the flash kernel,
-scatters the prefill K/V into a fresh (L, B, S + new, KV, hd) cache, and
-decodes all sequences in lockstep through the dense decode kernel: fused
-(``Model.decode_many``, sampling on the device) or as the legacy loop
-with a host round trip per token.
+and — as in the JAX package — no pad mask) and decodes all sequences in
+lockstep: fused (``Model.decode_many``, sampling on the device) or as the
+legacy loop with a host round trip per token.  For the dense family the
+prefill runs the flash kernel and its K/V go into a fresh (L, B, S + new,
+KV, hd) cache, which the dense decode kernel reads; for the SSM family
+(falcon-mamba) the prefill runs the selective-scan kernel and every
+layer's state after the prompt goes into the fresh (conv, ssm) cache.
 
 ``PagedEngine``: each tick: admit queued requests into free slots, let the
 ``TickScheduler`` grant per-slot work over the ``PagedKVCache``, patch the
@@ -17,7 +19,9 @@ then run at most two steps on the device — one ragged prefill chunk
 loop (``Model.decode_many_paged``, up to ``prefill_chunk`` steps under
 the per-slot grants) for generating slots — and do the request bookkeeping on
 the host.  The JAX package's donated ``jax.jit`` cells become in-place
-torch calls on the engine's device (the device of the parameters).
+torch calls on the engine's device (the device of the parameters).  It
+serves decoder-only attention LMs only, and refuses the SSM family as the
+JAX package's ``PagedEngine`` does.
 
 Not ported yet, and refused with ``NotImplementedError`` where a config
 asks for them: prefix sharing and retention, preemption, deadlines,
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model, sample_token
+from repro_torch.models.transformer import check_supported
 from repro_torch.serve.cache import PagedKVCache
 from repro_torch.serve.scheduler import TickScheduler
 
@@ -140,8 +145,13 @@ class ServingEngine:
 
     def _prefill_cache(self, prompts: List[np.ndarray], mnt: int):
         """Right-aligns the prompts to a common length S with pad 0 (no pad
-        mask, as in the JAX package), prefills once, and copies the prefill
-        K/V into a fresh decode cache of S + mnt rows."""
+        mask, as in the JAX package), prefills once, and copies the cache
+        parts into a fresh decode cache of S + mnt rows: the prefill K/V,
+        or for the SSM family every layer's (conv, ssm) state after the
+        prompt, pads included.  The JAX engine gets no SSM cache parts from
+        its prefill and decodes from a zero state, as if the prompt had
+        never been seen; its own ``lm_decode`` stepped over the prompt
+        gives the state used here."""
         B = len(prompts)
         S = max(len(p) for p in prompts)
         toks = np.zeros((B, S), np.int32)
@@ -279,6 +289,7 @@ class PagedEngine:
         self.cfg = cfg
         B = cfg.max_batch
         max_blocks = cfg.max_blocks or -(-cfg.max_seq // cfg.page_size)
+        check_supported(model.cfg, paged=True)
         _refuse_unported(cfg, model, B * max_blocks + 1)
         self.device = params["embed"].device
         self._chunk = max(1, cfg.prefill_chunk)

@@ -15,7 +15,7 @@ from repro.models import get_model as jget_model
 from repro_torch import configs as tconfigs
 from repro_torch.models.params import init_params, params_from_jax
 
-ARCHS = ["granite-8b", "qwen2-0.5b"]
+ARCHS = ["granite-8b", "qwen2-0.5b", "falcon-mamba-7b"]
 JNP_TO_TORCH = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
                 jnp.dtype(jnp.float32): torch.float32,
                 jnp.dtype(jnp.int32): torch.int32}
@@ -53,6 +53,28 @@ def test_bridge_bit_exact(dtype):
     pt = params_from_jax(pj, cfg_t, "cpu")
     fj, ft = _flat(pj), _flat(pt)
     assert fj.keys() == ft.keys()
+    for k, a in fj.items():
+        b = ft[k]
+        assert tuple(b.shape) == a.shape and b.dtype == JNP_TO_TORCH[a.dtype]
+        bits = np.uint16 if a.dtype.itemsize == 2 else np.uint32
+        twin = torch.int16 if a.dtype.itemsize == 2 else torch.int32
+        np.testing.assert_array_equal(
+            b.view(twin).numpy().view(bits), a.view(bits), err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bridge_bit_exact_mamba1(dtype):
+    """falcon-mamba-7b's leaves, the Mamba1 mixer's included (``A_log``
+    from the ``ssm_a`` init, ``dt_bias`` from ``ssm_dt``), bit for bit."""
+    cfg_j = dataclasses.replace(jconfigs.get("falcon-mamba-7b").reduced(),
+                                dtype=dtype)
+    cfg_t = dataclasses.replace(tconfigs.get("falcon-mamba-7b").reduced(),
+                                dtype=dtype)
+    pj = jax.tree.map(np.asarray, jget_model(cfg_j).init(jax.random.key(5)))
+    pt = params_from_jax(pj, cfg_t, "cpu")
+    fj, ft = _flat(pj), _flat(pt)
+    assert fj.keys() == ft.keys()
+    assert "/blocks/mixer/A_log" in ft and "/blocks/mixer/dt_bias" in ft
     for k, a in fj.items():
         b = ft[k]
         assert tuple(b.shape) == a.shape and b.dtype == JNP_TO_TORCH[a.dtype]

@@ -2,21 +2,22 @@
 plain versions.
 
 The CUDA kernels (``src/repro_torch/csrc/*.cu``: paged attention, dense
-decode attention, flash attention and BabelStream's five) build only with
-nvcc, on the card.  Here the same sources are compiled with g++ against
-small stand-ins for ``cuda_runtime.h`` and ``cuda_bf16.h``: each thread
-block runs as many ``std::thread``s as its launch asks for (128 for the
-paged and decode kernels, 256 for flash, 1024 for the stream kernels),
-sharing one ``std::barrier`` for
-``__syncthreads()``; blocks run one after another, and the two CUDA-only
-spellings (``<<<...>>>`` and ``extern __shared__``) are rewritten.
-``__shfl_down_sync`` is a slot per thread and two block barriers, which
-is right only because every warp of the stream kernels runs its shuffles
-on one uniform path — the property their instruction census relies on.
-The kernels are then driven through the real wrappers — their argument
-checks, ctypes marshalling and launch counters — on CPU tensors.  This
-checks the kernels' indexing, masking, row tiling, online softmax and
-the dot reduction chain before they reach the card; what nvcc accepts,
+decode attention, flash attention, BabelStream's five and the Mamba1
+selective scan) build only with nvcc, on the card.  Here the same
+sources are compiled with g++ against small stand-ins for
+``cuda_runtime.h`` and ``cuda_bf16.h``: each thread block runs as many
+``std::thread``s as its launch asks for (128 for the paged, decode and
+scan kernels, 256 for flash, 1024 for the stream kernels), sharing one
+``std::barrier`` for ``__syncthreads()``; blocks run one after another,
+and the two CUDA-only spellings (``<<<...>>>`` and ``extern
+__shared__``) are rewritten.  ``__shfl_down_sync`` is a slot per thread
+and two block barriers, which is right only because every warp of the
+stream kernels runs its shuffles on one uniform path — the property
+their instruction census relies on.  The kernels are then driven through
+the real wrappers — their argument checks, ctypes marshalling and launch
+counters — on CPU tensors.  This checks the kernels' indexing, masking,
+row tiling, online softmax, the dot reduction chain and the scan's
+strided B/C and ragged tiles before they reach the card; what nvcc accepts,
 and the kernels' speed, only ``chip_smoke.py`` on the card can show.
 """
 import contextlib
@@ -36,6 +37,8 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref,
     paged_prefill_attention_ref)
 from repro_torch.kernels.flash_attention import flash
+from repro_torch.kernels.ssm_scan import scan
+from repro_torch.models.ssm import mamba1_scan
 from repro_torch.models.attention import repeat_kv
 from repro_torch.models.flash import flash_attention_ref
 from repro_torch.kernels.stream import ref as stream_ref
@@ -163,6 +166,9 @@ def cuda_path_on_cpu(emulated, monkeypatch):
         monkeypatch.setattr(mod, "check_dense",
                             lambda kind, *a: decode.dense_layout(kind, *a))
         monkeypatch.setattr(mod.KERNEL, "_fn", None)
+    monkeypatch.setattr(scan, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(scan, "check_scan", scan.scan_layout)
+    monkeypatch.setattr(scan.KERNEL, "_fn", None)
     monkeypatch.setattr(stream, "on_cpu", lambda *a: False)
     monkeypatch.setattr(stream, "check_device", lambda *a: None)
     for kernel in stream.KERNELS.values():
@@ -372,3 +378,47 @@ def test_emulated_stream_in_place_chain(cuda_path_on_cpu):
     for x, g in ((a, ga), (b, gb), (c, gc)):
         assert torch.equal(x, torch.full_like(x, g.item()))
     assert stream.dot(a, b).item() == (ga * gb).item() * a.numel()
+
+
+# (B, S, d_in, N, dtype): S over several 32-step tiles with a ragged last
+# one; d_in not a multiple of the 128-channel block (a part-empty block);
+# one step; N = 16 at a ragged S and d_in; bf16 at N = 8 and 16
+SCAN_CASES = [(2, 70, 128, 8, torch.float32),
+              (1, 37, 200, 16, torch.float32),
+              (3, 1, 40, 16, torch.float32),
+              (2, 45, 130, 8, torch.bfloat16),
+              (1, 33, 96, 16, torch.bfloat16)]
+# y: f32 within 2e-5 (the order of the N-sum and the exp implementations
+# differ); bf16 y adds one bf16 ulp (2^-7 relative), the output's own
+# rounding of two f32 values that differ by that much.  h_final is f32 on
+# both sides from the same upcast inputs: 2e-5 in either dtype.
+SCAN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7 + 2e-5,
+                                                          2e-5)}
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_emulated_selective_scan_matches_plain(case, cuda_path_on_cpu):
+    """B and C as strided column slices of one (B, S, 4 + 2N) tensor, as
+    the model passes them, and once made contiguous."""
+    B, S, d_in, N, dtype = case
+    rng = np.random.default_rng(S + d_in + N)
+    x = torch.from_numpy(rng.standard_normal((B, S, d_in), np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, d_in), np.float32)) * 0.5 - 1.0)
+    A = -torch.exp(torch.from_numpy(rng.standard_normal((d_in, N),
+                                                        np.float32)) * 0.3)
+    dbc = torch.from_numpy(rng.standard_normal((B, S, 4 + 2 * N),
+                                               np.float32)).to(dtype)
+    x, dt = x.to(dtype), dt.to(dtype)
+    Bc, Cc = dbc[..., 4:4 + N], dbc[..., 4 + N:]
+    rtol, atol = SCAN_TOL[dtype]
+    n0 = scan.KERNEL.launches
+    want_y, want_h = mamba1_scan(x, dt, A, Bc, Cc)
+    for b, c in ((Bc, Cc), (Bc.contiguous(), Cc.contiguous())):
+        y, h = scan.selective_scan(x, dt, A, b, c)
+        assert y.dtype == dtype and h.dtype == torch.float32
+        torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol,
+                                   atol=atol)
+        torch.testing.assert_close(h, want_h, rtol=2e-5, atol=2e-5)
+    assert scan.KERNEL.launches == n0 + 2

@@ -207,9 +207,10 @@ def test_build_plumbing_without_nvcc(tmp_path, monkeypatch):
                                                  "flash_attention.cu",
                                                  "paged_decode.cu",
                                                  "paged_prefill.cu",
+                                                 "selective_scan.cu",
                                                  "stream.cu"]
     cmds = build.compile_commands("nvcc", tmp_path)
-    assert len(cmds) == 6 and all("arch=compute_90a,code=sm_90a" in c
+    assert len(cmds) == 7 and all("arch=compute_90a,code=sm_90a" in c
                                   for c in cmds)
     assert str(tmp_path / "libkernels.so") in cmds[-1]
     monkeypatch.setenv("PATH", str(tmp_path))
