@@ -11,12 +11,15 @@ Phases, each failing loudly (non-zero exit, no result line):
                power limit.
   2. kernels — holds each paged-attention kernel against its plain PyTorch
                version on the card (granite-8b and qwen2-0.5b geometry,
-               page 16, ragged lengths up to ~2k tokens, bf16/f32/int8
-               pools, an empty prefill slot), then times the kernel, the
-               plain version and one library yardstick (a gather plus
-               ``scaled_dot_product_attention``, never used by the port) at
-               the serving path's shapes, beside the least time the card
-               could take for the same work.
+               page 16, and page 8 for prefill, ragged lengths up to ~2k
+               tokens, bf16/f32/int8 pools, an empty prefill slot), then
+               times the kernel, the plain version and one library
+               yardstick (a gather plus ``scaled_dot_product_attention``,
+               never used by the port) at the serving path's shapes,
+               beside the least time the card could take for the same
+               work; prints the prefill grid's block count (at least 128)
+               and the redesigned kernels' device time with the host's
+               issue rate out of the way (``device_ms``).
   3. serve   — granite-8b at full width and depth (36 layers, bf16,
                random weights from a seeded generator) through
                ``PagedEngine``: 8 requests of 64-300 prompt tokens, 32 new
@@ -69,7 +72,10 @@ Phases, each failing loudly (non-zero exit, no result line):
                prints BabelStream's table and the measured memory ceiling
                (copy's rate) beside the card's name and power limit.
   6. irm     — a census of the built library's SASS (``cuobjdump``), which
-               must find all five stream kernels loop-free; the H100
+               must find all five stream kernels loop-free and every bf16
+               flash and paged-prefill instantiation issuing bf16
+               tensor-core products (``HMMA.16816.F32.BF16``) and cp.async
+               copies (``LDGSTS``); the H100
                ``HardwareSpec`` read from the card with the measured
                ceiling; and the instruction roofline of the five kernels
                (``launch/irm.py``), with the SM clock read right after the
@@ -111,7 +117,10 @@ DENSE_KERNELS = {                # name: (source, the TPU kernel it replaces)
 }
 # kernels with loops, which the SASS census must refuse (matched by name)
 LOOPED = ("paged_", "decode_attention_kernel", "flash_attention_kernel",
-          "selective_scan_kernel")
+          "flash_attention_tc_kernel", "selective_scan_kernel")
+# the bf16 instantiations on the tensor cores: each must issue the bf16
+# m16n8k16 product (HMMA) and the cp.async copy (LDGSTS); name: count
+TENSOR_CORE = {"flash_attention_tc_kernel": 4, "paged_prefill_tc_kernel": 8}
 
 
 def log(msg: str) -> None:
@@ -134,7 +143,8 @@ def log_ptxas(path: Path) -> None:
     kernel = None
     for line in path.read_text().splitlines():
         m = re.search(r"entry function '[^']*?(paged_(?:decode|prefill)_"
-                      r"kernel|decode_attention_kernel|flash_attention_kernel"
+                      r"kernel|paged_prefill_tc_kernel|decode_attention_kernel"
+                      r"|flash_attention_(?:tc_)?kernel"
                       r"|selective_scan_kernel|stream_[a-z]+)", line)
         if m:
             kernel = m.group(1)
@@ -162,6 +172,32 @@ def time_ms(fn, iters: int = 36, warmup: int = 3) -> float:
         fn(i)
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 36, warmup: int = 3) -> float:
+    """Device time of ``fn(i)`` per call with the host out of the way: a
+    spin kernel (``torch.cuda._sleep``, ~10 ms) holds the stream while the
+    host queues all the calls, so the events time them back to back on
+    the card.  ``time_ms`` times them as the host issues them, which for
+    a short kernel behind a Python wrapper is the host's rate."""
+    import torch
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if queued_ms > 5.0:
+        raise AssertionError(f"device_ms: queueing took {queued_ms:.1f} ms, "
+                             f"too close to the spin kernel's ~10 ms")
     return start.elapsed_time(end) / iters
 
 
@@ -309,15 +345,19 @@ def kernel_phase(torch):
     base = [2061, 0, 130, 0]                     # prefill: chunk of 32
     grants = [32, 17, 5, 0]                      # ... slot 3 is EMPTY
     errs = {"decode": 0.0, "prefill": 0.0}
+    # (kind, page, NB): decode and prefill at the serving page, and prefill
+    # at page 8, whose 64-position tiles span eight pages each
+    runs = [("decode", page, NB), ("prefill", page, NB),
+            ("prefill", 8, 2 * NB)]
     for gname, g in geoms.items():
         for tname, q_dtype, pool in pools:
             tol, _ = TOL[tname]
-            for kind in ("decode", "prefill"):
+            for kind, pg, nb in runs:
                 if kind == "decode":
-                    c = make_case(gen, B=B, T=1, NB=NB, L=L, page=page,
+                    c = make_case(gen, B=B, T=1, NB=nb, L=L, page=pg,
                                   q_dtype=q_dtype, pool=pool, lens=lens, **g)
                 else:
-                    c = make_case(gen, B=B, T=T, NB=NB, L=L, page=page,
+                    c = make_case(gen, B=B, T=T, NB=nb, L=L, page=pg,
                                   q_dtype=q_dtype, pool=pool,
                                   lens=[b + n for b, n in zip(base, grants)],
                                   base=base, **g)
@@ -335,8 +375,8 @@ def kernel_phase(torch):
                                   got[live], want[live], tol)
                 errs[kind] = max(errs[kind], err)
                 log(f"[kernels] {kind:7s} {gname:10s} q={tname:8s} "
-                    f"pool={pool:4s} max|kernel-plain|={err:.3e} "
-                    f"(tol {tol})")
+                    f"pool={pool:4s} page={pg:2d} max|kernel-plain|="
+                    f"{err:.3e} (tol {tol})")
     for tname, (tol, why) in TOL.items():
         log(f"[kernels] tolerance {tname}: rtol=atol={tol} — {why}")
     log("[kernels] empty prefill slot (new_len == 0): exact zeros from the "
@@ -364,6 +404,15 @@ def timing_phase(torch, serve_lens, serve_base, max_blocks, n_layers):
                           page=16, q_dtype=torch.bfloat16, pool="bf16",
                           lens=[b + 32 for b in serve_base], base=serve_base,
                           **g)
+        if kind == "prefill":
+            from repro_torch.kernels.decode_attention import prefill_paged
+            blocks = prefill_paged.grid_blocks(4, 32, g["H"], g["KV"],
+                                               torch.bfloat16)
+            log(f"[timing] prefill grid at the serving shape (B=4, T=32, "
+                f"H={g['H']}, KV={g['KV']}, bf16): {blocks} blocks")
+            if blocks < 128:
+                raise AssertionError(f"paged prefill launches {blocks} "
+                                     f"blocks, fewer than 128")
         ms = time_ms(lambda i: run_kernel(kind, c, layer=i % n_layers))
         plain_ms = time_ms(lambda i: run_plain(kind, c, layer=i % n_layers))
         lib_ms = time_ms(lambda i: run_library(kind, c, layer=i % n_layers))
@@ -378,6 +427,10 @@ def timing_phase(torch, serve_lens, serve_base, max_blocks, n_layers):
             f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} "
             f"(by {bound_by}; live K/V bytes over "
             f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+        if kind == "prefill":
+            dms = device_ms(lambda i: run_kernel(kind, c, layer=i % n_layers))
+            log(f"[timing] prefill kernel device_ms={dms:.4f} (queued ahead "
+                f"of the card; kernel_ms above is the wrapper's issue rate)")
     return rows
 
 
@@ -693,6 +746,8 @@ def dense_timing(torch, S):
         shape=f"B={B} S=T={Sf} causal H={H} KV={KV} D={D}",
         bytes=2 * B * Sf * H * D * 2 + 2 * B * Sf * KV * D * 2,
         flops=4 * D * B * H * Sf * (Sf + 1) // 2)
+    log(f"[timing] flash_attention kernel device_ms="
+        f"{device_ms(calls[0]):.4f} (queued ahead of the card)")
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
                                                 BF16_FLOPS_PER_S)
@@ -1248,6 +1303,32 @@ def stream_phase(torch, gpu):
     return res, errs, launches, timing, clocks
 
 
+def tensor_core_check(fns):
+    """Every bf16 instantiation of the flash and paged-prefill kernels
+    issues bf16 m16n8k16 products (``HMMA.16816.F32.BF16``) and cp.async
+    copies (``LDGSTS``); prints their counts (and ``LDSM``, the ldmatrix
+    loads) per instantiation."""
+    import re
+    for kernel, n in TENSOR_CORE.items():
+        names = sorted(name for name in fns if kernel in name)
+        if len(names) != n:
+            raise AssertionError(f"{kernel}: {len(names)} SASS functions, "
+                                 f"expected {n} instantiations")
+        for name in names:
+            ops = [text.split()[0] if not text.startswith("@") else
+                   text.split()[1] for _, text in fns[name]]
+            hmma = sum(op.startswith("HMMA.16816.F32.BF16") for op in ops)
+            ldgsts = sum(op.startswith("LDGSTS") for op in ops)
+            ldsm = sum(op.startswith("LDSM") for op in ops)
+            short = re.sub(r"^_Z.*?\d+(?=" + kernel + ")", "", name)
+            log(f"[irm] tensor cores {short}: {hmma} HMMA.16816.F32.BF16, "
+                f"{ldgsts} LDGSTS, {ldsm} LDSM")
+            if hmma == 0 or ldgsts == 0:
+                raise AssertionError(f"{name}: no HMMA.16816.F32.BF16 "
+                                     f"({hmma}) or LDGSTS ({ldgsts}) in its "
+                                     f"SASS")
+
+
 def irm_phase(res, clocks, gpu):
     """The SASS census, then the roofline as ``launch/irm.py`` builds it."""
     from repro_torch.core import sass_counters as sc
@@ -1260,6 +1341,7 @@ def irm_phase(res, clocks, gpu):
     missing = [k for k in LOOPED if not any(k in name for name in looped)]
     if missing:
         raise AssertionError(f"no SASS function found for {missing}")
+    tensor_core_check(fns)
     for name in looped:                 # the census must see their loops
         try:
             sc.count_function(name, fns[name])

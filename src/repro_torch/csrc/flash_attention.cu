@@ -10,41 +10,53 @@
 // passes them unrepeated (KV == H is the JAX signature).
 //
 // The Pallas grid (B * H, S / bq, T / bkv) ran the kv blocks as its
-// sequential minor axis with m, l and acc in VMEM scratch.  Here one
-// thread block takes one (q tile of kBQ rows, batch * head), and a loop
-// inside it streams the k/v tiles of kBK positions through shared memory,
-// keeping the q tile, m, l and p in shared memory and acc in registers.
-// Under causal masking the loop stops at the tile's last row: later k/v
-// tiles are fully masked for every row (the Pallas kernel's skip of
-// blocks past the diagonal, flash.py:47-52).  The tiles are the
-// kernel's own, not the Pallas blocks: the ragged last q tile and the
-// ragged last k/v tile are masked here, so any S and T work (the JAX
-// kernel takes any S <= 512 as one block; the Python wrapper still
-// refuses the shapes its asserts refuse).  The first k/v tile always
-// holds a live position for every row (position 0), so no row is ever
-// fully masked.  Heavier causal q tiles are launched first.
+// sequential minor axis with m, l and acc in VMEM scratch.  Here a loop
+// inside each thread block streams the k/v tiles, and under causal
+// masking stops at the tile's last row: later tiles are fully masked for
+// every row (the Pallas kernel's skip of blocks past the diagonal,
+// flash.py:47-52).  The tiles are the kernel's own, not the Pallas
+// blocks: the ragged last q tile and the ragged last k/v tile are masked
+// here, so any S and T work (the JAX kernel takes any S <= 512 as one
+// block; the Python wrapper still refuses the shapes its asserts
+// refuse).  The first k/v tile always holds a live position for every
+// row (position 0), so no row is ever fully masked.  Heavier causal q
+// tiles are launched first.
 //
-// Arithmetic: the scores are a 64 x 32 tile per step, each of the 256
-// threads computing a 4 x 2 block of them from shared memory (rows
-// ty + 16 i, columns tx + 16 j: 6 loads feed 8 FMAs), and p @ v
-// accumulates a 4 x (D / 16) block of the output per thread (4 + D / 16
-// loads feed 4 D / 16 FMAs).  All on the CUDA cores in f32.
+// What bounds it on this card: at the whole-batch serving shape (B = 4,
+// S = 512, H = 32, KV = 8, D = 128, causal, bf16) it must read q, k and v
+// once and write o once, ~42 MB, 0.0125 ms at 3.35 TB/s, against 8.6
+// GFLOP of causal scores and p @ v, 0.0087 ms on the tensor cores at 989
+// TFLOP/s — so the card's bound is the bytes, barely, and the math has to
+// run on the tensor cores to come near it: on the CUDA cores (67 TFLOP/s
+// in f32) the same flops take at least 0.13 ms.
 //
-// What bounds it on this card: at the serving shape (B = 4, S = 512,
-// H = 32, KV = 8, D = 128, causal, bf16) it must read q, k and v once and
-// write o once, ~42 MB, 0.0125 ms at 3.35 TB/s, against 8.6 GFLOP of
-// causal scores and p @ v, 0.0087 ms on the tensor cores — so the card's
-// bound is the bytes, barely.  This kernel does its math on the CUDA
-// cores (67 TFLOP/s in f32), where the same flops take at least 0.13 ms,
-// and from shared memory, which feeds only 1.3 FMAs per load in the score
-// loop: its own arithmetic, not memory, is its limit.
+// bf16 (the serving path): flash_attention_tc_kernel, the tensor-core
+// body of attention_tc.cuh.  One block of 4 warps takes 128 query rows of
+// one (sequence, kv head), flattened t-major (row r: token r / G, head
+// hk G + r % G), so the G heads of a kv head read each k/v tile once (the
+// GQA reuse); scores and p @ v run as bf16 mma.sync with f32
+// accumulators, k/v tiles of 64 positions arrive by cp.async while the
+// previous tile is in use, and the softmax stays in registers.  Each warp
+// takes 32 rows, two m16 tiles that share every k and v fragment it
+// loads, which halves the ldmatrix traffic and the L2 reads of k and v
+// per product against 16 rows a warp; q is re-read from shared memory
+// each tile to leave the registers to the two tiles' accumulators.  At
+// the serving shape that is 2048 rows per (b, kv head) and 512 blocks.  p
+// is rounded to bf16 before p @ v (the plain version keeps it in f32).
 //
-// What holds it back (left for later work): scores and p @ v belong on
-// the tensor cores (mma.sync or wgmma on bf16 tiles), tiles should arrive
-// by cp.async or TMA while the previous tile is in use, and k/v are read
-// once per query head where GQA lets one block serve the G heads that
-// share a kv head.
+// What still holds it back (left for later work): mma.sync runs at about
+// two thirds of the wgmma rate, and the tiles are copied by every thread
+// rather than by TMA; at these shapes the bytes, not the math, bound the
+// card, so wgmma/TMA come only if the measured time stays well above the
+// library call's.
+//
+// f32 (the parity path): flash_attention_kernel, the CUDA-core body of
+// the first port, unchanged: one block per (64-row q tile, batch x head),
+// k/v tiles of 32 positions through shared memory, 4 x 2 scores and
+// 4 x D/16 outputs per thread, all in f32 (TF32 tensor cores would miss
+// the f32 tolerance).
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -232,13 +244,71 @@ cudaError_t run_typed(const Params& p, int B, int D, cudaStream_t stream) {
   }
 }
 
+constexpr int kTcWarps = 4, kTcMT = 2;       // bf16: 32 query rows a warp
+constexpr int kTcRows = 16 * kTcMT * kTcWarps;
+
+template <int D>
+__global__ void __launch_bounds__(32 * kTcWarps)
+    flash_attention_tc_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x / p.KV, hk = blockIdx.x % p.KV;
+  const int G = p.H / p.KV;
+  const size_t q0 = ((size_t)b * p.S * p.H + (size_t)hk * G) * D;
+  tc::Tile<__nv_bfloat16> a;
+  a.q = static_cast<const __nv_bfloat16*>(p.q) + q0;
+  a.out = static_cast<__nv_bfloat16*>(p.out) + q0;
+  a.k = static_cast<const __nv_bfloat16*>(p.k);
+  a.v = static_cast<const __nv_bfloat16*>(p.v);
+  a.k_scale = a.v_scale = nullptr;
+  a.tok_stride = (size_t)p.H * D;
+  a.G = G;
+  a.nrows = p.S * G;
+  a.r0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // heaviest first
+  a.base = 0;
+  a.kv_end = p.T;
+  a.causal = p.causal;
+  a.scale_log2 = p.scale * tc::kLog2e;
+  const size_t kv0 = (size_t)b * p.T * p.KV + hk;  // row of position 0
+  const int KV = p.KV;
+  tc::attend<__nv_bfloat16, D, kTcWarps, kTcMT>(
+      a, [=](int pos) { return (kv0 + (size_t)pos * KV) * D; },
+      reinterpret_cast<unsigned char*>(smem));
+}
+
+cudaError_t run_tc(const Params& p, int B, int D, cudaStream_t stream) {
+  if (!tc::aligned16(p.out) || !tc::aligned16(p.q) || !tc::aligned16(p.k)
+      || !tc::aligned16(p.v))                    // cp.async rows
+    return cudaErrorInvalidValue;
+  const int G = p.H / p.KV;
+  const dim3 grid(B * p.KV, (p.S * G + kTcRows - 1) / kTcRows);
+  const size_t smem = tc::smem_bytes(D, kTcRows, false);
+  switch (D) {
+    case 16:
+      return launch_smem(flash_attention_tc_kernel<16>, grid, 32 * kTcWarps,
+                         smem, stream, p);
+    case 32:
+      return launch_smem(flash_attention_tc_kernel<32>, grid, 32 * kTcWarps,
+                         smem, stream, p);
+    case 64:
+      return launch_smem(flash_attention_tc_kernel<64>, grid, 32 * kTcWarps,
+                         smem, stream, p);
+    case 128:
+      return launch_smem(flash_attention_tc_kernel<128>, grid,
+                         32 * kTcWarps, smem, stream, p);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // out, q: (B, S, H, D); k, v: (B, T, KV, D), all of dtype code `dtype`
 // (0 f32, 1 bf16), H a multiple of KV; causal 0 or 1.  All device
 // pointers, all contiguous.  Returns the launch's cudaError_t (0 =
 // launched); cudaErrorInvalidValue for a head dim or dtype no kernel was
-// built for (the Python wrapper refuses those before calling).
+// built for (the Python wrapper refuses those before calling) and, in
+// bf16, for a pointer that is not 16-byte aligned.  f32 runs the
+// CUDA-core kernel, bf16 the tensor-core one.
 extern "C" int flash_attention(void* out, const void* q, const void* k,
                                const void* v, int B, int S, int T, int H,
                                int KV, int D, int causal, int dtype,
@@ -256,6 +326,6 @@ extern "C" int flash_attention(void* out, const void* q, const void* k,
   p.scale = (float)(1.0 / sqrt((double)D));  // as math.sqrt in Python
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return (int)run_typed<float>(p, B, D, s);
-  if (dtype == kBF16) return (int)run_typed<__nv_bfloat16>(p, B, D, s);
+  if (dtype == kBF16) return (int)run_tc(p, B, D, s);
   return (int)cudaErrorInvalidValue;
 }

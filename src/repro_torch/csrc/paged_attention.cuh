@@ -1,6 +1,9 @@
-// Shared body of the two paged-attention kernels (paged_decode.cu,
-// paged_prefill.cu): one thread block attends one (slot b, kv-head h) over
-// that slot's pages of a stacked (L, num_pages, page, KV, D) pool.
+// CUDA-core body of the paged-attention kernels: it serves the decode
+// kernel (paged_decode.cu, every dtype) and the f32 prefill kernel
+// (paged_prefill.cu, q in f32: the parity path); the bf16 prefill runs on
+// the tensor cores (attention_tc.cuh).  One thread block attends one
+// (slot b, kv-head h) over that slot's pages of a stacked
+// (L, num_pages, page, KV, D) pool, all in f32.
 //
 // The TPU kernels ran the logical blocks as the sequential minor axis of
 // the Pallas grid, carrying the online-softmax state in VMEM scratch

@@ -10,37 +10,56 @@
 // attend (their output is garbage the engine ignores, computed with the
 // same masks as the plain version, row for row); optional int8 pages.
 //
-// Empty slots: a slot with new_len == 0 visits no block, so l stays 0
-// and the guarded finalize acc / max(l, 1e-30) writes exact zeros — what
-// the Pallas kernel gives.  The plain version (ref.py), like the JAX
-// oracle, softmaxes such a fully masked row uniformly instead.  The port
-// follows the kernel; the tests pin the zeros.
+// Empty slots: a slot with new_len == 0 visits nothing, so l stays 0 and
+// the guarded finalize acc / max(l, 1e-30) writes exact zeros — what the
+// Pallas kernel gives.  The plain version (ref.py), like the JAX oracle,
+// softmaxes such a fully masked row uniformly instead.  The port follows
+// the kernel; the tests pin the zeros.
 //
-// What bounds it on this card: at the serving shape (T = 32 tokens,
-// G = 4, D = 128, page 16) one (slot, kv-head) page of K/V, 8 KB in bf16,
-// feeds 4 * 128 * 16 * 128 flops — 128 flops per byte, under the H100's
-// ~295 for the tensor cores, so the card's bound is the live K/V bytes,
-// as in decode.  This kernel does its math in f32 on the CUDA cores
-// (67 TFLOP/s, ~20 flops per byte), so at long chunks its own f32 math,
-// not memory, is what limits it.  The design walks only the
-// blocks below new_len, straight from the table, keeps each row tile's
-// m, l and acc on chip across the sweep, and stops each tile's sweep at
-// its last row's causal limit.  Rows go in tiles of 64; the serving
-// shape's T * G = 128 rows make two tiles, and the second reads the
-// slot's pages again (from L2 at these sizes).
+// What bounds it on this card: at the paged serving shape (B = 4, T = 32
+// tokens, G = 4, D = 128, page 16, a few hundred live positions per slot)
+// one (slot, kv head) 64-position tile of K/V, 32 KB in bf16, feeds
+// 128 rows x 64 x 128 x 4 flops, 128 flops per byte, under the H100's
+// ~295 for the tensor cores: the card's bound is the live K/V bytes,
+// ~1.6 us, far below the cost of a launch.  What a kernel can lose is
+// parallelism and latency: a few hundred positions per slot leave little
+// work per (slot, kv head), so it has to be spread over many blocks and
+// its loads overlapped with its math.
 //
-// What holds it back (left for later work): B * KV blocks (32 at the
-// serving shape) on 132 SMs; scores and p @ v on CUDA cores in f32
-// rather than on the tensor cores (wgmma); plain loads without
-// cp.async or TMA, one page at a time.
+// bf16 q (the serving path): paged_prefill_tc_kernel, the tensor-core
+// body of attention_tc.cuh.  The grid is (row tiles, KV, B): a block of
+// 2 warps takes 32 query rows (16 a warp) of one (slot, kv head),
+// flattened t-major, so the serving shape's 128 rows per (slot, kv head)
+// launch 4 x 8 x 4 = 128 blocks on the 132 SMs (the CUDA-core body
+// launched B x KV = 32).  Position p of a 64-position tile is fetched
+// through the block table (page table[b, p / page], row p % page), so a
+// tile may straddle pages and every page size works, with shared memory
+// independent of the page.  Tiles arrive by 16-byte cp.async while the
+// previous tile is in use; scores and p @ v run as bf16 mma.sync with f32
+// accumulators; int8 pages arrive as raw rows and f32 scales and are
+// multiplied in f32 and rounded once to bf16 in shared memory, as the
+// plain version rounds for bf16 q.  Only positions below new_len, and
+// below each tile's causal limit, are read.
+//
+// What still holds it back (left for later work): each block sweeps its
+// slot's whole prefix alone (a split over positions would add blocks at
+// long contexts), and the tiles are copied by every thread rather than by
+// TMA, whose 2-D boxes do not fit pages scattered through a table.
+//
+// f32 q (the parity path): paged_prefill_kernel, the CUDA-core body of
+// paged_attention.cuh, unchanged: one block per (kv head, slot), rows in
+// tiles of 64, one page at a time, all in f32.
 //
 // pages_per_step: accepted by the Python wrapper and ignored, as in
 // paged_decode.cu.  It changes no result.
+#include "attention_tc.cuh"
 #include "paged_attention.cuh"
 
 namespace {
 
-constexpr int kRows = 64;                    // query rows per tile
+constexpr int kRows = 64;                    // f32: query rows per tile
+constexpr int kTcWarps = 2;                  // bf16: 16 query rows a warp
+constexpr int kTcRows = 16 * kTcWarps;
 
 template <typename QT, typename KVT, int D>
 __global__ void __launch_bounds__(paged::kThreads)
@@ -50,14 +69,72 @@ __global__ void __launch_bounds__(paged::kThreads)
   paged::attend<QT, KVT, D, kRows>(p, b, h, p.lens_a[b], p.lens_b[b], smem);
 }
 
+template <typename KVT, int D>
+__global__ void __launch_bounds__(32 * kTcWarps)
+    paged_prefill_tc_kernel(paged::Params p) {
+  extern __shared__ float smem[];
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const size_t q0 = ((size_t)b * p.T * p.H + (size_t)hk * p.G) * D;
+  tc::Tile<KVT> a;
+  a.q = static_cast<const __nv_bfloat16*>(p.q) + q0;
+  a.out = static_cast<__nv_bfloat16*>(p.out) + q0;
+  a.k = static_cast<const KVT*>(p.k_pool);
+  a.v = static_cast<const KVT*>(p.v_pool);
+  a.k_scale = p.k_scale;
+  a.v_scale = p.v_scale;
+  a.tok_stride = (size_t)p.H * D;
+  a.G = p.G;
+  a.nrows = p.T * p.G;
+  a.r0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;  // heaviest first
+  a.base = p.lens_a[b];
+  a.kv_end = paged::imin(p.lens_b[b], p.NB * p.page);
+  a.causal = 1;
+  a.scale_log2 = p.scale * tc::kLog2e;
+  const int* table = p.table + (size_t)b * p.NB;
+  const size_t page0 = (size_t)p.layer * p.num_pages;
+  const int page = p.page, KV = p.KV;
+  tc::attend<KVT, D, kTcWarps, 1>(
+      a,
+      [=](int pos) {                         // pool row of position pos
+        return (((page0 + table[pos / page]) * page + pos % page) * KV + hk)
+               * D;
+      },
+      reinterpret_cast<unsigned char*>(smem));
+}
+
 cudaError_t run(const paged::Params& p, int B, int D, int q_dtype,
                 int kv_dtype, cudaStream_t stream) {
-  const dim3 grid(p.KV, B);
-  const size_t smem = paged::smem_bytes(D, kRows, p.page);
+  if (q_dtype == paged::kF32) {
+    const dim3 grid(p.KV, B);
+    const size_t smem = paged::smem_bytes(D, kRows, p.page);
 #define LAUNCH(QT, KVT, DD) \
   paged::launch_smem(paged_prefill_kernel<QT, KVT, DD>, grid, \
                     paged::kThreads, smem, stream, p)
-  PAGED_DISPATCH(q_dtype, kv_dtype)
+    if (kv_dtype == paged::kF32) {
+      PAGED_DISPATCH_D(float, float)
+    }
+    if (kv_dtype == paged::kI8) {
+      PAGED_DISPATCH_D(float, int8_t)
+    }
+#undef LAUNCH
+    return cudaErrorInvalidValue;
+  }
+  if (q_dtype != paged::kBF16 || (kv_dtype != paged::kBF16
+                                  && kv_dtype != paged::kI8))
+    return cudaErrorInvalidValue;
+  if (!tc::aligned16(p.out) || !tc::aligned16(p.q)
+      || !tc::aligned16(p.k_pool) || !tc::aligned16(p.v_pool))
+    return cudaErrorInvalidValue;            // cp.async rows
+  const dim3 grid((p.T * p.G + kTcRows - 1) / kTcRows, p.KV, B);
+  const bool int8 = kv_dtype == paged::kI8;
+  const size_t smem = tc::smem_bytes(D, kTcRows, int8);
+#define LAUNCH(QT, KVT, DD) \
+  paged::launch_smem(paged_prefill_tc_kernel<KVT, DD>, grid, \
+                    32 * kTcWarps, smem, stream, p)
+  if (int8) {
+    PAGED_DISPATCH_D(__nv_bfloat16, int8_t)
+  }
+  PAGED_DISPATCH_D(__nv_bfloat16, __nv_bfloat16)
 #undef LAUNCH
 }
 

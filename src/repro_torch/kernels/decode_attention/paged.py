@@ -26,12 +26,29 @@ KERNEL = Kernel("paged_decode_attention",
 
 HEAD_DIMS = (16, 32, 64, 128)       # the head dims the kernels are built for
 SMEM_LIMIT = 232448                 # bytes of shared memory a block may use
-ROWS = {"decode": 8, "prefill": 64}  # query rows per tile (csrc kRows)
+ROWS = {"decode": 8, "prefill": 64}  # CUDA-core body: rows per tile (kRows)
+TC_ROWS = 32          # bf16 prefill, tensor-core body: rows per block
+KV_TILE, KV_PAD = 64, 8   # its K/V positions per tile, bf16 row padding
 
 
 def smem_bytes(D: int, rows: int, page: int) -> int:
-    """Dynamic shared memory of one block (csrc: paged::smem_bytes)."""
+    """Dynamic shared memory of one block of the CUDA-core body (csrc:
+    paged::smem_bytes): decode, and prefill with f32 q."""
     return 4 * (rows * D + page * (D + 1) + page * D + rows * page + 3 * rows)
+
+
+def tc_smem_bytes(D: int, rows: int, int8: bool) -> int:
+    """Dynamic shared memory of one block of the tensor-core body (csrc:
+    tc::smem_bytes): prefill with bf16 q.  Independent of the page."""
+    n = 2 * (rows * (D + KV_PAD) + 4 * KV_TILE * (D + KV_PAD))
+    return n + (4 * KV_TILE * D + 16 * KV_TILE if int8 else 0)
+
+
+def block_smem_bytes(kind: str, q_dtype, kv_dtype, D: int, page: int) -> int:
+    """Dynamic shared memory of one block of the kernel a call launches."""
+    if kind == "prefill" and q_dtype == torch.bfloat16:
+        return tc_smem_bytes(D, TC_ROWS, kv_dtype == torch.int8)
+    return smem_bytes(D, ROWS[kind], page)
 
 
 def on_cpu(*tensors) -> bool:
@@ -106,7 +123,7 @@ def check_layout(kind: str, q, k_pool, v_pool, block_table, lens,
             raise ValueError(f"{kind}: lengths must be (B,) int32")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{kind}: layer {layer} outside [0, {L})")
-    if smem_bytes(D, ROWS[kind], page) > SMEM_LIMIT:
+    if block_smem_bytes(kind, q.dtype, k_pool.dtype, D, page) > SMEM_LIMIT:
         raise ValueError(f"{kind}: page {page} needs more shared memory "
                          f"than a block has")
     return B, T, H, KV, D, num_pages, page, block_table.shape[1]

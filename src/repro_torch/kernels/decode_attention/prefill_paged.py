@@ -9,6 +9,11 @@ arguments, launches the kernel on the current stream, or raises.  The one
 place the two differ by design: a slot with ``new_len == 0`` gives exact
 zeros from the kernel (as from the Pallas kernel) and a uniform softmax
 from the plain version (as from the JAX oracle).
+
+bf16 q runs the tensor-core kernel (``csrc/attention_tc.cuh``), one block
+per (32-row tile, kv head, slot), with shared memory independent of the
+page size; f32 q runs the CUDA-core kernel of ``csrc/paged_attention.cuh``,
+one block per (kv head, slot).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
 from repro_torch.kernels.decode_attention.paged import (
-    check_args, on_cpu, promote, ptr)
+    TC_ROWS, check_args, on_cpu, promote, ptr)
 from repro_torch.kernels.decode_attention.ref import (
     paged_prefill_attention_ref)
 
@@ -27,6 +32,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 KERNEL = Kernel("paged_prefill_attention",
                 [_P] * 9 + [_I] * 11 + [_P])
+
+
+def grid_blocks(B: int, T: int, H: int, KV: int, dtype) -> int:
+    """Thread blocks of one launch: bf16 q runs the tensor-core kernel, one
+    block per (32-row tile of the T * G rows, kv head, slot); f32 q the
+    CUDA-core kernel, one block per (kv head, slot)."""
+    if dtype == torch.bfloat16:
+        return -(-T * (H // KV) // TC_ROWS) * KV * B
+    return KV * B
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,

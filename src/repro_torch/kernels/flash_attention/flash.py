@@ -10,7 +10,9 @@ min(512, S) that does not divide S, likewise for T), though the kernel's
 own tiles would take them.  For CPU tensors it takes the plain version —
 the chunked flash reference on repeated kv heads, at the JAX wrapper's
 block sizes; for CUDA tensors it launches the kernel on the current
-stream or raises.
+stream or raises.  bf16 runs on the tensor cores (``csrc/attention_tc.cuh``:
+bf16 mma.sync, p rounded to bf16 before p @ v); f32 on the CUDA cores in
+f32, the parity path.
 
 Forward only.  The JAX wrapper's backward (autograd through the chunked
 reference under a custom VJP) belongs to the training slice, so a CUDA

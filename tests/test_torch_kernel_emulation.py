@@ -7,18 +7,24 @@ selective scan) build only with nvcc, on the card.  Here the same
 sources are compiled with g++ against small stand-ins for
 ``cuda_runtime.h`` and ``cuda_bf16.h``: each thread block runs as many
 ``std::thread``s as its launch asks for (128 for the paged, decode and
-scan kernels, 256 for flash, 1024 for the stream kernels), sharing one
-``std::barrier`` for ``__syncthreads()``; blocks run one after another,
-and the two CUDA-only spellings (``<<<...>>>`` and ``extern
-__shared__``) are rewritten.  ``__shfl_down_sync`` is a slot per thread
-and two block barriers, which is right only because every warp of the
-stream kernels runs its shuffles on one uniform path — the property
-their instruction census relies on.  The kernels are then driven through
+scan kernels and the bf16 flash kernel, 64 for the bf16 paged prefill,
+256 for the f32 flash kernel, 1024 for the stream kernels), sharing one
+``std::barrier`` for ``__syncthreads()``; blocks of a 3-D grid run one
+after another, and the two CUDA-only spellings (``<<<...>>>`` and
+``extern __shared__``) are rewritten.  ``__shfl_down_sync`` is a slot per
+thread and two block barriers, which is right only because every warp of
+the stream kernels runs its shuffles on one uniform path — the property
+their instruction census relies on.  The PTX of the tensor-core body
+(``csrc/tc_ptx.cuh``: ``mma.sync`` m16n8k16, ``ldmatrix``, ``cp.async``)
+is replaced by a stand-in (``TC_PTX``) of warp-collective operations on
+the PTX ISA's fragment layouts, with a barrier per warp; ``__shfl_xor_sync``
+and ``__syncwarp`` are per warp too.  The kernels are then driven through
 the real wrappers — their argument checks, ctypes marshalling and launch
 counters — on CPU tensors.  This checks the kernels' indexing, masking,
-row tiling, online softmax, the dot reduction chain and the scan's
-strided B/C and ragged tiles before they reach the card; what nvcc accepts,
-and the kernels' speed, only ``chip_smoke.py`` on the card can show.
+row tiling, fragment layouts, online softmax, the dot reduction chain and
+the scan's strided B/C and ragged tiles before they reach the card; what
+nvcc accepts, and the kernels' speed, only ``chip_smoke.py`` on the card
+can show.
 """
 import contextlib
 import ctypes
@@ -47,10 +53,12 @@ from repro_torch.models.kv_quant import quantize_rows
 
 CUDA_RUNTIME = r"""
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -62,6 +70,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -70,7 +79,23 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* emu_barrier = nullptr;
 inline thread_local float* emu_shared = nullptr;
 inline thread_local float* emu_shfl = nullptr;   // one slot per thread
+// a warp's collective operations: one slot per lane, and a barrier of the
+// warp's own threads, so that warps may diverge in trip count
+struct EmuLane { uint32_t w[6]; const void* ptr; float f; };
+inline thread_local EmuLane* emu_warp = nullptr;  // the 32 lanes of a warp
+inline thread_local std::barrier<>* emu_warp_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_barrier->arrive_and_wait();
+}
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  const unsigned lane = threadIdx.x % 32;
+  emu_warp[lane].f = v;
+  __syncwarp();
+  const float r = emu_warp[lane ^ mask].f;
+  __syncwarp();
+  return r;
+}
 inline float __shfl_down_sync(unsigned, float v, int delta) {
   const unsigned t = threadIdx.x;
   emu_shfl[t] = v;
@@ -87,21 +112,30 @@ inline cudaError_t cudaGetLastError() { return 0; }
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
                 const A&... args) {
+  const int warps = (threads + 31) / 32;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::vector<float> shared(smem / sizeof(float) + 1, NAN);
+      std::vector<float> shared(smem / sizeof(float) + 4, NAN);
       std::vector<float> shfl(threads, NAN);
+      std::vector<EmuLane> lanes(32 * warps);
+      std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+      for (int w = 0; w < warps; ++w)
+        warp_bars.push_back(std::make_unique<std::barrier<>>(
+            std::min(32, threads - 32 * w)));
       std::barrier<> bar(threads);
       std::vector<std::thread> pool;
       for (int t = 0; t < threads; ++t)
         pool.emplace_back([&, t] {
           threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
+          blockIdx = dim3(bx, by, bz);
           blockDim = dim3(threads);
           gridDim = grid;
           emu_barrier = &bar;
           emu_shared = shared.data();
           emu_shfl = shfl.data();
+          emu_warp = lanes.data() + 32 * (t / 32);
+          emu_warp_barrier = warp_bars[t / 32].get();
           kernel(args...);
         });
       for (auto& th : pool) th.join();
@@ -125,6 +159,151 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 """
 
 
+# Stand-in for csrc/tc_ptx.cuh, written from the PTX ISA's fragment layouts
+# for mma.m16n8k16 and ldmatrix (lane = 4 g + c; the lower-indexed element
+# of a pair in the lower 16 bits): each operation is warp-collective —
+# every lane posts its registers or its row address in its slot, the warp
+# meets at its barrier, each lane computes its own result from all the
+# slots, and the warp meets again before the slots are reused.  cp.async
+# is a synchronous copy (zeros when the source is not valid), so commit
+# and wait have nothing to do; the SFU's 2^x is std::exp2.
+TC_PTX = r"""
+#pragma once
+#include <cstdint>
+#include <cmath>
+#include <cstring>
+#include "cuda_bf16.h"
+#include "cuda_runtime.h"
+namespace tc {
+inline float emu_bf16(uint32_t word, int high) {
+  const uint32_t u = high ? (word & 0xffff0000u) : (word << 16);
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// A (16 x 16): a0 rows 0-7 / cols 0-7, a1 rows 8-15 / cols 0-7, a2 rows
+// 0-7 / cols 8-15, a3 rows 8-15 / cols 8-15; lane 4 g + c: row g, cols
+// 2c, 2c + 1 of its block
+inline float emu_a(const EmuLane* w, int row, int k) {
+  return emu_bf16(w[4 * (row % 8) + (k % 8) / 2].w[row / 8 + 2 * (k / 8)],
+                  k % 2);
+}
+// B (16 x 8, k x n): b0 rows 0-7, b1 rows 8-15; lane 4 g + c: rows 2c,
+// 2c + 1 of column g
+inline float emu_b(const EmuLane* w, int k, int n) {
+  return emu_bf16(w[4 * n + (k % 8) / 2].w[4 + k / 8], k % 2);
+}
+inline void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                      uint32_t b1) {
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  for (int i = 0; i < 4; ++i) emu_warp[lane].w[i] = a[i];
+  emu_warp[lane].w[4] = b0;
+  emu_warp[lane].w[5] = b1;
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {      // d0, d1 row g; d2, d3 row g + 8
+    const int row = g + 8 * (i / 2), col = 2 * c + i % 2;
+    float s = 0.f;
+    for (int k = 0; k < 16; ++k)
+      s += emu_a(emu_warp, row, k) * emu_b(emu_warp, k, col);
+    d[i] += s;
+  }
+  __syncwarp();
+}
+// register i of lane 4 g + c: row g, cols 2c, 2c + 1 of matrix i (rows
+// addressed by lanes 8 i .. 8 i + 7); transposed: rows 2c, 2c + 1 of
+// column g
+inline void emu_ldmatrix(uint32_t (&r)[4], const void* row, bool trans) {
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  emu_warp[lane].ptr = row;
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {
+    uint16_t lo, hi;
+    if (!trans) {
+      const char* p = static_cast<const char*>(emu_warp[8 * i + g].ptr);
+      std::memcpy(&lo, p + 4 * c, 2);
+      std::memcpy(&hi, p + 4 * c + 2, 2);
+    } else {
+      const char* p0 = static_cast<const char*>(emu_warp[8 * i + 2 * c].ptr);
+      const char* p1 =
+          static_cast<const char*>(emu_warp[8 * i + 2 * c + 1].ptr);
+      std::memcpy(&lo, p0 + 2 * g, 2);
+      std::memcpy(&hi, p1 + 2 * g, 2);
+    }
+    r[i] = lo | (uint32_t)hi << 16;
+  }
+  __syncwarp();
+}
+inline void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  emu_ldmatrix(r, row, false);
+}
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  emu_ldmatrix(r, row, true);
+}
+inline void cp_async16(void* dst, const void* src, bool valid) {
+  if (valid) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);
+}
+inline void cp_async4(void* dst, const void* src, bool valid) {
+  if (valid) std::memcpy(dst, src, 4); else std::memset(dst, 0, 4);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+inline float exp2_approx(float x) { return std::exp2(x); }
+inline uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__float2bfloat16_rn(lo).x
+         | (uint32_t)__float2bfloat16_rn(hi).x << 16;
+}
+}  // namespace tc
+"""
+
+# One warp through the tensor-core body's fragment helpers
+# (csrc/attention_tc.cuh): A (16 x 16) times B given as B^T (n x k rows,
+# K's layout) and as B (k x n rows, V's layout), and the first product's
+# accumulators turned back into an A operand (P's path) times B.
+MMA_PROBE = r"""
+#include "attention_tc.cuh"
+namespace {
+struct Probe { const uint16_t* a; const uint16_t* bt; const uint16_t* b;
+               float* c; };
+constexpr int LD = 24;                       // padded row, as in the body
+__global__ void mma_probe_kernel(Probe p) {
+  extern __shared__ float smem[];
+  __nv_bfloat16* s = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int lane = threadIdx.x, g = lane / 4, c = lane % 4;
+  for (int e = lane; e < 256; e += 32) {
+    s[(e / 16) * LD + e % 16].x = p.a[e];
+    s[16 * LD + (e / 16) * LD + e % 16].x = p.bt[e];
+    s[32 * LD + (e / 16) * LD + e % 16].x = p.b[e];
+  }
+  __syncwarp();
+  uint32_t a[4], bt[4], b[4], pa[4];
+  tc::load_a(a, s, LD);
+  tc::load_b_nk(bt, s + 16 * LD, LD);
+  tc::load_b_kn(b, s + 32 * LD, LD);
+  float acc[3][2][4] = {};
+  tc::mma_16816(acc[0][0], a, bt[0], bt[1]);
+  tc::mma_16816(acc[0][1], a, bt[2], bt[3]);
+  tc::mma_16816(acc[1][0], a, b[0], b[1]);
+  tc::mma_16816(acc[1][1], a, b[2], b[3]);
+  tc::acc_to_a(pa, acc[0][0], acc[0][1]);
+  tc::mma_16816(acc[2][0], pa, b[0], b[1]);
+  tc::mma_16816(acc[2][1], pa, b[2], b[3]);
+  for (int m = 0; m < 3; ++m)
+    for (int n = 0; n < 2; ++n)
+      for (int i = 0; i < 4; ++i)
+        p.c[m * 256 + (g + 8 * (i / 2)) * 16 + 8 * n + 2 * c + i % 2] =
+            acc[m][n][i];
+}
+}  // namespace
+extern "C" int emu_mma_probe(const void* a, const void* bt, const void* b,
+                             void* c) {
+  Probe p{static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(bt),
+          static_cast<const uint16_t*>(b), static_cast<float*>(c)};
+  return (int)attn::launch_smem(mma_probe_kernel, dim3(1), 32,
+                                3 * 16 * LD * 2, nullptr, p);
+}
+"""
+
+
 def _rewrite(src: str) -> str:
     src = src.replace("extern __shared__ float smem[];",
                       "float* smem = emu_shared;")
@@ -144,6 +323,8 @@ def emulated(tmp_path_factory):
     for f in build.CSRC.glob("*.cu*"):
         out = f.name.replace(".cu", ".cpp") if f.suffix == ".cu" else f.name
         (d / out).write_text(_rewrite(f.read_text()))
+    (d / "tc_ptx.cuh").write_text(TC_PTX)         # the PTX, emulated
+    (d / "mma_probe.cpp").write_text(_rewrite(MMA_PROBE))
     lib = d / "libemu.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
                     "-shared", "-fPIC", "-pthread", f"-I{d}", "-o", str(lib),
@@ -246,6 +427,70 @@ def test_emulated_kernels_match_plain(case, cuda_path_on_cpu):
         (n0[0] + 1, n0[1] + 1)
 
 
+def _bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).view(torch.int16).contiguous()
+
+
+def test_emulated_mma_fragment_layout(emulated):
+    """The stand-in's mma.m16n8k16 and ldmatrix, through the body's
+    fragment helpers: A @ B with B loaded from K's layout (B^T rows) and
+    from V's layout (B rows, transposed on load), and the accumulators of
+    the first product rounded back into an A operand (P's path) — each
+    against a float matmul of the same bf16 values."""
+    rng = np.random.default_rng(16816)
+    a, b = (torch.from_numpy(rng.standard_normal((16, 16), np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    abits, bbits = _bf16_bits(a), _bf16_bits(b)
+    btbits = _bf16_bits(b.t().contiguous())
+    c = torch.empty(3, 16, 16)
+    assert emulated.emu_mma_probe(
+        ctypes.c_void_p(abits.data_ptr()), ctypes.c_void_p(btbits.data_ptr()),
+        ctypes.c_void_p(bbits.data_ptr()), ctypes.c_void_p(c.data_ptr())) == 0
+    want = a.double() @ b.double()
+    # f32 sums of 16 exact bf16 products: a few f32 ulps of sum |a b|
+    tol = 1e-6 * (a.double().abs() @ b.double().abs()).max().item()
+    torch.testing.assert_close(c[0].double(), want, rtol=0, atol=tol)
+    torch.testing.assert_close(c[1].double(), want, rtol=0, atol=tol)
+    p = c[0].to(torch.bfloat16).double()
+    torch.testing.assert_close(c[2].double(), p @ b.double(), rtol=0,
+                               atol=1e-6 * (p.abs() @ b.double().abs()).max()
+                               .item())
+
+
+# bf16 q on the tensor-core prefill body, (B, T, H, KV, D, page, NB, L,
+# int8 pools): single-row pages (every position its own table entry),
+# page 4 with int8 pools, G = 7 at page 16 over three 64-position tiles,
+# and page 24, whose pages straddle the tiles' boundaries
+TC_PREFILL_CASES = [
+    (2, 5, 8, 2, 32, 1, 90, 1, False),
+    (2, 9, 4, 1, 16, 4, 30, 2, True),
+    (2, 6, 14, 2, 64, 16, 9, 1, False),
+    (2, 7, 4, 2, 16, 24, 6, 1, True),
+]
+
+
+@pytest.mark.parametrize("case", TC_PREFILL_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_emulated_prefill_tiles_across_pages(case, cuda_path_on_cpu):
+    """64-position K/V tiles gathered through the block table at several
+    page sizes, bf16 and int8 pools under bf16 q, an empty slot (exact
+    zeros), against the plain version at the bf16 tolerance."""
+    *geom, int8 = case
+    q, kp, vp, tbl, base, new, layer, ks, vs = _case(
+        sum(geom) + 1, *geom, torch.bfloat16, int8, empty=True)
+    n0 = prefill_paged.KERNEL.launches
+    got = prefill_paged.paged_prefill_attention(
+        q, kp, vp, tbl, base, new, layer, k_scale=ks, v_scale=vs)
+    want = paged_prefill_attention_ref(q, kp, vp, tbl, base, new, layer,
+                                       ks, vs)
+    live = new > 0
+    assert (got[~live] == 0).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+    assert prefill_paged.KERNEL.launches == n0 + 1
+
+
 def test_emulated_decode_at_page_boundaries(cuda_path_on_cpu):
     """kv_len exactly on a page boundary, one past it and the full table:
     the dead-block skip is on j * page < kv_len, never on the table."""
@@ -309,6 +554,14 @@ FLASH_CASES = [(2, 37, 37, 4, 2, 16, True, torch.float32),
                (2, 20, 45, 4, 1, 16, False, torch.float32),
                (1, 33, 33, 8, 2, 128, True, torch.bfloat16),
                (1, 64, 64, 2, 2, 64, True, torch.float32)]
+
+
+# bf16 on the tensor-core body: S and T not multiples of 64, causal and
+# not, S != T both ways, G = 7
+FLASH_CASES += [(2, 100, 100, 4, 2, 32, True, torch.bfloat16),
+                (1, 45, 130, 7, 1, 16, False, torch.bfloat16),
+                (1, 130, 70, 4, 1, 64, True, torch.bfloat16),
+                (1, 40, 90, 14, 2, 16, True, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(

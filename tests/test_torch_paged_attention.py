@@ -185,6 +185,38 @@ def test_layout_check_accepts_int8_with_scales():
         == (2, 3, 4, 2, 16, 7, 4, 3)
 
 
+def test_prefill_grid_and_shared_memory_follow_the_kernels():
+    """bf16 q runs the tensor-core prefill kernel: 32-row tiles of the
+    T * G rows of each (kv head, slot), so the serving shape (B = 4,
+    T = 32, H = 32, KV = 8) launches 128 blocks, and shared memory that
+    does not grow with the page; f32 q keeps the CUDA-core kernel, one
+    block per (kv head, slot), whose footprint grows with the page and
+    refuses a page too large for a block."""
+    assert prefill_paged.grid_blocks(4, 32, 32, 8, torch.bfloat16) == 128
+    assert prefill_paged.grid_blocks(4, 32, 32, 8, torch.float32) == 32
+    assert prefill_paged.grid_blocks(2, 20, 14, 2, torch.bfloat16) == 20
+    bf = {paged.block_smem_bytes("prefill", torch.bfloat16, torch.bfloat16,
+                                 128, pg) for pg in (1, 16, 2048)}
+    assert bf == {2 * (32 * 136 + 4 * 64 * 136)}
+    assert paged.block_smem_bytes("prefill", torch.bfloat16, torch.int8,
+                                  128, 16) == max(bf) + 4 * 64 * 128 + 16 * 64
+    assert paged.block_smem_bytes("decode", torch.bfloat16, torch.bfloat16,
+                                  128, 16) == paged.smem_bytes(128, 8, 16)
+    L, P, page, KV, D = 1, 3, 2048, 2, 16
+    for dtype, refused in ((torch.float32, True), (torch.bfloat16, False)):
+        a = _layout_args(q=torch.zeros(2, 3, 4, D, dtype=dtype),
+                         k=torch.zeros(L, P, page, KV, D, dtype=dtype),
+                         v=torch.zeros(L, P, page, KV, D, dtype=dtype),
+                         layer=0)
+        args = ("prefill", a["q"], a["k"], a["v"], a["tbl"], a["lens"],
+                a["layer"])
+        if refused:
+            with pytest.raises(ValueError, match="shared memory"):
+                paged.check_layout(*args)
+        else:
+            assert paged.check_layout(*args)[6] == page
+
+
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     """Tensors that are not all on the CPU never reach the plain version:
     off a CUDA device the wrapper raises."""
