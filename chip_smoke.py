@@ -32,18 +32,22 @@ Phases, each failing loudly (non-zero exit, no result line):
                32 new tokens, greedy.  The flash kernel must run for every
                layer of the prefill and the dense decode kernel for every
                layer of every decode step; the fused loop and the legacy
-               loop give identical tokens; the prefill's and one decode
-               step's logits on the kernel path are held against the
-               plain path.  Before it, both dense kernels are held against
-               their plain versions (GQA, MQA, MHA; f32 and bf16; decode
-               over caches of 24-2080 rows with random windows, no window
-               and an empty one; flash causal and not, S = T from 37 to
-               2048, and S != T), and after it timed at the whole-batch
-               path's shapes beside their bounds and SDPA.
+               loop give identical tokens; a batch with a 777-token prompt
+               is served (512 does not divide 777); the prefill's and one
+               decode step's logits on the kernel path are held against
+               the plain path.  Before it, both dense kernels are held
+               against their plain versions (GQA, MQA, MHA; f32 and bf16;
+               decode over caches of 24-2080 rows with random windows, no
+               window and an empty one, and at the split kernel's piece
+               edges; flash causal and not, S = T from 37 to 2048, S != T,
+               and S = 600 through ``models.attention.attention``), and
+               after it timed at the whole-batch path's shapes beside
+               their bounds and SDPA.
   4. parity  — qwen2-0.5b (reduced) in f32, kernel path against plain path:
                greedy tokens identical, through the engine and through
                ``ServingEngine`` (prompts of multiples of 32 tokens, so
-               the plain side takes the chunked flash reference).
+               the plain side takes the chunked flash reference, among
+               them a (608, 64) batch, which 512 does not divide).
      ssm     — the selective-scan kernel against its plain version (f32
                and bf16; B 1 and 4; N 8 and 16; d_in 128, 1000 and 8192;
                S 1, 37, 512 and 2048; B and C strided views, as the model
@@ -54,16 +58,21 @@ Phases, each failing loudly (non-zero exit, no result line):
                exactly once per layer per prefill; fused and legacy loops
                give identical tokens; the prefill's logits and state and
                one decode step's logits on the kernel path are held
-               against the plain path.  Then falcon-mamba (reduced) in
+               against the plain path, once more with the conv and dt
+               weights scaled so that the scan's output moves the logits
+               (shown by zeroing it), with every layer's scan held
+               against its plain version on the same inputs.  Then
+               falcon-mamba (reduced) in
                f32, kernel against plain path, greedy tokens identical;
                and the kernel and plain version timed at the phase's
                shape beside the bound (no single PyTorch call computes a
                selective scan, so no library time).
   5. stream  — holds BabelStream's five kernels against their plain
-               versions in f32 and bf16 (the JAX tests' shapes, an odd
-               shape that exercises the bounds guard, and BabelStream's
-               2^25 elements): copy, mul, add and triad bit-identical, dot
-               within 2^-20 of sum |a b|.  Then BabelStream itself
+               versions in f32 and bf16 (the JAX tests' shapes, odd
+               shapes that exercise the bounds guard and dot's ragged
+               tail, and BabelStream's 2^25 elements): copy, mul, add and
+               triad bit-identical, dot within 2^-20 of sum |a b| and
+               bit-identical from run to run.  Then BabelStream itself
                (``launch/babelstream.py``) at 2^25 f32 elements, 100 times:
                its solution check must pass and all five launch counters
                rise.  Times each kernel, its plain version and one library
@@ -116,7 +125,8 @@ DENSE_KERNELS = {                # name: (source, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention/flash.py:83"),
 }
 # kernels with loops, which the SASS census must refuse (matched by name)
-LOOPED = ("paged_", "decode_attention_kernel", "flash_attention_kernel",
+LOOPED = ("paged_", "decode_attention_kernel",
+          "decode_attention_combine_kernel", "flash_attention_kernel",
           "flash_attention_tc_kernel", "selective_scan_kernel")
 # the bf16 instantiations on the tensor cores: each must issue the bf16
 # m16n8k16 product (HMMA) and the cp.async copy (LDGSTS); name: count
@@ -143,8 +153,8 @@ def log_ptxas(path: Path) -> None:
     kernel = None
     for line in path.read_text().splitlines():
         m = re.search(r"entry function '[^']*?(paged_(?:decode|prefill)_"
-                      r"kernel|paged_prefill_tc_kernel|decode_attention_kernel"
-                      r"|flash_attention_(?:tc_)?kernel"
+                      r"kernel|paged_prefill_tc_kernel|decode_attention_"
+                      r"(?:combine_)?kernel|flash_attention_(?:tc_)?kernel"
                       r"|selective_scan_kernel|stream_[a-z]+)", line)
         if m:
             kernel = m.group(1)
@@ -665,10 +675,13 @@ def dense_checks(torch):
                                          f"give exact zeros")
                 keep = torch.arange(B, device="cuda") != 2
                 err = max(err, check_close(what, got[keep], want[keep], tol))
+            err = max(err, decode_split_checks(torch, gen, dtype, tol,
+                                               f"{gname} {tname}", g))
             errs["decode_attention"] = max(errs["decode_attention"], err)
             log(f"[dense] decode {gname:11s} q={tname:8s} T in 24/48/544/"
-                f"2080, random and no kv_start: max|kernel-plain|={err:.3e} "
-                f"(tol {tol}); empty window exact zeros")
+                f"2080, random and no kv_start, split boundaries: "
+                f"max|kernel-plain|={err:.3e} (tol {tol}); empty window "
+                f"exact zeros")
         for gname, g in FLASH_GEOMS.items():
             err = 0.0
             shapes = [(S, S, c) for S in (37, 200, 512, 1024, 2048)
@@ -690,7 +703,62 @@ def dense_checks(torch):
             log(f"[dense] flash  {gname:11s} q={tname:8s} S = T in 37/200/"
                 f"512/1024/2048 causal and not, S != T: max|kernel-plain|="
                 f"{err:.3e} (tol {tol})")
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      route_check(torch, gen, dtype, tol,
+                                                  tname))
     return errs
+
+
+def decode_split_checks(torch, gen, dtype, tol, what, g):
+    """The split kernel at its pieces' edges, B = 4 over a T = 600 cache
+    (8 to 19 splits per kv head): windows of 64 rows (two tiles) and one
+    row either side, one starting inside a cache tile (kv_start = 37),
+    windows of one row and of 40 (most pieces empty while the window is
+    not), full ones, and an empty one (exact zeros).  Returns
+    max |kernel - plain|."""
+    from repro_torch.kernels.decode_attention import decode
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    B, T = 4, 600
+    q, k, v = dense_inputs(gen, B, 1, T, dtype=dtype, **g)
+    err = 0.0
+    for kv_len, starts in ((600, (536, 535, 537, 37)),
+                           (291, (0, 227, 290, 250)),
+                           (500, (460, 0, 500, 499))):
+        kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        got = decode.decode_attention(q, k, v, kvl, start)
+        want = decode_attention_ref(q, k, v, kvl, start)
+        torch.cuda.synchronize()
+        live = start < kv_len
+        if (got[~live] != 0).any().item():
+            raise AssertionError(f"decode {what} splits: an empty window "
+                                 f"must give exact zeros")
+        err = max(err, check_close(
+            f"decode {what} splits kv_len={kv_len} starts={starts} "
+            f"({decode.splits(T, B, g['KV'])} splits)", got[live],
+            want[live], tol))
+    return err
+
+
+def route_check(torch, gen, dtype, tol, tname):
+    """``models.attention.attention`` at S = T = 600, causal: the kernel
+    route takes a shape the reference dispatch serves (direct attention,
+    600 * 600 <= 1024 * 1024) though 512 does not divide it, against
+    ``direct_attention``.  Returns max |kernel - plain|."""
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.attention import attention, direct_attention
+    q, k, v = dense_inputs(gen, 2, 600, 600, 32, 8, 128, dtype)
+    n0 = flash.KERNEL.launches
+    err = check_close(f"attention route {tname} S=T=600 causal",
+                      attention(q, k, v, True),
+                      direct_attention(q, k, v, True), tol)
+    if flash.KERNEL.launches != n0 + 1:
+        raise AssertionError("attention route at S=600: the flash kernel "
+                             "did not run")
+    log(f"[dense] attention route q={tname:8s} S = T = 600 causal (granite "
+        f"geometry, B = 2) through the flash kernel: max|kernel-direct|="
+        f"{err:.3e} (tol {tol})")
+    return err
 
 
 def dense_timing(torch, S):
@@ -729,6 +797,14 @@ def dense_timing(torch, S):
         zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
         shape=f"B={B} T={T} kv_len={T} H={H} KV={KV} D={D}", bytes=nbytes,
         flops=4 * B * T * H * D)
+    blocks = decode.grid_blocks(B, T, KV)
+    log(f"[timing] decode_attention grid at B={B} T={T} KV={KV}: "
+        f"{decode.splits(T, B, KV)} splits, {blocks} blocks (+ the combine's "
+        f"{KV * B}); device_ms (queued ahead of the card): kernel "
+        f"{device_ms(calls[0]):.4f}, SDPA {device_ms(calls[2]):.4f}")
+    if blocks < 4 * B * KV:
+        raise AssertionError(f"dense decode launches {blocks} blocks, fewer "
+                             f"than 4 B KV = {4 * B * KV}")
     del kc, vc
 
     Sf, L = 512, 8
@@ -746,8 +822,8 @@ def dense_timing(torch, S):
         shape=f"B={B} S=T={Sf} causal H={H} KV={KV} D={D}",
         bytes=2 * B * Sf * H * D * 2 + 2 * B * Sf * KV * D * 2,
         flops=4 * D * B * H * Sf * (Sf + 1) // 2)
-    log(f"[timing] flash_attention kernel device_ms="
-        f"{device_ms(calls[0]):.4f} (queued ahead of the card)")
+    log(f"[timing] flash_attention device_ms (queued ahead of the card): "
+        f"kernel {device_ms(calls[0]):.4f}, SDPA {device_ms(calls[2]):.4f}")
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
                                                 BF16_FLOPS_PER_S)
@@ -819,8 +895,36 @@ def whole_batch_phase(torch, cfg, params):
         raise AssertionError(f"whole-batch: a kernel was not launched for "
                              f"every layer: {launches}")
     log("[whole-batch] fused and legacy loop: 4/4 requests token-identical")
+    long_prompt_check(torch, cfg, engine, rng)
     compare_whole_batch_logits(torch, cfg, params, prompts)
     return dict(launches=launches, tok_s=n_out / dt, S=S)
+
+
+def long_prompt_check(torch, cfg, engine, rng):
+    """A batch whose longest prompt has 777 tokens, served at full width:
+    the reference dispatch runs it as direct attention (777 * 777 <=
+    1024 * 1024), though 512 does not divide 777; the card route must
+    take it through the flash kernel, once per layer."""
+    from repro_torch.kernels.flash_attention import flash
+    lens, new_tokens = (777, 120), 4
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
+               for n in lens]
+    n0 = flash.KERNEL.launches
+    t0 = time.perf_counter()
+    out = engine.generate_batch(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = flash.KERNEL.launches - n0
+    log(f"[whole-batch] prompts {list(lens)} (S = 777, which 512 does not "
+        f"divide): served, {new_tokens} new tokens each in {dt:.2f} s; "
+        f"flash_attention launches {launches}")
+    if not all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size
+                                            for t in o) for o in out):
+        raise AssertionError("whole-batch S=777: a request did not get "
+                             f"{new_tokens} in-vocab tokens")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"whole-batch S=777: flash ran {launches} "
+                             f"times, not once per layer")
 
 
 def compare_whole_batch_logits(torch, cfg, params, prompts):
@@ -854,7 +958,9 @@ def whole_batch_parity(torch):
     """qwen2-0.5b (reduced) in f32 through ``ServingEngine``: the kernel
     path's greedy tokens equal the plain path's.  Prompts of 32-96 tokens
     in multiples of 32 (the plain side's chunked flash reference, chunks of
-    32) and a batch of short ones (its direct attention)."""
+    32), a batch of short ones (its direct attention), and (608, 64):
+    chunks of 32 divide 608, 512 does not, so the kernel route must take
+    it as the reference does."""
     import dataclasses
 
     import numpy as np
@@ -869,7 +975,7 @@ def whole_batch_parity(torch):
     params = get_model(cfg).init(gen, "cuda")
     rng = np.random.RandomState(9)
     same = total = 0
-    for lens in ((32, 64, 96), (96, 96, 32, 64), (7, 30, 19)):
+    for lens in ((32, 64, 96), (96, 96, 32, 64), (7, 30, 19), (608, 64)):
         prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
                    for n in lens]
         outs = [ServingEngine(get_model(cfg, plain_attention=plain), params,
@@ -879,7 +985,8 @@ def whole_batch_parity(torch):
         same += sum(a == b for a, b in zip(*outs))
         total += len(prompts)
     log(f"[parity] qwen2-0.5b-reduced f32 ServingEngine, kernel vs plain "
-        f"path: {same}/{total} requests token-identical")
+        f"path: {same}/{total} requests token-identical (the (608, 64) "
+        f"batch included)")
     if same != total:
         raise AssertionError("whole-batch kernel path and plain path "
                              "disagree in f32")
@@ -1045,6 +1152,7 @@ def ssm_serve_phase(torch):
     log("[ssm] fused and legacy loop: 4/4 requests token-identical")
     del engine
     compare_ssm_paths(torch, cfg, params, prompts)
+    compare_ssm_scaled(torch, cfg, params, prompts)
     return dict(launches=launches, tok_s=n_out / dt, S=S)
 
 
@@ -1092,6 +1200,101 @@ def compare_ssm_paths(torch, cfg, params, prompts):
         if not (err <= lim):
             raise AssertionError(f"ssm {name}: kernel path drifts {err:.4e} "
                                  f"> {lim:.4e}")
+
+
+# The scaled SSM check's weights: conv taps x4 and dt_bias + 2.  With the
+# init's fan-in taps the scan's output barely reaches the logits; from x8
+# up this random 64-layer network turns a flip of y's last bit in 1e-4 of
+# its elements into a logit change past the bound, so no kernel could hold
+# it there.  x4, + 2 is the measured scaling between the two
+# (scripts/torch_ssm_drift.py; PERF.md, PR 16).
+SSM_TAP_SCALE, SSM_DT_SHIFT = 4.0, 2.0
+
+
+def compare_ssm_scaled(torch, cfg, params, prompts):
+    """The serve-level check once more on weights that make the scan
+    matter (``SSM_TAP_SCALE``, ``SSM_DT_SHIFT``).  On the plain path's
+    prefill, every layer's scan also runs through the kernel on the same
+    inputs, held to the bf16 scan tolerance (y) and 2e-5 (h_final); the
+    plain path with the scan's y set to zero must move the prefill logits
+    by more than the bound, or this check would not test the kernel; then
+    the kernel path's prefill and decode-step logits against the plain
+    path's, held to LOGIT_ULPS bf16 ulps of their scale."""
+    from repro_torch.kernels.ssm_scan import scan
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    mixer = dict(params["blocks"]["mixer"])
+    mixer["conv_w"] = mixer["conv_w"] * SSM_TAP_SCALE
+    mixer["dt_bias"] = mixer["dt_bias"] + SSM_DT_SHIFT
+    scaled = dict(params, blocks=dict(params["blocks"], mixer=mixer))
+    kern, plain = get_model(cfg), get_model(cfg, plain_attention=True)
+    plain_scan = ssm_mod.mamba1_scan
+    rtol, atol, _ = SCAN_TOL["bfloat16"]
+    worst = {"y": 0.0, "h": 0.0, "layers": 0}
+
+    def both(*args):
+        y, h = plain_scan(*args)
+        yk, hk = scan.selective_scan(*args)
+        for name, a, b, rt, at in (("y", yk, y, rtol, atol),
+                                   ("h", hk, h, 2e-5, 2e-5)):
+            a, b = a.float(), b.float()
+            worst[name] = max(worst[name], ((a - b).abs() / (
+                rt * b.abs() + at)).max().item())
+        worst["layers"] += 1
+        return y, h
+
+    def no_scan(*args):
+        y, h = plain_scan(*args)
+        return torch.zeros_like(y), h
+
+    def prefill(model, wrap=None):
+        ssm_mod.mamba1_scan = wrap or plain_scan
+        try:
+            return ServingEngine(model, scaled, ServeConfig()
+                                 )._prefill_cache(prompts, 2)
+        finally:
+            ssm_mod.mamba1_scan = plain_scan
+
+    with torch.no_grad():
+        lk, ck = prefill(kern)
+        lp, cp = prefill(plain, both)
+        state = cp["ssm"].abs().max().item()
+        nxt = lp.argmax(-1).to(torch.int32)[:, None]
+        dk, _ = kern.decode_step(scaled, nxt, ck)
+        dp, _ = plain.decode_step(scaled, nxt, cp)
+        l0, _ = prefill(plain, no_scan)
+    log(f"[ssm] scaled weights (conv taps x{SSM_TAP_SCALE}, dt_bias + "
+        f"{SSM_DT_SHIFT}): prefill ssm state max|h| = {state:.4f}; every "
+        f"layer's scan, kernel vs plain on the same inputs "
+        f"({worst['layers']} layers): worst |diff| / tol y {worst['y']:.3f}"
+        f", h_final {worst['h']:.3f} (<= 1 holds)")
+    if worst["layers"] != cfg.n_layers or not (worst["y"] <= 1.0
+                                               and worst["h"] <= 1.0):
+        raise AssertionError(f"ssm scaled: a layer's scan kernel differs "
+                             f"from plain on the same inputs: {worst}")
+    scale = lp.float().abs().max().item()
+    lim = LOGIT_ULPS * 2.0 ** -8 * scale
+    moved = (l0.float() - lp.float()).abs().max().item()
+    log(f"[ssm] scaled weights: the scan's y set to zero moves the plain "
+        f"prefill logits by {moved:.4e} against the bound {lim:.4e}")
+    if not moved > lim:
+        raise AssertionError(f"ssm scaled check: the scan moves the logits "
+                             f"by {moved:.4e} <= {lim:.4e}, so it would not "
+                             f"test the kernel")
+    for name, a, b in (("prefill logits", lk, lp),
+                       ("decode step logits", dk, dp)):
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        lim = LOGIT_ULPS * 2.0 ** -8 * b.abs().max().item()
+        agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+        log(f"[ssm] scaled weights, {name}, kernel vs plain path: "
+            f"max|diff|={err:.4e}, bound {lim:.4e} ({LOGIT_ULPS} bf16 ulps "
+            f"of the scale {b.abs().max().item():.3f}); argmax agree "
+            f"{agree}/{a.shape[0]}")
+        if not (err <= lim):
+            raise AssertionError(f"ssm scaled {name}: kernel path drifts "
+                                 f"{err:.4e} > {lim:.4e}")
 
 
 def ssm_parity(torch):
@@ -1183,7 +1386,7 @@ def ssm_phase(torch):
 
 BABEL = (16384, 2048)            # 2^25 elements: BabelStream's default size
 STREAM_SHAPES = [(8, 128), (256, 512), (1024, 128), (64, 1024), (3, 1000),
-                 BABEL]
+                 (3, 1001), (9, 1001), BABEL]      # n % 8 = 3 and 1
 STREAM_DOT_TOL = (2.0 ** -20, "of sum |a b|: the f32 products are exact "
                               "or rounded alike, and only the order of the "
                               "f32 sums differs, each within log2(n) f32 "
@@ -1212,7 +1415,12 @@ def stream_checks(torch):
                      "add": (stream.add(a, b), ref.add(a, b)),
                      "triad": (stream.triad(b, c), ref.triad(b, c)),
                      "dot": (stream.dot(a, b), ref.dot(a, b))}
+            again = stream.dot(a, b)
             torch.cuda.synchronize()
+            if not torch.equal(again.view(torch.int32),
+                               pairs["dot"][0].view(torch.int32)):
+                raise AssertionError(f"stream dot {tuple(shape)} {dtype}: "
+                                     f"two runs differ in their bits")
             for name, (got, want) in pairs.items():
                 err = (got.float() - want.float()).abs().max().item()
                 if name == "dot":
@@ -1230,7 +1438,8 @@ def stream_checks(torch):
                 f"bit-identical, dot |kernel-plain| = "
                 f"{(pairs['dot'][0] - pairs['dot'][1]).abs().item():.3e}")
     log(f"[stream] tolerance: copy, mul, add, triad bit-identical (each "
-        f"rounds where the plain version rounds); dot {tol} {why}")
+        f"rounds where the plain version rounds); dot {tol} {why}; dot "
+        f"bit-identical from run to run at every shape")
     return errs
 
 

@@ -20,13 +20,25 @@
 // blocks, a bounds guard so any n works, and enough blocks (32768 at
 // BabelStream's 2^25 elements) to fill every SM.
 //
-// What holds them back: one 4-byte (f32) or 2-byte (bf16) load per thread.
-// An SM holds at most 2048 threads, so it keeps at most 8 KB of f32 loads
-// in flight, about half of what HBM's latency asks for at full rate; f32
-// copy measures ~56% of the data sheet's 3.35 TB/s (PERF.md), where
-// BabelStream's f64 default moves twice the bytes per thread.  Vector
-// loads (16 bytes a thread) are the next step; this PR keeps the simple,
-// exact form.
+// What holds copy, mul, add and triad back: one 4-byte (f32) or 2-byte
+// (bf16) load per thread.  An SM holds at most 2048 threads, so it keeps
+// at most 8 KB of f32 loads in flight, about half of what HBM's latency
+// asks for at full rate; f32 copy measures ~56% of the data sheet's 3.35
+// TB/s (PERF.md), where BabelStream's f64 default moves twice the bytes
+// per thread.  Their vector form is the next step.
+//
+// dot has it already: each thread takes kPer = 32 elements of each array
+// in 16-byte loads (eight of f32, four of bf16, per array), a warp's load
+// reading 512 neighbouring bytes, in blocks of kDotThreads = 256, so a
+// block sums 8192 products and 2^25 elements take 4096 blocks; the f32
+// partials are summed by stream_sum_f32 the same way, so 2^25 takes two
+// launches (2^25 -> 4096 -> 1).  Small blocks with many bytes per thread
+// keep several blocks loading on each SM while another one reduces.  The
+// arrays' base must be 16-byte aligned (the wrapper refuses others).
+// Each 16-byte vector is read only when it lies wholly in range; the
+// elements past the last whole vector (n % 8 of bf16, n % 4 of f32) are
+// the ragged tail, which global thread j adds through a guarded scalar
+// load.  So the code has no loop and only forward branches.
 //
 // Two rules keep the results reproducible and the instruction census
 // (repro_torch/core/sass_counters.py) exact:
@@ -38,15 +50,16 @@
 //     bit-identical to their plain versions.  The scalar arrives already
 //     rounded to the array's type (the wrapper does it, as JAX does).
 //   * No loop, no atomic, and one straight-line path for every warp.  dot
-//     sums each block's 1024 f32 products with warp shuffles, the 32 warp
-//     partials through shared memory, and a last 32-way shuffle that every
-//     warp runs.  Lane 0 of every warp then stores the block's sum — the
+//     sums each thread's 32 products (and its tail product) in a fixed
+//     tree, the block's 256 thread sums with warp shuffles, the 8 warp
+//     partials through shared memory, and a last 32-way shuffle (zeros
+//     past the 8) that every warp runs.  Lane 0 of every warp then stores the block's sum — the
 //     same value, bit for bit, from each warp.  Were thread 0 alone to
-//     store, nvcc would end warps 1-31 with an early EXIT before the store
+//     store, nvcc would end the other warps with an early EXIT before it
 //     (52 instructions against warp 0's 58, in the first build's SASS),
 //     and the census's one path per kernel would no longer be every warp's.
 //     The block partials are summed by relaunching the f32 sum kernel until
-//     one value is left (2^25 -> 32768 -> 32 -> 1), so the order of every
+//     one value is left (2^25 -> 4096 -> 1), so the order of every
 //     addition is fixed and the sum is the same on every run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,7 +68,9 @@ namespace {
 
 constexpr int kThreads = 1024;               // BabelStream-CUDA's TBSIZE
 constexpr int kWarp = 32;
-constexpr int kWarps = kThreads / kWarp;
+constexpr int kDotThreads = 256;             // dot and sum: their blocks
+constexpr int kDotWarps = kDotThreads / kWarp;
+constexpr int kPer = 32;                     // ... and elements a thread
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -113,33 +128,84 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The block's kThreads terms summed into out[blockIdx.x].  Every warp
+// The block's kDotThreads terms summed into out[blockIdx.x].  Every warp
 // runs every instruction (see the note at the top).
 __device__ __forceinline__ void block_sum(float v, float* out) {
-  extern __shared__ float smem[];            // kWarps warp partials
+  extern __shared__ float smem[];            // kDotWarps warp partials
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   v = warp_sum(v);
   if (lane == 0) smem[warp] = v;
   __syncthreads();
-  v = warp_sum(smem[lane]);                  // the same sum in every warp
+  v = warp_sum(lane < kDotWarps ? smem[lane] : 0.f);  // in every warp
   if (lane == 0) out[blockIdx.x] = v;
+}
+
+// 16 bytes of an array: 8 bf16 or 4 f32 values
+template <typename T>
+struct alignas(16) Pack {
+  T e[16 / sizeof(T)];
+};
+
+// One element's term: the f32 product a[j] * b[j] for dot, the value
+// a[j] for sum (kDot false: b is not read).
+template <bool kDot, typename T>
+__device__ __forceinline__ float term(T a, T b) {
+  return kDot ? __fmul_rn(to_f32(a), to_f32(b)) : to_f32(a);
+}
+
+// x[j] += x[j + W] for j < W, then W / 2, ... down to 1: a fixed tree
+// over 2 W terms, unrolled by the template (no loop is left to the SASS).
+template <int W>
+__device__ __forceinline__ void fold(float* x) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) x[j] = __fadd_rn(x[j], x[j + W]);
+  if constexpr (W > 1) fold<W / 2>(x);
+}
+
+// This thread's sum of kPer terms in a fixed tree.  Its c-th 16-byte
+// vector starts at element blockIdx.x * kPer * kDotThreads + (c *
+// kDotThreads + threadIdx.x) * E, so that each load of a warp reads 512
+// neighbouring bytes; a vector is read only when all its E elements are
+// in range, else its terms are 0.  Then (global threads j < n % E) the
+// ragged tail's element n - n % E + j, which no whole vector holds, by a
+// guarded scalar load.
+template <bool kDot, typename T>
+__device__ __forceinline__ float thread_sum(const T* a, const T* b,
+                                            long long n) {
+  constexpr int E = 16 / sizeof(T), kVecs = kPer / E;
+  static_assert((kPer & (kPer - 1)) == 0, "the tree halves kPer terms");
+  const long long first = (long long)blockIdx.x * kPer * kDotThreads
+                          + (long long)threadIdx.x * E;
+  float x[kPer];
+#pragma unroll
+  for (int c = 0; c < kVecs; ++c) {
+    const long long i = first + (long long)c * kDotThreads * E;
+#pragma unroll
+    for (int j = 0; j < E; ++j) x[c * E + j] = 0.f;
+    if (i + E <= n) {
+      const Pack<T> va = *reinterpret_cast<const Pack<T>*>(a + i);
+      const Pack<T> vb = kDot ? *reinterpret_cast<const Pack<T>*>(b + i)
+                              : va;
+#pragma unroll
+      for (int j = 0; j < E; ++j) x[c * E + j] = term<kDot>(va.e[j], vb.e[j]);
+    }
+  }
+  fold<kPer / 2>(x);
+  const long long t = n - n % E
+                      + (long long)blockIdx.x * kDotThreads + threadIdx.x;
+  if (t < n) x[0] = __fadd_rn(x[0], term<kDot>(a[t], kDot ? b[t] : a[t]));
+  return x[0];
 }
 
 template <typename T>
 __device__ __forceinline__ void dot_at(const T* a, const T* b, float* out,
                                        long long n) {
-  const long long i = element();
-  float x = 0.f;
-  if (i < n) x = __fmul_rn(to_f32(a[i]), to_f32(b[i]));
-  block_sum(x, out);
+  block_sum(thread_sum<true>(a, b, n), out);
 }
 
 __device__ __forceinline__ void sum_at(const float* x, float* out,
                                        long long n) {
-  const long long i = element();
-  float v = 0.f;
-  if (i < n) v = x[i];
-  block_sum(v, out);
+  block_sum(thread_sum<false>(x, x, n), out);
 }
 
 }  // namespace
@@ -164,7 +230,7 @@ __device__ __forceinline__ void sum_at(const float* x, float* out,
                          long long n) {                                     \
     triad_at(b, c, a, s, n);                                                \
   }                                                                         \
-  extern "C" __global__ void __launch_bounds__(kThreads)                    \
+  extern "C" __global__ void __launch_bounds__(kDotThreads)                 \
       stream_dot_##SFX(const T* a, const T* b, float* out, long long n) {   \
     dot_at(a, b, out, n);                                                   \
   }
@@ -173,19 +239,23 @@ STREAM_KERNELS(float, f32)
 STREAM_KERNELS(__nv_bfloat16, bf16)
 #undef STREAM_KERNELS
 
-extern "C" __global__ void __launch_bounds__(kThreads)
+extern "C" __global__ void __launch_bounds__(kDotThreads)
     stream_sum_f32(const float* x, float* out, long long n) {
   sum_at(x, out, n);
 }
 
 namespace {
 
+// One launch of ceil(n / per) threads in blocks of `threads`: per = 1
+// element a thread in blocks of kThreads, or kPer in blocks of
+// kDotThreads for dot and sum.
 template <typename... P, typename... A>
-cudaError_t launch(void (*kernel)(P...), long long n, size_t smem,
-                   void* stream, A... args) {
-  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
+cudaError_t launch(void (*kernel)(P...), long long n, int threads, int per,
+                   size_t smem, void* stream, A... args) {
+  const long long block = (long long)threads * per;
+  const dim3 grid((unsigned)((n + block - 1) / block));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<grid, kThreads, smem, s>>>(args...);
+  kernel<<<grid, threads, smem, s>>>(args...);
   return cudaGetLastError();
 }
 
@@ -202,10 +272,10 @@ typedef __nv_bfloat16 bf16;
 extern "C" int stream_copy(const void* a, void* c, long long n, int dtype,
                            void* stream) {
   if (dtype == kF32)
-    return launch(stream_copy_f32, n, 0, stream, (const float*)a,
+    return launch(stream_copy_f32, n, kThreads, 1, 0, stream, (const float*)a,
                   (float*)c, n);
   if (dtype == kBF16)
-    return launch(stream_copy_bf16, n, 0, stream, (const bf16*)a, (bf16*)c,
+    return launch(stream_copy_bf16, n, kThreads, 1, 0, stream, (const bf16*)a, (bf16*)c,
                   n);
   return cudaErrorInvalidValue;
 }
@@ -213,10 +283,10 @@ extern "C" int stream_copy(const void* a, void* c, long long n, int dtype,
 extern "C" int stream_mul(const void* c, void* b, float s, long long n,
                           int dtype, void* stream) {
   if (dtype == kF32)
-    return launch(stream_mul_f32, n, 0, stream, (const float*)c, (float*)b,
+    return launch(stream_mul_f32, n, kThreads, 1, 0, stream, (const float*)c, (float*)b,
                   s, n);
   if (dtype == kBF16)
-    return launch(stream_mul_bf16, n, 0, stream, (const bf16*)c, (bf16*)b,
+    return launch(stream_mul_bf16, n, kThreads, 1, 0, stream, (const bf16*)c, (bf16*)b,
                   s, n);
   return cudaErrorInvalidValue;
 }
@@ -224,10 +294,10 @@ extern "C" int stream_mul(const void* c, void* b, float s, long long n,
 extern "C" int stream_add(const void* a, const void* b, void* c,
                           long long n, int dtype, void* stream) {
   if (dtype == kF32)
-    return launch(stream_add_f32, n, 0, stream, (const float*)a,
+    return launch(stream_add_f32, n, kThreads, 1, 0, stream, (const float*)a,
                   (const float*)b, (float*)c, n);
   if (dtype == kBF16)
-    return launch(stream_add_bf16, n, 0, stream, (const bf16*)a,
+    return launch(stream_add_bf16, n, kThreads, 1, 0, stream, (const bf16*)a,
                   (const bf16*)b, (bf16*)c, n);
   return cudaErrorInvalidValue;
 }
@@ -235,32 +305,34 @@ extern "C" int stream_add(const void* a, const void* b, void* c,
 extern "C" int stream_triad(const void* b, const void* c, void* a, float s,
                             long long n, int dtype, void* stream) {
   if (dtype == kF32)
-    return launch(stream_triad_f32, n, 0, stream, (const float*)b,
+    return launch(stream_triad_f32, n, kThreads, 1, 0, stream, (const float*)b,
                   (const float*)c, (float*)a, s, n);
   if (dtype == kBF16)
-    return launch(stream_triad_bf16, n, 0, stream, (const bf16*)b,
+    return launch(stream_triad_bf16, n, kThreads, 1, 0, stream, (const bf16*)b,
                   (const bf16*)c, (bf16*)a, s, n);
   return cudaErrorInvalidValue;
 }
 
 // The first pass of dot: out[j] = the sum of block j's products
-// a[i] * b[i] in f32.  out holds ceil(n / 1024) floats.
+// a[i] * b[i] in f32 (8192 a block; block 0 adds the ragged tail's).  a
+// and b 16-byte aligned; out holds ceil(n / 8192) floats.
 extern "C" int stream_dot(const void* a, const void* b, float* out,
                           long long n, int dtype, void* stream) {
-  const size_t smem = kWarps * sizeof(float);
+  const size_t smem = kDotWarps * sizeof(float);
   if (dtype == kF32)
-    return launch(stream_dot_f32, n, smem, stream, (const float*)a,
+    return launch(stream_dot_f32, n, kDotThreads, kPer, smem, stream, (const float*)a,
                   (const float*)b, out, n);
   if (dtype == kBF16)
-    return launch(stream_dot_bf16, n, smem, stream, (const bf16*)a,
+    return launch(stream_dot_bf16, n, kDotThreads, kPer, smem, stream, (const bf16*)a,
                   (const bf16*)b, out, n);
   return cudaErrorInvalidValue;
 }
 
 // The later passes of dot: out[j] = the sum of block j's elements of the
-// f32 partials x.  out holds ceil(n / 1024) floats.
+// f32 partials x (8192 a block).  x 16-byte aligned; out holds
+// ceil(n / 8192) floats.
 extern "C" int stream_sum(const float* x, float* out, long long n,
                           void* stream) {
-  return launch(stream_sum_f32, n, kWarps * sizeof(float), stream, x, out,
-                n);
+  return launch(stream_sum_f32, n, kDotThreads, kPer,
+                kDotWarps * sizeof(float), stream, x, out, n);
 }

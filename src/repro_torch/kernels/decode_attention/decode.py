@@ -6,9 +6,14 @@ its wrapper.
 The wrapper takes the plain version (``ref.decode_attention_ref``) only
 when every tensor lies on the CPU.  For CUDA tensors it checks the
 arguments, launches the kernel on the current stream, or raises — it
-never falls back.  The one place the two differ by design: a slot whose
-window is empty (kv_start[b] >= kv_len) gives exact zeros from the kernel
-and a uniform softmax from the plain version.
+never falls back.  The kernel splits each slot's window across
+``splits(T, B, KV)`` blocks per kv head and merges their partials in a
+second launch of the same C call; the wrapper allocates the partials'
+scratch and reads nothing back from the card (no host sync), so a decode
+step that calls it can be captured in a CUDA graph.  The one place the
+two differ by design: a slot whose window is empty (kv_start[b] >=
+kv_len) gives exact zeros from the kernel and a uniform softmax from the
+plain version.
 """
 from __future__ import annotations
 
@@ -23,7 +28,22 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-KERNEL = Kernel("decode_attention", [_P] * 6 + [_I] * 6 + [_P])
+KERNEL = Kernel("decode_attention", [_P] * 7 + [_I] * 7 + [_P])
+
+TILE = 32                  # cache positions per tile (csrc kTile)
+TARGET_BLOCKS = 2 * 132    # about two blocks on each of the H100's SMs
+
+
+def splits(T: int, B: int, KV: int) -> int:
+    """Blocks per (slot, kv head): enough for ``TARGET_BLOCKS`` in all,
+    at most one per tile of the cache.  A function of the static shape
+    only, so that the launch does not depend on the device's lengths."""
+    return max(1, min(-(-T // TILE), TARGET_BLOCKS // (B * KV)))
+
+
+def grid_blocks(B: int, T: int, KV: int) -> int:
+    """Blocks of the split kernel's grid (splits, KV, B)."""
+    return splits(T, B, KV) * KV * B
 
 
 def dense_layout(kind: str, q: torch.Tensor, k: torch.Tensor,
@@ -86,10 +106,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         start = kv_start.to(device=q.device, dtype=torch.int32).contiguous()
         if start.shape != (B,):
             raise ValueError("decode attention: kv_start must be (B,)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("decode attention: q, k and v must be 16-byte "
+                         "aligned (the kernel copies 16 bytes at a time)")
+    n = splits(T, B, KV)
     out = torch.empty_like(q)
+    part = torch.empty(B * H * n * (D + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         KERNEL(out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               kvl.data_ptr(), start.data_ptr(), B, T, H, KV, D,
-               DTYPE_CODES[q.dtype],
+               kvl.data_ptr(), start.data_ptr(), part.data_ptr(), B, T, H,
+               KV, D, n, DTYPE_CODES[q.dtype],
                torch.cuda.current_stream(q.device).cuda_stream)
     return out

@@ -7,7 +7,8 @@ k and v come unrepeated, (B, T, KV, D) with KV dividing H: query head h
 reads kv head h // (H / KV); KV == H is the JAX signature.  The wrapper
 refuses the shapes the JAX wrapper's asserts refuse (a block size of
 min(512, S) that does not divide S, likewise for T), though the kernel's
-own tiles would take them.  For CPU tensors it takes the plain version —
+own tiles would take them; ``launch``, the model's route, takes any S and
+T.  For CPU tensors it takes the plain version —
 the chunked flash reference on repeated kv heads, at the JAX wrapper's
 block sizes; for CUDA tensors it launches the kernel on the current
 stream or raises.  bf16 runs on the tensor cores (``csrc/attention_tc.cuh``:
@@ -53,6 +54,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if on_cpu(q, k, v):
         return flash_attention_ref(q, repeat_kv(k, H), repeat_kv(v, H),
                                    causal, bq, bkv)
+    return launch(q, k, v, causal)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    """The kernel on CUDA tensors at any S and T: its tiles mask the
+    ragged edges, so no block size need divide them.  The route of
+    ``models.attention.attention``, which applies the reference
+    dispatch's own shape rule instead of the JAX wrapper's; raises on what
+    the kernel does not take and on a call that would need a gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash attention on the card is forward only: its backward "

@@ -40,6 +40,8 @@ KERNELS = {"copy": COPY, "mul": MUL, "add": ADD, "triad": TRIAD, "dot": DOT,
            "sum": SUM}                   # the C entry points
 
 THREADS = 1024                      # threads per block (csrc kThreads)
+DOT_THREADS = 256                   # dot and sum: threads per block ...
+DOT_PER_THREAD = 32                 # ... and elements a thread (kPer)
 DTYPES = (torch.float32, torch.bfloat16)
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -84,26 +86,33 @@ def blocks(n: int) -> int:
     return -(-n // THREADS)
 
 
+def dot_blocks(n: int) -> int:
+    """Blocks of one pass of dot over ``n`` elements: ``DOT_THREADS``
+    threads of ``DOT_PER_THREAD`` elements (8192 to a block)."""
+    return -(-n // (DOT_THREADS * DOT_PER_THREAD))
+
+
 def dot_passes(n: int) -> List[int]:
     """Elements summed by each launch of ``dot``: the products of all
-    ``n``, then the block partials again and again until one is left
-    (2**25 -> [2**25, 32768, 32])."""
+    ``n``, then the block partials again until one is left
+    (2**25 -> [2**25, 4096])."""
     passes = [n]
-    while blocks(passes[-1]) > 1:
-        passes.append(blocks(passes[-1]))
+    while dot_blocks(passes[-1]) > 1:
+        passes.append(dot_blocks(passes[-1]))
     return passes
 
 
-def launches(name: str, dtype: torch.dtype, n: int) -> List[Tuple[str, int]]:
-    """(compiled kernel, blocks) of every launch one call of ``name`` makes
-    over ``n`` elements of ``dtype``: the launch geometry the instruction
-    census is multiplied by."""
+def launches(name: str, dtype: torch.dtype, n: int
+             ) -> List[Tuple[str, int, int]]:
+    """(compiled kernel, blocks, threads per block) of every launch one
+    call of ``name`` makes over ``n`` elements of ``dtype``: the launch
+    geometry the instruction census is multiplied by."""
     own = f"stream_{name}_{SUFFIX[dtype]}"
     if name != "dot":
-        return [(own, blocks(n))]
+        return [(own, blocks(n), THREADS)]
     first, *rest = dot_passes(n)
-    return [(own, blocks(first))] + [("stream_sum_f32", blocks(m))
-                                     for m in rest]
+    return [(own, dot_blocks(first), DOT_THREADS)] + [
+        ("stream_sum_f32", dot_blocks(m), DOT_THREADS) for m in rest]
 
 
 def _put(result: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
@@ -172,21 +181,35 @@ def triad(b: torch.Tensor, c: torch.Tensor, scalar: float = ref.SCALAR,
     return out
 
 
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Every tensor's data 16-byte aligned, as the kernel's vector loads
+    need.  Raises ValueError."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: arrays must be 16-byte aligned (the "
+                             f"kernel loads 16 bytes at a time), got one at "
+                             f"{t.data_ptr() % 16} bytes past a boundary")
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum(a * b) as an f32 scalar (0-dim tensor).  On the card: one
-    launch of per-block sums of the f32 products, then ``stream_sum`` over
-    the f32 partials, relaunched until one value is left — no atomics
-    and no host sum, so the result is the same on every run."""
+    launch of per-block sums of the f32 products, 16-byte loads of 32
+    elements a thread, then ``stream_sum`` over the f32 partials,
+    relaunched until one value is left — no atomics and no host sum, so
+    the result is the same on every run.  The arrays must be 16-byte
+    aligned there."""
     check_layout("dot", a, b)
     if on_cpu(a, b):
         return ref.dot(a, b)
     check_device("dot", a, b)
+    check_aligned("dot", a, b)
     first, *rest = dot_passes(a.numel())
-    x = torch.empty(blocks(first), dtype=torch.float32, device=a.device)
+    x = torch.empty(dot_blocks(first), dtype=torch.float32, device=a.device)
     _launch(DOT, a, a.data_ptr(), b.data_ptr(), x.data_ptr(), first,
             DTYPE_CODES[a.dtype])
     for n in rest:
-        part = torch.empty(blocks(n), dtype=torch.float32, device=a.device)
+        part = torch.empty(dot_blocks(n), dtype=torch.float32,
+                           device=a.device)
         _launch(SUM, a, x.data_ptr(), part.data_ptr(), n)
         x = part
     return x.reshape(())

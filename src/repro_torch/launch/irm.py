@@ -76,12 +76,11 @@ def warp_instructions(name: str, census: Dict[str, KernelCensus],
                          f"{stream.THREADS}: no warp may leave at the bounds "
                          f"guard (got n = {res.n})")
     total = 0
-    for fn, blocks in stream.launches(name, res.dtype, res.n):
+    for fn, blocks, threads in stream.launches(name, res.dtype, res.n):
         if fn not in census:
             raise KeyError(f"{fn} is not in the SASS census "
                            f"(have {sorted(census)})")
-        total += census[fn].warp_insts_per_warp * blocks * (
-            stream.THREADS // 32)
+        total += census[fn].warp_insts_per_warp * blocks * (threads // 32)
     return total
 
 

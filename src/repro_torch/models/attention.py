@@ -119,6 +119,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def on_card(q: torch.Tensor) -> bool:
+    """The kernel route's test: does q lie on a CUDA device?"""
+    return q.device.type == "cuda"
+
+
+def check_reference_shape(S: int, T: int, chunk_q: int,
+                          chunk_kv: int) -> None:
+    """Raises the reference dispatch's AssertionError for an (S, T) it
+    refuses: it runs direct attention when S * T <= chunk_q * chunk_kv,
+    else the chunked flash reference, whose chunks min(chunk_q, S) and
+    min(chunk_kv, T) must divide S and T."""
+    cq, ck = min(chunk_q, S), min(chunk_kv, T)
+    if S * T > chunk_q * chunk_kv and (S % cq or T % ck):
+        raise AssertionError((S, cq, T, ck))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, chunk_q: int = 1024, chunk_kv: int = 1024,
               q_offset: Union[None, int, torch.Tensor] = None,
@@ -126,14 +142,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               plain: bool = False) -> torch.Tensor:
     """Dispatch.  The kernel route — CUDA tensors, ``plain`` False, S > 1
     and no ``kv_len`` — launches the flash kernel on unrepeated k and v
-    (the JAX package's ``impl == "pallas"`` branch).  Otherwise the JAX
-    reference dispatch: decode and small shapes -> direct; long -> the
-    chunked flash reference on repeated kv heads."""
+    (the JAX package's ``impl == "pallas"`` branch) for every (S, T) the
+    reference dispatch serves, and refuses the rest as it does.  The
+    kernel masks its own ragged tiles, so the Pallas wrapper's 512-block
+    contract is not applied here.  Otherwise the JAX reference dispatch:
+    decode and small shapes -> direct; long -> the chunked flash
+    reference on repeated kv heads."""
     B, S, H, D = q.shape
     T = k.shape[1]
-    if not plain and q.device.type == "cuda" and S > 1 and kv_len is None:
-        from repro_torch.kernels.flash_attention import flash_attention
-        return flash_attention(q, k, v, causal=causal)
+    if not plain and on_card(q) and S > 1 and kv_len is None:
+        from repro_torch.kernels.flash_attention import flash
+        check_reference_shape(S, T, chunk_q, chunk_kv)
+        return flash.launch(q, k, v, causal)
     if S == 1 or (S * T <= chunk_q * chunk_kv) or kv_len is not None:
         return direct_attention(q, k, v, causal, q_offset, kv_len)
     from repro_torch.models.flash import flash_attention_ref

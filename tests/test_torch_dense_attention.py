@@ -164,6 +164,46 @@ def test_flash_wrapper_refuses_what_jax_refuses():
         flash.flash_attention(q2, k2, v2, causal=False)
 
 
+# (S, T, chunk): direct (S * T <= chunk^2, no chunk need divide: 600 at
+# the full configs' 1024, as 512 does not); chunked and dividing (608 over
+# the reduced configs' 32); refused (40 over 32; 1100 over 1024)
+ROUTE_SHAPES = [(600, 600, 1024), (608, 608, 32), (40, 40, 32),
+                (1100, 1100, 1024), (37, 24, 32)]
+
+
+@pytest.mark.parametrize("S,T,chunk", ROUTE_SHAPES)
+def test_kernel_route_shape_rule_is_the_reference_dispatch(S, T, chunk):
+    """``check_reference_shape``, the card route's shape rule, refuses
+    exactly what the JAX reference dispatch refuses, with the same
+    error."""
+    q = jnp.zeros((1, S, 2, 16), jnp.float32)
+    k = jnp.zeros((1, T, 2, 16), jnp.float32)
+    try:
+        jattn.attention(q, k, k, True, chunk, chunk, impl="reference")
+        refused = None
+    except AssertionError as e:
+        refused = e.args
+    if refused is None:
+        tattn.check_reference_shape(S, T, chunk, chunk)
+    else:
+        with pytest.raises(AssertionError) as info:
+            tattn.check_reference_shape(S, T, chunk, chunk)
+        assert info.value.args == refused
+
+
+def test_decode_splits_fill_the_card():
+    """Blocks per (slot, kv head) from the static shape: about two blocks
+    per SM in all (8 splits, 256 blocks at the whole-batch serving shape),
+    never more than the cache's 32-position tiles, at least one."""
+    assert decode.splits(486, 4, 8) == 8
+    assert decode.grid_blocks(4, 486, 8) == 256 >= 4 * 4 * 8
+    assert decode.splits(24, 2, 2) == 1
+    assert decode.splits(150, 3, 1) == 5
+    assert decode.splits(4096, 64, 8) == 1
+    assert decode.splits(4096, 1, 1) == 4096 // 32
+    assert decode.splits(16384, 1, 1) == decode.TARGET_BLOCKS
+
+
 def test_flash_wrapper_refuses_gradients_off_the_cpu():
     """Off the CPU, a call that would need a gradient raises, naming the
     training slice; a tensor neither on the CPU nor on a CUDA device is

@@ -182,6 +182,26 @@ def test_serving_engine_token_identical_to_jax(arch, lens):
     assert all(len(o) == 6 for o in want)
 
 
+def test_batch_composition_changes_tokens_in_both_packages():
+    """Both ``ServingEngine``s right-align prompts with pad 0 and no pad
+    mask, so a short prompt's tokens depend on what it is batched with: a
+    5-token prompt served alone and batched with a 17-token one gives
+    different greedy tokens, the same in both packages (qwen2-0.5b
+    reduced, f32).  A pad mask in the port would be a deliberate
+    divergence from the reference and must change this test."""
+    jm, jp, tm, tp = _models("qwen2-0.5b")
+    short, long_ = _prompts(jm.cfg.vocab_size, (5, 17))
+    outs = {}
+    for name, batch in (("alone", [short]), ("batched", [short, long_])):
+        want = JServingEngine(jm, jp, JServeConfig(max_new_tokens=6)
+                              ).generate_batch(batch)
+        got = TServingEngine(tm, tp, TServeConfig(max_new_tokens=6)
+                             ).generate_batch(batch)
+        assert got == want, name
+        outs[name] = got[0]
+    assert outs["alone"] != outs["batched"]
+
+
 def test_serving_engine_eos_and_temperature_self_consistent():
     """With a stop token the outputs end at it, fused and legacy alike; at
     temperature 0.9 the fused loop and the legacy loop draw the same

@@ -404,7 +404,8 @@ def _result(n, ms):
 def test_h100_irm_arithmetic():
     """Instructions = path length x warps launched (x 32 threads, which
     Eq. 4 divides out again); the copy point sits exactly on the memory
-    roof its own rate defines; dot sums the paths of its three launches."""
+    roof its own rate defines; dot sums the paths of its two launches (32
+    elements a thread in blocks of 8 warps: 4096 blocks, then one)."""
     n = 2 ** 25
     paths = {"stream_copy_f32": 16, "stream_mul_f32": 18,
              "stream_add_f32": 20, "stream_triad_f32": 24,
@@ -420,7 +421,7 @@ def test_h100_irm_arithmetic():
     warps = n // 32
     assert by["copy"]["warp_insts"] == 16 * warps
     assert by["triad"]["warp_insts"] == 24 * warps
-    assert by["dot"]["warp_insts"] == 60 * warps + 50 * (32 + 1) * 32
+    assert by["dot"]["warp_insts"] == 60 * warps // 32 + 50 * 1 * 8
     assert by["copy"]["bytes"] == 2 * 4 * n and by["add"]["bytes"] == 12 * n
     assert close(res.copy_gbs(), 8 * n / 0.09e-3 / 1e9)
     for name, r in by.items():

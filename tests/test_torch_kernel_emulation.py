@@ -2,13 +2,14 @@
 plain versions.
 
 The CUDA kernels (``src/repro_torch/csrc/*.cu``: paged attention, dense
-decode attention, flash attention, BabelStream's five and the Mamba1
-selective scan) build only with nvcc, on the card.  Here the same
-sources are compiled with g++ against small stand-ins for
+decode attention with its split-KV combine, flash attention, BabelStream's
+five and the Mamba1 selective scan) build only with nvcc, on the card.
+Here the same sources are compiled with g++ against small stand-ins for
 ``cuda_runtime.h`` and ``cuda_bf16.h``: each thread block runs as many
 ``std::thread``s as its launch asks for (128 for the paged, decode and
-scan kernels and the bf16 flash kernel, 64 for the bf16 paged prefill,
-256 for the f32 flash kernel, 1024 for the stream kernels), sharing one
+scan kernels and the bf16 flash kernel, 512 for the decode combine, 64
+for the bf16 paged prefill, 256 for the f32 flash kernel and for dot,
+1024 for the other stream kernels), sharing one
 ``std::barrier`` for ``__syncthreads()``; blocks of a 3-D grid run one
 after another, and the two CUDA-only spellings (``<<<...>>>`` and
 ``extern __shared__``) are rewritten.  ``__shfl_down_sync`` is a slot per
@@ -20,9 +21,11 @@ is replaced by a stand-in (``TC_PTX``) of warp-collective operations on
 the PTX ISA's fragment layouts, with a barrier per warp; ``__shfl_xor_sync``
 and ``__syncwarp`` are per warp too.  The kernels are then driven through
 the real wrappers — their argument checks, ctypes marshalling and launch
-counters — on CPU tensors.  This checks the kernels' indexing, masking,
-row tiling, fragment layouts, online softmax, the dot reduction chain and
-the scan's strided B/C and ragged tiles before they reach the card; what
+counters — on CPU tensors, and ``models.attention.attention`` through
+its kernel route.  This checks the kernels' indexing, masking, row
+tiling, split pieces and their combine, fragment layouts, online softmax,
+the dot reduction chain and its ragged tail, and the scan's strided B/C
+and ragged tiles before they reach the card; what
 nvcc accepts, and the kernels' speed, only ``chip_smoke.py`` on the card
 can show.
 """
@@ -44,6 +47,7 @@ from repro_torch.kernels.decode_attention.ref import (
     paged_prefill_attention_ref)
 from repro_torch.kernels.flash_attention import flash
 from repro_torch.kernels.ssm_scan import scan
+from repro_torch.models import attention as attention_mod
 from repro_torch.models.ssm import mamba1_scan
 from repro_torch.models.attention import repeat_kv
 from repro_torch.models.flash import flash_attention_ref
@@ -347,6 +351,7 @@ def cuda_path_on_cpu(emulated, monkeypatch):
         monkeypatch.setattr(mod, "check_dense",
                             lambda kind, *a: decode.dense_layout(kind, *a))
         monkeypatch.setattr(mod.KERNEL, "_fn", None)
+    monkeypatch.setattr(attention_mod, "on_card", lambda q: True)
     monkeypatch.setattr(scan, "on_cpu", lambda *a: False)
     monkeypatch.setattr(scan, "check_scan", scan.scan_layout)
     monkeypatch.setattr(scan.KERNEL, "_fn", None)
@@ -546,6 +551,62 @@ def test_emulated_decode_attention_matches_plain(case, cuda_path_on_cpu):
     assert decode.KERNEL.launches == n0 + 3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_emulated_decode_attention_across_splits(dtype, cuda_path_on_cpu):
+    """A cache of 300 rows over 10 splits per kv head, each a whole number
+    of 32-position tiles of the slot's window: a full window (the last
+    piece 2 rows), kv_start = 37 (the pieces start inside a cache tile),
+    a window of 40 (pieces 2-9 empty while the window is not) and one of
+    a single row; then slot 3's window empty, which the kernel gives as
+    exact zeros.  The same tolerances as the single-split cases."""
+    B, T, H, KV, D = 4, 300, 8, 2, 32
+    assert decode.splits(T, B, KV) == 10
+    q, k, v = _dense(T, B, 1, T, H, KV, D, dtype)
+    tol = TOL[dtype]
+    kv_len = torch.tensor(290, dtype=torch.int32)
+    start = torch.tensor([0, 37, 250, 289], dtype=torch.int32)
+    n0 = decode.KERNEL.launches
+    got = decode.decode_attention(q, k, v, kv_len, start)
+    want = decode_attention_ref(q, k, v, kv_len, start)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    start[3] = 290
+    got = decode.decode_attention(q, k, v, kv_len, start)
+    want = decode_attention_ref(q, k, v, kv_len, start)
+    assert (got[3] == 0).all()
+    torch.testing.assert_close(got[:3].float(), want[:3].float(), rtol=tol,
+                               atol=tol)
+    assert decode.KERNEL.launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_emulated_decode_online_softmax_across_tiles(dtype,
+                                                     cuda_path_on_cpu):
+    """B x KV = 33 leaves 8 splits, so a 1090-row window gives pieces of
+    five 32-position tiles: the online softmax carries m, l and acc
+    across tiles and the 3-stage cp.async ring reuses its stages; slot 1
+    starts mid-tile, slot 2's window is a single tile."""
+    B, T, H, KV, D = 3, 1100, 11, 11, 16
+    assert decode.splits(T, B, KV) == 8
+    q, k, v = _dense(T + 1, B, 1, T, H, KV, D, dtype)
+    kv_len = torch.tensor(1090, dtype=torch.int32)
+    start = torch.tensor([0, 45, 1070], dtype=torch.int32)
+    got = decode.decode_attention(q, k, v, kv_len, start)
+    want = decode_attention_ref(q, k, v, kv_len, start)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_emulated_decode_refuses_misaligned_cache(cuda_path_on_cpu):
+    """The kernel copies K and V 16 bytes at a time: a cache view 4 bytes
+    past a 16-byte boundary is refused, not read another way."""
+    q, k, v = _dense(3, 2, 1, 8, 4, 2, 16, torch.float32)
+    shifted = torch.zeros(k.numel() + 1)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode.decode_attention(q, shifted, v, 8)
+
+
 # (B, S, T, H, KV, D, causal, dtype): a ragged causal S with GQA; two
 # ragged q tiles over two ragged k/v tiles, non-causal; S != T, MQA;
 # granite's head dim and group, causal; MHA, S == T == 64 exactly
@@ -578,6 +639,37 @@ def test_emulated_flash_attention_matches_plain(case, cuda_path_on_cpu):
                                S, T)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert flash.KERNEL.launches == n0 + 1
+
+
+def test_emulated_attention_route_takes_what_the_reference_serves(
+        cuda_path_on_cpu):
+    """``attention()`` on the kernel route at S = T = 600 (chunks of 1024:
+    the reference's direct attention; 512 does not divide 600, so the JAX
+    Pallas wrapper's contract refuses it) and at S = T = 608 over chunks
+    of 32 (the reduced configs: the chunked reference, which 512 does not
+    divide either) through the emulated flash kernel, against the
+    reference dispatch, f32 within 2e-5.  The public wrapper keeps the
+    512-block contract, and a shape both dispatches refuse still raises,
+    with no launch."""
+    n0 = flash.KERNEL.launches
+    for S, chunk in ((600, 1024), (608, 32)):
+        q, k, v = _dense(S, 1, S, S, 4, 2, 16, torch.float32)
+        got = attention_mod.attention(q, k, v, True, chunk, chunk)
+        want = attention_mod.attention(q, k, v, True, chunk, chunk,
+                                       plain=True)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        if S == 600:
+            torch.testing.assert_close(
+                got, attention_mod.direct_attention(q, k, v, True),
+                rtol=2e-5, atol=2e-5)
+        with pytest.raises(ValueError, match="divide"):
+            flash.flash_attention(q, k, v)
+    assert flash.KERNEL.launches == n0 + 2
+    q, k, v = _dense(7, 1, 40, 40, 2, 2, 16, torch.float32)
+    for plain in (False, True):          # 32 * 32 < 40 * 40, 32 !| 40
+        with pytest.raises(AssertionError):
+            attention_mod.attention(q, k, v, True, 32, 32, plain=plain)
+    assert flash.KERNEL.launches == n0 + 2
 
 
 # (rows, cols): one full block; a ragged 3-block array (guard, and a
@@ -631,6 +723,46 @@ def test_emulated_stream_in_place_chain(cuda_path_on_cpu):
     for x, g in ((a, ga), (b, gb), (c, gc)):
         assert torch.equal(x, torch.full_like(x, g.item()))
     assert stream.dot(a, b).item() == (ga * gb).item() * a.numel()
+
+
+# dot's ragged shapes: n = 7 (the tail alone), n % 8 = 3 in one block,
+# and two blocks of 8192 with a 1-element tail (a two-launch chain 9009 ->
+# 2 -> 1)
+DOT_SHAPES = [(1, 7), (3, 1001), (9, 1001)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DOT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_emulated_dot_ragged_tail_and_bit_identity(shape, dtype,
+                                                   cuda_path_on_cpu):
+    """dot with n not a multiple of 8 or of a block: within 2^-20 of
+    sum |a b| of the plain version and of the exact sum, bit-identical from
+    run to run (a fixed order of sums), in the launches ``dot_passes``
+    plans."""
+    rng = np.random.default_rng(sum(shape) + 8)
+    a, b = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dtype) for _ in range(2))
+    n0 = stream.launch_counts()["dot"]
+    got, again = stream.dot(a, b), stream.dot(a, b)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    scale = (a.double() * b.double()).abs().sum().item()
+    exact = (a.double() * b.double()).sum().item()
+    for want in (stream_ref.dot(a, b).item(), exact):
+        assert abs(got.item() - want) <= 2.0 ** -20 * scale
+    passes = stream.dot_passes(a.numel())
+    assert len(passes) == (1 if a.numel() <= 8192 else 2)
+    assert stream.launch_counts()["dot"] - n0 == 2 * len(passes)
+
+
+def test_emulated_dot_refuses_misaligned_view(cuda_path_on_cpu):
+    """A view 4 bytes past a 16-byte boundary is refused: the kernel's
+    16-byte loads need the boundary, and no scalar path stands in."""
+    a = torch.ones(1025)[1:].view(8, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stream.dot(a, torch.ones(8, 128))
+    assert torch.equal(stream.dot(a.contiguous().clone(), a.clone()),
+                       torch.tensor(1024.0))
 
 
 # (B, S, d_in, N, dtype): S over several 32-step tiles with a ragged last

@@ -155,16 +155,30 @@ def test_layout_checks(bad):
 
 
 def test_dot_passes_and_launch_geometry():
-    """dot sums 2^25 products in three launches (2^25 -> 32768 -> 32 -> 1),
-    each one thread per element in blocks of 1024."""
-    assert stream.dot_passes(2 ** 25) == [2 ** 25, 32768, 32]
+    """dot sums 2^25 products in two launches (2^25 -> 4096 -> 1), each
+    32 elements a thread in blocks of 256 (8192 a block); copy, mul, add
+    and triad stay one element a thread in blocks of 1024."""
+    assert stream.dot_passes(2 ** 25) == [2 ** 25, 4096]
     assert stream.dot_passes(1000) == [1000]
-    assert stream.dot_passes(1025) == [1025, 2]
+    assert stream.dot_passes(8193) == [8193, 2]
     assert stream.launches("dot", torch.float32, 2 ** 25) == [
-        ("stream_dot_f32", 32768), ("stream_sum_f32", 32),
-        ("stream_sum_f32", 1)]
+        ("stream_dot_f32", 4096, 256), ("stream_sum_f32", 1, 256)]
+    assert stream.launches("dot", torch.bfloat16, 9009) == [
+        ("stream_dot_bf16", 2, 256), ("stream_sum_f32", 1, 256)]
     assert stream.launches("triad", torch.bfloat16, 3000) == [
-        ("stream_triad_bf16", 3)]
+        ("stream_triad_bf16", 3, 1024)]
+
+
+def test_dot_alignment_check():
+    """The card's dot loads 16 bytes at a time: a view 4 bytes past a
+    16-byte boundary is refused there (the emulated kernel's test drives
+    it through ``dot``); the plain version on the CPU takes any view."""
+    base = torch.arange(1025, dtype=torch.float32)
+    stream.check_aligned("dot", base[:1024], base[4:])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stream.check_aligned("dot", base[:1024], base[1:])
+    a = base[1:].view(8, 128)
+    assert torch.equal(stream.dot(a, a), ref.dot(a, a))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
