@@ -69,10 +69,13 @@ Phases, each failing loudly (non-zero exit, no result line):
                selective scan, so no library time).
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
-               shapes that exercise the bounds guard and dot's ragged
-               tail, and BabelStream's 2^25 elements): copy, mul, add and
+               shapes that exercise the bounds guards, ragged last
+               blocks and the ragged tails of the 16-byte vector kernels,
+               and BabelStream's 2^25 elements): copy, mul, add and
                triad bit-identical, dot within 2^-20 of sum |a b| and
-               bit-identical from run to run.  Then BabelStream itself
+               bit-identical from run to run; copy and mul in place
+               bit-identical, and a view off the 16-byte boundary refused
+               by both.  Then BabelStream itself
                (``launch/babelstream.py``) at 2^25 f32 elements, 100 times:
                its solution check must pass and all five launch counters
                rise.  Times each kernel, its plain version and one library
@@ -81,7 +84,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                prints BabelStream's table and the measured memory ceiling
                (copy's rate) beside the card's name and power limit.
   6. irm     — a census of the built library's SASS (``cuobjdump``), which
-               must find all five stream kernels loop-free and every bf16
+               must find all five stream kernels loop-free, copy and mul
+               with no branch at all, and every bf16
                flash and paged-prefill instantiation issuing bf16
                tensor-core products (``HMMA.16816.F32.BF16``) and cp.async
                copies (``LDGSTS``); the H100
@@ -1385,8 +1389,13 @@ def ssm_phase(torch):
 # ---------------------------------------------------------------------------
 
 BABEL = (16384, 2048)            # 2^25 elements: BabelStream's default size
+# the JAX tests' shapes; n % 8 = 0 with ragged last blocks of copy and mul
+# (4096 f32 / 8192 bf16 elements a block); n % 8 = 3 and 1; BabelStream's
 STREAM_SHAPES = [(8, 128), (256, 512), (1024, 128), (64, 1024), (3, 1000),
-                 (3, 1001), (9, 1001), BABEL]      # n % 8 = 3 and 1
+                 (33, 1000), (3, 1001), (9, 1001), BABEL]
+# copy and mul: the 16-byte vector kernels, whose SASS must hold no branch
+VECTOR_KERNELS = ("stream_copy_f32", "stream_copy_bf16", "stream_mul_f32",
+                  "stream_mul_bf16")
 STREAM_DOT_TOL = (2.0 ** -20, "of sum |a b|: the f32 products are exact "
                               "or rounded alike, and only the order of the "
                               "f32 sums differs, each within log2(n) f32 "
@@ -1437,10 +1446,45 @@ def stream_checks(torch):
                 f"{str(dtype).replace('torch.', ''):8s} copy/mul/add/triad "
                 f"bit-identical, dot |kernel-plain| = "
                 f"{(pairs['dot'][0] - pairs['dot'][1]).abs().item():.3e}")
+    vector_edge_checks(torch, gen)
     log(f"[stream] tolerance: copy, mul, add, triad bit-identical (each "
         f"rounds where the plain version rounds); dot {tol} {why}; dot "
         f"bit-identical from run to run at every shape")
     return errs
+
+
+def vector_edge_checks(torch, gen):
+    """copy and mul in place (``out=`` the input, BabelStream's chain) at
+    a ragged shape, bit-identical to plain; and a view 4 bytes past a
+    16-byte boundary refused with ValueError, as input and as ``out=``."""
+    from repro_torch.kernels.stream import ref, stream
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((9, 1001), generator=gen, device="cuda").to(dtype)
+        want = ref.mul(x)
+        stream.mul(x, out=x)
+        stream.copy(x, out=x)
+        torch.cuda.synchronize()
+        if not torch.equal(x, want):
+            raise AssertionError(f"stream copy/mul in place {dtype}: "
+                                 f"differs from plain")
+        base = torch.zeros(1025, dtype=dtype, device="cuda")
+        off = base[1:].view(8, 128)
+        for name, call in (("copy", lambda: stream.copy(off)),
+                           ("mul", lambda: stream.mul(off)),
+                           ("copy out=", lambda: stream.copy(
+                               base[:1024].view(8, 128), out=off)),
+                           ("mul out=", lambda: stream.mul(
+                               base[:1024].view(8, 128), out=off))):
+            try:
+                call()
+            except ValueError as e:
+                if "16-byte aligned" not in str(e):
+                    raise
+                continue
+            raise AssertionError(f"stream {name} {dtype}: a misaligned view "
+                                 f"was not refused")
+    log("[stream] copy and mul in place (9, 1001) bit-identical in f32 and "
+        "bf16; misaligned views refused (ValueError) as input and out=")
 
 
 def stream_timing(torch, ceiling_gbs):
@@ -1564,6 +1608,15 @@ def irm_phase(res, clocks, gpu):
     if len(census) != 11:
         raise AssertionError(f"census found {sorted(census)}, not the 11 "
                              f"stream kernels")
+    branched = {k: census[k].forward_branches for k in VECTOR_KERNELS
+                if census[k].forward_branches}
+    if branched:
+        raise AssertionError(f"forward branches in {branched}: the census "
+                             f"of copy and mul counts on every warp running "
+                             f"the whole listing (the ragged tail's guard a "
+                             f"predicated store)")
+    log(f"[irm] {', '.join(VECTOR_KERNELS)}: no branch, so every warp "
+        f"issues the whole listing at 2^25 (all vector guards hold)")
     log(f"[irm] census: {len(census)} stream kernels loop-free; all "
         f"{len(looped)} instantiations of the looped kernels (paged, dense "
         f"decode, flash, selective scan) refused (their trip counts are not "

@@ -15,30 +15,50 @@
 // element and does no arithmetic; triad, the busiest, does 2 flops for
 // 12 bytes — far below the ~20 flops per byte at which the H100's f32
 // CUDA cores (67 TFLOP/s) rather than its 3.35 TB/s of HBM would be the
-// limit.  The layout is BabelStream-CUDA's, not the Pallas blocks carried
-// over: one element per thread over the flattened array, 1024-thread
-// blocks, a bounds guard so any n works, and enough blocks (32768 at
-// BabelStream's 2^25 elements) to fill every SM.
+// limit.  What the design must give HBM is bytes in flight: at ~0.6-0.8
+// us of latency, 3.35 TB/s over 132 SMs needs ~15-20 KB of loads in
+// flight on every SM.  The file has two layouts.
 //
-// What holds copy, mul, add and triad back: one 4-byte (f32) or 2-byte
-// (bf16) load per thread.  An SM holds at most 2048 threads, so it keeps
-// at most 8 KB of f32 loads in flight, about half of what HBM's latency
-// asks for at full rate; f32 copy measures ~56% of the data sheet's 3.35
-// TB/s (PERF.md), where BabelStream's f64 default moves twice the bytes
-// per thread.  Their vector form is the next step.
+// One element a thread (add, triad): BabelStream-CUDA's layout, a 4-byte
+// (f32) or 2-byte (bf16) load per thread in blocks of kThreads = 1024, a
+// bounds guard so any n works, 32768 blocks at BabelStream's 2^25
+// elements.  An SM holds at most 2048 threads, so it keeps at most 8 KB
+// of f32 loads in flight: about half of what HBM needs.
 //
-// dot has it already: each thread takes kPer = 32 elements of each array
-// in 16-byte loads (eight of f32, four of bf16, per array), a warp's load
-// reading 512 neighbouring bytes, in blocks of kDotThreads = 256, so a
-// block sums 8192 products and 2^25 elements take 4096 blocks; the f32
-// partials are summed by stream_sum_f32 the same way, so 2^25 takes two
-// launches (2^25 -> 4096 -> 1).  Small blocks with many bytes per thread
-// keep several blocks loading on each SM while another one reduces.  The
-// arrays' base must be 16-byte aligned (the wrapper refuses others).
-// Each 16-byte vector is read only when it lies wholly in range; the
-// elements past the last whole vector (n % 8 of bf16, n % 4 of f32) are
-// the ragged tail, which global thread j adds through a guarded scalar
-// load.  So the code has no loop and only forward branches.
+// 16-byte vectors (copy, mul; map_vec): each thread moves kVecPer 16-byte
+// vectors (4 f32 or 8 bf16 elements each) in blocks of kVecThreads.
+// Vector c of thread t in block b starts at element b * kVecPer *
+// kVecThreads * E + (c * kVecThreads + t) * E, so each warp-wide load or
+// store touches 512 neighbouring bytes, and a thread issues all its loads
+// before any store.  A sweep on the card (scripts/torch_stream_sweep.py,
+// PERF.md) over 128-1024 threads and 1, 2, 4 or 8 vectors a thread found
+// every one within 2% of copy_, and the fewest vectors in the largest
+// blocks the fastest: kVecThreads = 1024 and kVecPer = 1, so a block
+// covers 4096 f32 or 8192 bf16 elements, 2^25 f32 elements take 8192
+// blocks, and a full SM keeps 2048 x 16 bytes = 32 KB of loads in flight
+// (4x the one-element layout, and more than HBM needs).  Streaming cache
+// hints (__ldcs/__stcs) gained under 1% there and are not used.  The
+// arrays' base must be 16-byte aligned (the wrappers refuse others).  A
+// vector is read and written only when it lies wholly in range; the
+// elements past the last whole vector (n % E) are the ragged tail, which
+// global thread j < n % E moves by a scalar access between the loads and
+// the stores.  Only loads and stores sit under a guard, each one
+// predicated instruction, so the kernel has no branch (chip_smoke.py
+// checks its SASS): a guarded tail at the kernel's end would compile to
+// an early EXIT that every warp takes at n = 2^25, and the census below
+// would count instructions no warp runs.  At n a multiple of a block's
+// elements every vector guard holds and every warp runs the whole
+// listing.  Each thread reads its elements before it writes them, and no
+// two threads touch one element, so out may alias the input exactly
+// (BabelStream's in-place chain).
+//
+// dot has the same vector layout with kPer = 32 elements a thread in
+// blocks of kDotThreads = 256, so a block sums 8192 products and 2^25
+// elements take 4096 blocks; the f32 partials are summed by
+// stream_sum_f32 the same way, so 2^25 takes two launches (2^25 -> 4096
+// -> 1).  Small blocks with many bytes per thread keep several blocks
+// loading on each SM while another one reduces.  Its ragged tail is
+// added by global thread j through a guarded scalar load.
 //
 // Two rules keep the results reproducible and the instruction census
 // (repro_torch/core/sass_counters.py) exact:
@@ -53,20 +73,23 @@
 //     sums each thread's 32 products (and its tail product) in a fixed
 //     tree, the block's 256 thread sums with warp shuffles, the 8 warp
 //     partials through shared memory, and a last 32-way shuffle (zeros
-//     past the 8) that every warp runs.  Lane 0 of every warp then stores the block's sum — the
-//     same value, bit for bit, from each warp.  Were thread 0 alone to
-//     store, nvcc would end the other warps with an early EXIT before it
-//     (52 instructions against warp 0's 58, in the first build's SASS),
-//     and the census's one path per kernel would no longer be every warp's.
-//     The block partials are summed by relaunching the f32 sum kernel until
-//     one value is left (2^25 -> 4096 -> 1), so the order of every
-//     addition is fixed and the sum is the same on every run.
+//     past the 8) that every warp runs.  Lane 0 of every warp then stores
+//     the block's sum — the same value, bit for bit, from each warp.  Were
+//     thread 0 alone to store, nvcc would end the other warps with an
+//     early EXIT before it (52 instructions against warp 0's 58, in the
+//     first build's SASS), and the census's one path per kernel would no
+//     longer be every warp's.  The block partials are summed by
+//     relaunching the f32 sum kernel until one value is left (2^25 ->
+//     4096 -> 1), so the order of every addition is fixed and the sum is
+//     the same on every run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 1024;               // BabelStream-CUDA's TBSIZE
+constexpr int kVecThreads = 1024;            // copy and mul: their blocks
+constexpr int kVecPer = 1;                   // ... 16-byte vectors a thread
 constexpr int kWarp = 32;
 constexpr int kDotThreads = 256;             // dot and sum: their blocks
 constexpr int kDotWarps = kDotThreads / kWarp;
@@ -89,19 +112,6 @@ __device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ long long element() {
   return (long long)blockIdx.x * kThreads + threadIdx.x;
-}
-
-template <typename T>
-__device__ __forceinline__ void copy_at(const T* a, T* c, long long n) {
-  const long long i = element();
-  if (i < n) c[i] = a[i];
-}
-
-template <typename T>
-__device__ __forceinline__ void mul_at(const T* c, T* b, float s,
-                                       long long n) {
-  const long long i = element();
-  if (i < n) b[i] = round_to<T>(__fmul_rn(s, to_f32(c[i])));
 }
 
 template <typename T>
@@ -145,6 +155,91 @@ template <typename T>
 struct alignas(16) Pack {
   T e[16 / sizeof(T)];
 };
+
+// How map_vec reads and writes a 16-byte vector: plain loads and stores.
+// (scripts/torch_stream_sweep.py passes another policy, with cache hints,
+// to measure them.)
+struct PlainAccess {
+  template <typename T>
+  static __device__ __forceinline__ Pack<T> load(const T* p) {
+    return *reinterpret_cast<const Pack<T>*>(p);
+  }
+  template <typename T>
+  static __device__ __forceinline__ void store(T* p, const Pack<T>& v) {
+    *reinterpret_cast<Pack<T>*>(p) = v;
+  }
+};
+
+// The elementwise operations of map_vec, one element at a time: kInputs
+// arrays in (a, then b), the result rounded to the array's type.
+struct CopyOp {
+  static constexpr int kInputs = 1;
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T) const { return a; }
+};
+
+struct MulOp {
+  static constexpr int kInputs = 1;
+  float s;                                   // rounded to T by the wrapper
+  template <typename T>
+  __device__ __forceinline__ T operator()(T c, T) const {
+    return round_to<T>(__fmul_rn(s, to_f32(c)));
+  }
+};
+
+// v stays computed on every path: an empty asm takes its four words, so
+// nvcc cannot sink the work that made v under the guard of v's store
+// (for bf16 mul it did, and branched around each vector's conversions).
+template <typename T>
+__device__ __forceinline__ void keep(const Pack<T>& v) {
+  uint4 u;
+  memcpy(&u, &v, 16);
+  asm volatile("" : : "r"(u.x), "r"(u.y), "r"(u.z), "r"(u.w));
+}
+
+// y = op(a[, b]) over n elements in the 16-byte vector layout (see the
+// note at the top): kT threads a block, kV vectors a thread.  Every
+// vector load is issued before any store.  The ragged tail's element
+// comes between the loads and the stores, read through an index clamped
+// into range.  The operation runs on every vector (zeros where one lies
+// out of range), so that only loads and stores sit under a guard, each a
+// single predicated instruction: the kernel has no branch, and the one
+// guard left at its end (the last vector's store) holds whenever n is a
+// multiple of a block's elements.
+template <int kT, int kV, typename Access = PlainAccess, typename T,
+          typename Op>
+__device__ __forceinline__ void map_vec(const T* a, const T* b, T* y,
+                                        long long n, Op op) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr bool kTwo = Op::kInputs == 2;
+  const long long first = (long long)blockIdx.x * kV * kT * E
+                          + (long long)threadIdx.x * E;
+  Pack<T> va[kV] = {}, vb[kV] = {};
+#pragma unroll
+  for (int c = 0; c < kV; ++c) {
+    const long long i = first + (long long)c * kT * E;
+    if (i + E <= n) {
+      va[c] = Access::load(a + i);
+      if constexpr (kTwo) vb[c] = Access::load(b + i);
+    }
+  }
+  const long long t = n - n % E + (long long)blockIdx.x * kT + threadIdx.x;
+  const long long k = t < n ? t : n - 1;
+  const T r = op(a[k], kTwo ? b[k] : a[k]);
+  if (t < n) y[t] = r;
+#pragma unroll
+  for (int c = 0; c < kV; ++c) {
+#pragma unroll
+    for (int j = 0; j < E; ++j)
+      va[c].e[j] = op(va[c].e[j], kTwo ? vb[c].e[j] : va[c].e[j]);
+    keep(va[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < kV; ++c) {
+    const long long i = first + (long long)c * kT * E;
+    if (i + E <= n) Access::store(y + i, va[c]);
+  }
+}
 
 // One element's term: the f32 product a[j] * b[j] for dot, the value
 // a[j] for sum (kDot false: b is not read).
@@ -213,13 +308,13 @@ __device__ __forceinline__ void sum_at(const float* x, float* out,
 // The compiled kernels, one per operation and type, under C names so that
 // the SASS census finds them as stream_<op>_<f32|bf16>.
 #define STREAM_KERNELS(T, SFX)                                              \
-  extern "C" __global__ void __launch_bounds__(kThreads)                    \
+  extern "C" __global__ void __launch_bounds__(kVecThreads)                 \
       stream_copy_##SFX(const T* a, T* c, long long n) {                    \
-    copy_at(a, c, n);                                                       \
+    map_vec<kVecThreads, kVecPer>(a, a, c, n, CopyOp{});                    \
   }                                                                         \
-  extern "C" __global__ void __launch_bounds__(kThreads)                    \
+  extern "C" __global__ void __launch_bounds__(kVecThreads)                 \
       stream_mul_##SFX(const T* c, T* b, float s, long long n) {            \
-    mul_at(c, b, s, n);                                                     \
+    map_vec<kVecThreads, kVecPer>(c, c, b, n, MulOp{s});                    \
   }                                                                         \
   extern "C" __global__ void __launch_bounds__(kThreads)                    \
       stream_add_##SFX(const T* a, const T* b, T* c, long long n) {         \
@@ -247,8 +342,9 @@ extern "C" __global__ void __launch_bounds__(kDotThreads)
 namespace {
 
 // One launch of ceil(n / per) threads in blocks of `threads`: per = 1
-// element a thread in blocks of kThreads, or kPer in blocks of
-// kDotThreads for dot and sum.
+// element a thread in blocks of kThreads (add, triad), kVecPer 16-byte
+// vectors in blocks of kVecThreads (copy, mul), or kPer in blocks of
+// kDotThreads (dot, sum).
 template <typename... P, typename... A>
 cudaError_t launch(void (*kernel)(P...), long long n, int threads, int per,
                    size_t smem, void* stream, A... args) {
@@ -264,30 +360,35 @@ constexpr int kF32 = 0, kBF16 = 1;
 
 typedef __nv_bfloat16 bf16;
 
+// elements a thread of copy and mul moves: kVecPer vectors of 16 bytes
+template <typename T>
+constexpr int kVecElems = kVecPer * 16 / sizeof(T);
+
 }  // namespace
 
 // All pointers are device pointers to n contiguous elements of the dtype
 // (0 = f32, 1 = bf16); out may alias an input.  Each returns the launch's
 // cudaError_t (0 = launched).
+// copy and mul: a and c (mul: c and b) 16-byte aligned.
 extern "C" int stream_copy(const void* a, void* c, long long n, int dtype,
                            void* stream) {
   if (dtype == kF32)
-    return launch(stream_copy_f32, n, kThreads, 1, 0, stream, (const float*)a,
-                  (float*)c, n);
+    return launch(stream_copy_f32, n, kVecThreads, kVecElems<float>, 0,
+                  stream, (const float*)a, (float*)c, n);
   if (dtype == kBF16)
-    return launch(stream_copy_bf16, n, kThreads, 1, 0, stream, (const bf16*)a, (bf16*)c,
-                  n);
+    return launch(stream_copy_bf16, n, kVecThreads, kVecElems<bf16>, 0,
+                  stream, (const bf16*)a, (bf16*)c, n);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int stream_mul(const void* c, void* b, float s, long long n,
                           int dtype, void* stream) {
   if (dtype == kF32)
-    return launch(stream_mul_f32, n, kThreads, 1, 0, stream, (const float*)c, (float*)b,
-                  s, n);
+    return launch(stream_mul_f32, n, kVecThreads, kVecElems<float>, 0,
+                  stream, (const float*)c, (float*)b, s, n);
   if (dtype == kBF16)
-    return launch(stream_mul_bf16, n, kThreads, 1, 0, stream, (const bf16*)c, (bf16*)b,
-                  s, n);
+    return launch(stream_mul_bf16, n, kVecThreads, kVecElems<bf16>, 0,
+                  stream, (const bf16*)c, (bf16*)b, s, n);
   return cudaErrorInvalidValue;
 }
 

@@ -15,6 +15,12 @@ chain); without it a new tensor is returned, as in JAX.  The plain
 version (``ref.py``) is taken only when every tensor lies on the CPU; for
 CUDA tensors the wrapper launches the kernel on the current stream or
 raises — it never falls back.
+
+On the card copy, mul and dot load and store 16 bytes at a time, so
+their tensors (inputs and ``out=``) must start on a 16-byte boundary:
+every tensor PyTorch allocates does, while a view that starts elsewhere
+(``base.view(-1)[1:n + 1]``) raises ValueError.  add and triad take one
+element a thread and any start.  On the CPU every view is taken.
 """
 from __future__ import annotations
 
@@ -39,7 +45,9 @@ SUM = Kernel("stream_sum", [_P, _P, _N, _P])
 KERNELS = {"copy": COPY, "mul": MUL, "add": ADD, "triad": TRIAD, "dot": DOT,
            "sum": SUM}                   # the C entry points
 
-THREADS = 1024                      # threads per block (csrc kThreads)
+THREADS = 1024                      # add, triad: threads per block
+VEC_THREADS = 1024                  # copy, mul: threads per block ...
+VEC_PER_THREAD = 1                  # ... and 16-byte vectors a thread
 DOT_THREADS = 256                   # dot and sum: threads per block ...
 DOT_PER_THREAD = 32                 # ... and elements a thread (kPer)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -81,9 +89,15 @@ def launch_counts() -> Dict[str, int]:
     return n
 
 
-def blocks(n: int) -> int:
-    """Blocks of ``THREADS`` threads over ``n`` elements, one per thread."""
-    return -(-n // THREADS)
+def block_elements(name: str, dtype: torch.dtype) -> int:
+    """Elements one block of ``name``'s first launch covers: 1024 for add
+    and triad, ``VEC_THREADS`` x ``VEC_PER_THREAD`` 16-byte vectors for
+    copy and mul (4096 f32, 8192 bf16), 8192 for dot."""
+    if name in ("copy", "mul"):
+        return VEC_THREADS * VEC_PER_THREAD * 16 // dtype.itemsize
+    if name == "dot":
+        return DOT_THREADS * DOT_PER_THREAD
+    return THREADS
 
 
 def dot_blocks(n: int) -> int:
@@ -109,7 +123,8 @@ def launches(name: str, dtype: torch.dtype, n: int
     geometry the instruction census is multiplied by."""
     own = f"stream_{name}_{SUFFIX[dtype]}"
     if name != "dot":
-        return [(own, blocks(n), THREADS)]
+        threads = VEC_THREADS if name in ("copy", "mul") else THREADS
+        return [(own, -(-n // block_elements(name, dtype)), threads)]
     first, *rest = dot_passes(n)
     return [(own, dot_blocks(first), DOT_THREADS)] + [
         ("stream_sum_f32", dot_blocks(m), DOT_THREADS) for m in rest]
@@ -140,6 +155,7 @@ def copy(a: torch.Tensor, out: Optional[torch.Tensor] = None
     if on_cpu(a, out):
         return _put(ref.copy(a), out)
     out = _cuda_out("copy", out, a)
+    check_aligned("copy", a, out)
     _launch(COPY, a, a.data_ptr(), out.data_ptr(), a.numel(),
             DTYPE_CODES[a.dtype])
     return out
@@ -152,6 +168,7 @@ def mul(c: torch.Tensor, scalar: float = ref.SCALAR,
     if on_cpu(c, out):
         return _put(ref.mul(c, scalar), out)
     out = _cuda_out("mul", out, c)
+    check_aligned("mul", c, out)
     _launch(MUL, c, c.data_ptr(), out.data_ptr(),
             ref.scalar_in(c.dtype, scalar), c.numel(), DTYPE_CODES[c.dtype])
     return out

@@ -69,12 +69,18 @@ def warp_instructions(name: str, census: Dict[str, KernelCensus],
                       res: babelstream.Result) -> int:
     """Warp instructions of one call of BabelStream kernel ``name`` over
     the run's arrays: for every launch the call makes, the census's path
-    length times the warps launched."""
-    if name != "dot" and res.n % stream.THREADS:
+    length times the warps launched.  Exact when every warp runs its
+    kernel's whole listing: for copy, mul, add and triad, n a multiple of
+    a block's elements (``stream.block_elements``), so that every bounds
+    guard holds.  dot is not held to it: its sum passes over the block
+    partials run a ragged block by design."""
+    per_block = stream.block_elements(name, res.dtype)
+    if name != "dot" and res.n % per_block:
         raise ValueError(f"{name}: the census counts every warp's whole "
-                         f"path, so n must be a multiple of "
-                         f"{stream.THREADS}: no warp may leave at the bounds "
-                         f"guard (got n = {res.n})")
+                         f"path, so n must be a multiple of the "
+                         f"{per_block} elements of one of its blocks: no "
+                         f"warp may leave at a bounds guard (got n = "
+                         f"{res.n})")
     total = 0
     for fn, blocks, threads in stream.launches(name, res.dtype, res.n):
         if fn not in census:

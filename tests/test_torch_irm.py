@@ -144,8 +144,9 @@ def test_h100_from_device_needs_a_card(monkeypatch):
         hardware.h100_from_device()
 
 
-# A cuobjdump -sass listing for sm_90a: the port's f32 copy kernel as
-# nvcc 12.8 compiled it (bounds guard as a predicated EXIT; padding cut
+# A cuobjdump -sass listing for sm_90a: the port's first f32 copy kernel
+# (one element a thread) as nvcc 12.8 compiled it (bounds guard as a
+# predicated EXIT; padding cut
 # to four NOPs), then, written for the test, a loop-free block sum with
 # shuffles, shared memory, a barrier and a forward branch, and a kernel
 # with a loop (a backward branch).  Each function ends in the self-branch
@@ -403,9 +404,11 @@ def _result(n, ms):
 
 def test_h100_irm_arithmetic():
     """Instructions = path length x warps launched (x 32 threads, which
-    Eq. 4 divides out again); the copy point sits exactly on the memory
-    roof its own rate defines; dot sums the paths of its two launches (32
-    elements a thread in blocks of 8 warps: 4096 blocks, then one)."""
+    Eq. 4 divides out again): copy and mul one 16-byte vector (4 f32
+    elements) a thread, add and triad one element; the copy point sits
+    exactly on the memory roof its own rate defines; dot sums the paths
+    of its two launches (32 elements a thread in blocks of 8 warps: 4096
+    blocks, then one)."""
     n = 2 ** 25
     paths = {"stream_copy_f32": 16, "stream_mul_f32": 18,
              "stream_add_f32": 20, "stream_triad_f32": 24,
@@ -419,7 +422,8 @@ def test_h100_irm_arithmetic():
     model, rows = launch_irm.h100_irm(hw, census, res)
     by = {r["kernel"]: r for r in rows}
     warps = n // 32
-    assert by["copy"]["warp_insts"] == 16 * warps
+    assert by["copy"]["warp_insts"] == 16 * warps // 4
+    assert by["mul"]["warp_insts"] == 18 * warps // 4
     assert by["triad"]["warp_insts"] == 24 * warps
     assert by["dot"]["warp_insts"] == 60 * warps // 32 + 50 * 1 * 8
     assert by["copy"]["bytes"] == 2 * 4 * n and by["add"]["bytes"] == 12 * n
@@ -460,14 +464,31 @@ def test_h100_report_prints_points_above_the_roof(monkeypatch):
 
 
 def test_h100_irm_needs_whole_warps():
-    """An elementwise kernel over n not a multiple of 1024 has warps that
-    leave at the bounds guard, which one path per kernel cannot count."""
-    res = _result(3000, dict.fromkeys(babelstream.FUNCTIONS, 0.01))
+    """An elementwise kernel over n not a multiple of its block's elements
+    has warps that leave at a bounds guard, which one path per kernel
+    cannot count: 1024 for add and triad, 4096 f32 elements for copy and
+    mul (1024 threads of one 16-byte vector)."""
     hw = hardware.h100_spec("H100", 132, 1980.0, 0, measured_gbs=1.0)
     census = {f"stream_{k}_f32": sc.KernelCensus(k, 9, {}, 0)
-              for k in babelstream.FUNCTIONS}
-    with pytest.raises(ValueError, match="multiple of 1024"):
-        launch_irm.h100_irm(hw, census, res)
+              for k in babelstream.FUNCTIONS + ("sum",)}
+    for n in (3000, 5 * 1024, 3 * 4096 + 1024):
+        res = _result(n, dict.fromkeys(babelstream.FUNCTIONS, 0.01))
+        with pytest.raises(ValueError, match="copy: .* multiple of the 4096 "
+                                             "elements"):
+            launch_irm.h100_irm(hw, census, res)
+        with pytest.raises(ValueError, match="mul: .* multiple of the 4096 "
+                                             "elements"):
+            launch_irm.warp_instructions("mul", census, res)
+    res = _result(3000, dict.fromkeys(babelstream.FUNCTIONS, 0.01))
+    with pytest.raises(ValueError, match="add: .* multiple of the 1024 "
+                                         "elements"):
+        launch_irm.warp_instructions("add", census, res)
+    res = _result(5 * 1024, dict.fromkeys(babelstream.FUNCTIONS, 0.01))
+    assert launch_irm.warp_instructions("triad", census, res) == 9 * 160
+    res = _result(3 * 4096, dict.fromkeys(babelstream.FUNCTIONS, 0.01))
+    assert launch_irm.warp_instructions("copy", census, res) == 9 * 3 * 32
+    assert launch_irm.warp_instructions("add", census, res) == 9 * 384
+    launch_irm.h100_irm(hw, census, res)
 
 
 def test_h100_irm_needs_every_kernel_in_the_census():

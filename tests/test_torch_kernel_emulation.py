@@ -672,9 +672,13 @@ def test_emulated_attention_route_takes_what_the_reference_serves(
     assert flash.KERNEL.launches == n0 + 2
 
 
-# (rows, cols): one full block; a ragged 3-block array (guard, and a
-# two-launch dot chain 3000 -> 3 -> 1); 4 blocks with a ragged last one
-STREAM_SHAPES = [(8, 128), (3, 1000), (16, 200)]
+# (rows, cols): one full block of add and triad; a ragged 3-block array
+# (guard, and a two-launch dot chain 3000 -> 3 -> 1); 4 blocks with a
+# ragged last one; copy and mul (4096 f32 or 8192 bf16 elements a block):
+# two full f32 blocks and one full bf16 block, and ragged last blocks with
+# a ragged tail of n % 8 = 3 (f32 n % 4 = 3) and n % 8 = 1
+STREAM_SHAPES = [(8, 128), (3, 1000), (16, 200), (8, 1024), (3, 1001),
+                 (9, 1001)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -725,6 +729,106 @@ def test_emulated_stream_in_place_chain(cuda_path_on_cpu):
     assert stream.dot(a, b).item() == (ga * gb).item() * a.numel()
 
 
+# map_vec (csrc/stream.cu) in layouts the library does not build: several
+# 16-byte vectors a thread in small blocks, as the sweep script
+# instantiates it and as add and triad may take it up
+MAP_VEC_PROBE = r"""
+#include "stream.cpp"
+namespace {
+template <int kT, int kV, typename T, typename Op>
+__global__ void probe_kernel(const T* a, T* y, long long n, Op op) {
+  map_vec<kT, kV>(a, a, y, n, op);
+}
+template <int kT, int kV, typename T>
+int probe(int mul, const void* a, void* y, float s, long long n) {
+  constexpr int per = kV * 16 / sizeof(T);
+  if (mul)
+    return launch(probe_kernel<kT, kV, T, MulOp>, n, kT, per, 0, nullptr,
+                  (const T*)a, (T*)y, n, MulOp{s});
+  return launch(probe_kernel<kT, kV, T, CopyOp>, n, kT, per, 0, nullptr,
+                (const T*)a, (T*)y, n, CopyOp{});
+}
+}  // namespace
+extern "C" int probe_map_vec(int threads, int bf16, int mul, const void* a,
+                             void* y, float s, long long n) {
+  if (threads == 32)
+    return bf16 ? probe<32, 4, __nv_bfloat16>(mul, a, y, s, n)
+                : probe<32, 4, float>(mul, a, y, s, n);
+  return bf16 ? probe<64, 2, __nv_bfloat16>(mul, a, y, s, n)
+              : probe<64, 2, float>(mul, a, y, s, n);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def map_vec_probe(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not installed: the CPU build of the CUDA sources "
+                    "needs it")
+    d = tmp_path_factory.mktemp("map_vec")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME)
+    (d / "cuda_bf16.h").write_text(CUDA_BF16)
+    (d / "stream.cpp").write_text(
+        _rewrite((build.CSRC / "stream.cu").read_text()))
+    (d / "probe.cpp").write_text(MAP_VEC_PROBE)
+    lib = d / "libprobe.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-pthread", f"-I{d}", "-o", str(lib),
+                    str(d / "probe.cpp")], check=True)
+    fn = ctypes.CDLL(str(lib)).probe_map_vec
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("threads,vectors", [(32, 4), (64, 2)],
+                         ids=["t32v4", "t64v2"])
+def test_emulated_map_vec_several_vectors(threads, vectors, dtype,
+                                          map_vec_probe):
+    """map_vec with 4 vectors in 32-thread blocks and 2 in 64-thread ones
+    (512 f32 or 1024 bf16 elements a block): copy and mul bit-identical
+    to the plain versions, also in place, over n = 7 (the tail alone),
+    one whole block, and several blocks with a ragged last one and a
+    ragged tail (n % 8 = 1 and 3)."""
+    rng = np.random.default_rng(threads + vectors)
+    per_block = threads * vectors * 16 // dtype.itemsize
+    s = stream_ref.scalar_in(dtype)
+    for n in (7, per_block, 9009, 5 * per_block + 3):
+        x = torch.from_numpy(rng.standard_normal(n, np.float32)).to(dtype)
+        for mul, want in ((0, stream_ref.copy(x)),
+                          (1, stream_ref.mul(x))):
+            y = torch.zeros_like(x)
+            assert map_vec_probe(threads, dtype == torch.bfloat16, mul,
+                                 x.data_ptr(), y.data_ptr(), s, n) == 0
+            assert torch.equal(y, want), (n, mul)
+            z = x.clone()
+            map_vec_probe(threads, dtype == torch.bfloat16, mul,
+                          z.data_ptr(), z.data_ptr(), s, n)
+            assert torch.equal(z, want), (n, mul, "in place")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 7), (9, 1001)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_emulated_copy_mul_in_place(shape, dtype, cuda_path_on_cpu):
+    """copy and mul with ``out=`` the input itself: every thread reads its
+    vectors and its tail element before it writes them, so the in-place
+    result is the plain version's (n = 7: the ragged tail alone; 9009:
+    three f32 or two bf16 blocks, the last ragged, and a 1-element
+    tail)."""
+    rng = np.random.default_rng(sum(shape) + 5)
+    x = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dtype)
+    want = stream_ref.mul(x, 1.5)
+    y = x.clone()
+    assert stream.mul(y, 1.5, out=y) is y and torch.equal(y, want)
+    assert stream.copy(y, out=y) is y and torch.equal(y, want)
+
+
 # dot's ragged shapes: n = 7 (the tail alone), n % 8 = 3 in one block,
 # and two blocks of 8192 with a 1-element tail (a two-launch chain 9009 ->
 # 2 -> 1)
@@ -763,6 +867,22 @@ def test_emulated_dot_refuses_misaligned_view(cuda_path_on_cpu):
         stream.dot(a, torch.ones(8, 128))
     assert torch.equal(stream.dot(a.contiguous().clone(), a.clone()),
                        torch.tensor(1024.0))
+
+
+@pytest.mark.parametrize("op", ["copy", "mul"])
+def test_emulated_copy_mul_refuse_misaligned_views(op, cuda_path_on_cpu):
+    """copy and mul load and store 16 bytes at a time: an input or an
+    ``out=`` 4 bytes past a 16-byte boundary is refused, with no scalar
+    path standing in; aligned tensors of the same values go through."""
+    fn = getattr(stream, op)
+    off = torch.ones(1025)[1:].view(8, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(torch.ones(8, 128), out=off)
+    n0 = stream.launch_counts()[op]
+    assert torch.equal(fn(off.clone()), getattr(stream_ref, op)(off))
+    assert stream.launch_counts()[op] == n0 + 1
 
 
 # (B, S, d_in, N, dtype): S over several 32-step tiles with a ragged last
