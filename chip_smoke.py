@@ -73,9 +73,10 @@ Phases, each failing loudly (non-zero exit, no result line):
                blocks and the ragged tails of the 16-byte vector kernels,
                and BabelStream's 2^25 elements): copy, mul, add and
                triad bit-identical, dot within 2^-20 of sum |a b| and
-               bit-identical from run to run; copy and mul in place
-               bit-identical, and a view off the 16-byte boundary refused
-               by both.  Then BabelStream itself
+               bit-identical from run to run; copy and mul in place, add
+               and triad with ``out=`` each input in turn, bit-identical,
+               and a view off the 16-byte boundary refused by all four.
+               Then BabelStream itself
                (``launch/babelstream.py``) at 2^25 f32 elements, 100 times:
                its solution check must pass and all five launch counters
                rise.  Times each kernel, its plain version and one library
@@ -84,8 +85,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                prints BabelStream's table and the measured memory ceiling
                (copy's rate) beside the card's name and power limit.
   6. irm     — a census of the built library's SASS (``cuobjdump``), which
-               must find all five stream kernels loop-free, copy and mul
-               with no branch at all, and every bf16
+               must find all five stream kernels loop-free, copy, mul,
+               add and triad with no branch at all, and every bf16
                flash and paged-prefill instantiation issuing bf16
                tensor-core products (``HMMA.16816.F32.BF16``) and cp.async
                copies (``LDGSTS``); the H100
@@ -1389,13 +1390,16 @@ def ssm_phase(torch):
 # ---------------------------------------------------------------------------
 
 BABEL = (16384, 2048)            # 2^25 elements: BabelStream's default size
-# the JAX tests' shapes; n % 8 = 0 with ragged last blocks of copy and mul
-# (4096 f32 / 8192 bf16 elements a block); n % 8 = 3 and 1; BabelStream's
+# the JAX tests' shapes; n % 8 = 0 with ragged last blocks of copy, mul,
+# add and triad (4096 f32 / 8192 bf16 elements a block); n % 8 = 3 and 1;
+# BabelStream's
 STREAM_SHAPES = [(8, 128), (256, 512), (1024, 128), (64, 1024), (3, 1000),
                  (33, 1000), (3, 1001), (9, 1001), BABEL]
-# copy and mul: the 16-byte vector kernels, whose SASS must hold no branch
-VECTOR_KERNELS = ("stream_copy_f32", "stream_copy_bf16", "stream_mul_f32",
-                  "stream_mul_bf16")
+# copy, mul, add and triad: the 16-byte vector kernels (map_vec), whose
+# SASS must hold no branch
+VECTOR_KERNELS = tuple(f"stream_{op}_{sfx}" for op in ("copy", "mul", "add",
+                                                       "triad")
+                       for sfx in ("f32", "bf16"))
 STREAM_DOT_TOL = (2.0 ** -20, "of sum |a b|: the f32 products are exact "
                               "or rounded alike, and only the order of the "
                               "f32 sums differs, each within log2(n) f32 "
@@ -1454,12 +1458,14 @@ def stream_checks(torch):
 
 
 def vector_edge_checks(torch, gen):
-    """copy and mul in place (``out=`` the input, BabelStream's chain) at
-    a ragged shape, bit-identical to plain; and a view 4 bytes past a
-    16-byte boundary refused with ValueError, as input and as ``out=``."""
+    """copy and mul in place (``out=`` the input, BabelStream's chain), add
+    and triad with ``out=`` each input in turn, at a ragged shape,
+    bit-identical to plain; and a view 4 bytes past a 16-byte boundary
+    refused with ValueError by all four, as each input and as ``out=``."""
     from repro_torch.kernels.stream import ref, stream
     for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn((9, 1001), generator=gen, device="cuda").to(dtype)
+        x, w = (torch.randn((9, 1001), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
         want = ref.mul(x)
         stream.mul(x, out=x)
         stream.copy(x, out=x)
@@ -1467,14 +1473,30 @@ def vector_edge_checks(torch, gen):
         if not torch.equal(x, want):
             raise AssertionError(f"stream copy/mul in place {dtype}: "
                                  f"differs from plain")
+        for name in ("add", "triad"):
+            want = getattr(ref, name)(x, w)
+            for which in range(2):
+                z = [x.clone(), w.clone()]
+                getattr(stream, name)(*z, out=z[which])
+                torch.cuda.synchronize()
+                if not (torch.equal(z[which], want)
+                        and torch.equal(z[1 - which], (x, w)[1 - which])):
+                    raise AssertionError(f"stream {name} {dtype} with out= "
+                                         f"input {which}: differs from "
+                                         f"plain")
         base = torch.zeros(1025, dtype=dtype, device="cuda")
-        off = base[1:].view(8, 128)
+        off, ok = base[1:].view(8, 128), base[:1024].view(8, 128)
         for name, call in (("copy", lambda: stream.copy(off)),
                            ("mul", lambda: stream.mul(off)),
-                           ("copy out=", lambda: stream.copy(
-                               base[:1024].view(8, 128), out=off)),
-                           ("mul out=", lambda: stream.mul(
-                               base[:1024].view(8, 128), out=off))):
+                           ("add a", lambda: stream.add(off, ok)),
+                           ("add b", lambda: stream.add(ok, off)),
+                           ("triad b", lambda: stream.triad(off, ok)),
+                           ("triad c", lambda: stream.triad(ok, off)),
+                           ("copy out=", lambda: stream.copy(ok, out=off)),
+                           ("mul out=", lambda: stream.mul(ok, out=off)),
+                           ("add out=", lambda: stream.add(ok, ok, out=off)),
+                           ("triad out=",
+                            lambda: stream.triad(ok, ok, out=off))):
             try:
                 call()
             except ValueError as e:
@@ -1483,8 +1505,9 @@ def vector_edge_checks(torch, gen):
                 continue
             raise AssertionError(f"stream {name} {dtype}: a misaligned view "
                                  f"was not refused")
-    log("[stream] copy and mul in place (9, 1001) bit-identical in f32 and "
-        "bf16; misaligned views refused (ValueError) as input and out=")
+    log("[stream] copy and mul in place, add and triad with out= each "
+        "input, (9, 1001) bit-identical in f32 and bf16; misaligned views "
+        "refused (ValueError) as every input and out=")
 
 
 def stream_timing(torch, ceiling_gbs):
@@ -1612,7 +1635,8 @@ def irm_phase(res, clocks, gpu):
                 if census[k].forward_branches}
     if branched:
         raise AssertionError(f"forward branches in {branched}: the census "
-                             f"of copy and mul counts on every warp running "
+                             f"of the vector kernels counts on every warp "
+                             f"running "
                              f"the whole listing (the ragged tail's guard a "
                              f"predicated store)")
     log(f"[irm] {', '.join(VECTOR_KERNELS)}: no branch, so every warp "

@@ -17,29 +17,26 @@
 // CUDA cores (67 TFLOP/s) rather than its 3.35 TB/s of HBM would be the
 // limit.  What the design must give HBM is bytes in flight: at ~0.6-0.8
 // us of latency, 3.35 TB/s over 132 SMs needs ~15-20 KB of loads in
-// flight on every SM.  The file has two layouts.
+// flight on every SM.
 //
-// One element a thread (add, triad): BabelStream-CUDA's layout, a 4-byte
-// (f32) or 2-byte (bf16) load per thread in blocks of kThreads = 1024, a
-// bounds guard so any n works, 32768 blocks at BabelStream's 2^25
-// elements.  An SM holds at most 2048 threads, so it keeps at most 8 KB
-// of f32 loads in flight: about half of what HBM needs.
-//
-// 16-byte vectors (copy, mul; map_vec): each thread moves kVecPer 16-byte
-// vectors (4 f32 or 8 bf16 elements each) in blocks of kVecThreads.
-// Vector c of thread t in block b starts at element b * kVecPer *
-// kVecThreads * E + (c * kVecThreads + t) * E, so each warp-wide load or
-// store touches 512 neighbouring bytes, and a thread issues all its loads
-// before any store.  A sweep on the card (scripts/torch_stream_sweep.py,
-// PERF.md) over 128-1024 threads and 1, 2, 4 or 8 vectors a thread found
-// every one within 2% of copy_, and the fewest vectors in the largest
-// blocks the fastest: kVecThreads = 1024 and kVecPer = 1, so a block
-// covers 4096 f32 or 8192 bf16 elements, 2^25 f32 elements take 8192
-// blocks, and a full SM keeps 2048 x 16 bytes = 32 KB of loads in flight
-// (4x the one-element layout, and more than HBM needs).  Streaming cache
-// hints (__ldcs/__stcs) gained under 1% there and are not used.  The
-// arrays' base must be 16-byte aligned (the wrappers refuse others).  A
-// vector is read and written only when it lies wholly in range; the
+// copy, mul, add and triad share one layout, map_vec's 16-byte vectors:
+// each thread moves kVecPer 16-byte vectors (4 f32 or 8 bf16 elements
+// each) of every input in blocks of kVecThreads.  Vector c of thread t in
+// block b starts at element b * kVecPer * kVecThreads * E + (c *
+// kVecThreads + t) * E, so each warp-wide load or store touches 512
+// neighbouring bytes, and a thread issues all its loads (one per input
+// per vector) before any store.  A sweep on the card
+// (scripts/torch_stream_sweep.py, PERF.md) over 128-1024 threads and 1,
+// 2, 4 or 8 vectors a thread found every layout of copy and mul within
+// 2% of copy_, and every layout of add and triad (V <= 4) within 1% of
+// torch.add; for all four the fewest vectors in the largest blocks were
+// the fastest: kVecThreads = 1024 and kVecPer = 1, so a block covers 4096
+// f32 or 8192 bf16 elements, 2^25 f32 elements take 8192 blocks, and a
+// full SM keeps 2048 x 16 bytes of each input in flight (32 KB for copy
+// and mul, 64 KB for add and triad: more than HBM needs).  Streaming
+// cache hints (__ldcs/__stcs) gained under 1% for copy and are not used.
+// The arrays' base must be 16-byte aligned (the wrappers refuse others).
+// A vector is read and written only when it lies wholly in range; the
 // elements past the last whole vector (n % E) are the ragged tail, which
 // global thread j < n % E moves by a scalar access between the loads and
 // the stores.  Only loads and stores sit under a guard, each one
@@ -49,8 +46,9 @@
 // would count instructions no warp runs.  At n a multiple of a block's
 // elements every vector guard holds and every warp runs the whole
 // listing.  Each thread reads its elements before it writes them, and no
-// two threads touch one element, so out may alias the input exactly
-// (BabelStream's in-place chain).
+// two threads touch one element, so out may alias any input exactly
+// (BabelStream's in-place chain); for that the pointers are not
+// __restrict__.
 //
 // dot has the same vector layout with kPer = 32 elements a thread in
 // blocks of kDotThreads = 256, so a block sums 8192 products and 2^25
@@ -87,8 +85,7 @@
 
 namespace {
 
-constexpr int kThreads = 1024;               // BabelStream-CUDA's TBSIZE
-constexpr int kVecThreads = 1024;            // copy and mul: their blocks
+constexpr int kVecThreads = 1024;            // copy, mul, add, triad: blocks
 constexpr int kVecPer = 1;                   // ... 16-byte vectors a thread
 constexpr int kWarp = 32;
 constexpr int kDotThreads = 256;             // dot and sum: their blocks
@@ -108,27 +105,6 @@ __device__ __forceinline__ float round_to<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ long long element() {
-  return (long long)blockIdx.x * kThreads + threadIdx.x;
-}
-
-template <typename T>
-__device__ __forceinline__ void add_at(const T* a, const T* b, T* c,
-                                       long long n) {
-  const long long i = element();
-  if (i < n) c[i] = round_to<T>(__fadd_rn(to_f32(a[i]), to_f32(b[i])));
-}
-
-template <typename T>
-__device__ __forceinline__ void triad_at(const T* b, const T* c, T* a,
-                                         float s, long long n) {
-  const long long i = element();
-  if (i < n) {
-    const float sc = to_f32(round_to<T>(__fmul_rn(s, to_f32(c[i]))));
-    a[i] = round_to<T>(__fadd_rn(to_f32(b[i]), sc));
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -184,6 +160,25 @@ struct MulOp {
   template <typename T>
   __device__ __forceinline__ T operator()(T c, T) const {
     return round_to<T>(__fmul_rn(s, to_f32(c)));
+  }
+};
+
+struct AddOp {
+  static constexpr int kInputs = 2;
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    return round_to<T>(__fadd_rn(to_f32(a), to_f32(b)));
+  }
+};
+
+// s * c rounded to T before b is added: two roundings, never one FMA
+struct TriadOp {
+  static constexpr int kInputs = 2;
+  float s;                                   // rounded to T by the wrapper
+  template <typename T>
+  __device__ __forceinline__ T operator()(T b, T c) const {
+    const float sc = to_f32(round_to<T>(__fmul_rn(s, to_f32(c))));
+    return round_to<T>(__fadd_rn(to_f32(b), sc));
   }
 };
 
@@ -316,14 +311,14 @@ __device__ __forceinline__ void sum_at(const float* x, float* out,
       stream_mul_##SFX(const T* c, T* b, float s, long long n) {            \
     map_vec<kVecThreads, kVecPer>(c, c, b, n, MulOp{s});                    \
   }                                                                         \
-  extern "C" __global__ void __launch_bounds__(kThreads)                    \
+  extern "C" __global__ void __launch_bounds__(kVecThreads)                 \
       stream_add_##SFX(const T* a, const T* b, T* c, long long n) {         \
-    add_at(a, b, c, n);                                                     \
+    map_vec<kVecThreads, kVecPer>(a, b, c, n, AddOp{});                     \
   }                                                                         \
-  extern "C" __global__ void __launch_bounds__(kThreads)                    \
+  extern "C" __global__ void __launch_bounds__(kVecThreads)                 \
       stream_triad_##SFX(const T* b, const T* c, T* a, float s,             \
                          long long n) {                                     \
-    triad_at(b, c, a, s, n);                                                \
+    map_vec<kVecThreads, kVecPer>(b, c, a, n, TriadOp{s});                  \
   }                                                                         \
   extern "C" __global__ void __launch_bounds__(kDotThreads)                 \
       stream_dot_##SFX(const T* a, const T* b, float* out, long long n) {   \
@@ -341,10 +336,9 @@ extern "C" __global__ void __launch_bounds__(kDotThreads)
 
 namespace {
 
-// One launch of ceil(n / per) threads in blocks of `threads`: per = 1
-// element a thread in blocks of kThreads (add, triad), kVecPer 16-byte
-// vectors in blocks of kVecThreads (copy, mul), or kPer in blocks of
-// kDotThreads (dot, sum).
+// One launch of ceil(n / per) threads in blocks of `threads`: kVecPer
+// 16-byte vectors in blocks of kVecThreads (copy, mul, add, triad), or
+// kPer elements in blocks of kDotThreads (dot, sum).
 template <typename... P, typename... A>
 cudaError_t launch(void (*kernel)(P...), long long n, int threads, int per,
                    size_t smem, void* stream, A... args) {
@@ -360,7 +354,8 @@ constexpr int kF32 = 0, kBF16 = 1;
 
 typedef __nv_bfloat16 bf16;
 
-// elements a thread of copy and mul moves: kVecPer vectors of 16 bytes
+// elements a thread of copy, mul, add and triad moves: kVecPer vectors
+// of 16 bytes (of each input)
 template <typename T>
 constexpr int kVecElems = kVecPer * 16 / sizeof(T);
 
@@ -369,7 +364,7 @@ constexpr int kVecElems = kVecPer * 16 / sizeof(T);
 // All pointers are device pointers to n contiguous elements of the dtype
 // (0 = f32, 1 = bf16); out may alias an input.  Each returns the launch's
 // cudaError_t (0 = launched).
-// copy and mul: a and c (mul: c and b) 16-byte aligned.
+// copy, mul, add and triad: every array 16-byte aligned.
 extern "C" int stream_copy(const void* a, void* c, long long n, int dtype,
                            void* stream) {
   if (dtype == kF32)
@@ -395,22 +390,22 @@ extern "C" int stream_mul(const void* c, void* b, float s, long long n,
 extern "C" int stream_add(const void* a, const void* b, void* c,
                           long long n, int dtype, void* stream) {
   if (dtype == kF32)
-    return launch(stream_add_f32, n, kThreads, 1, 0, stream, (const float*)a,
-                  (const float*)b, (float*)c, n);
+    return launch(stream_add_f32, n, kVecThreads, kVecElems<float>, 0,
+                  stream, (const float*)a, (const float*)b, (float*)c, n);
   if (dtype == kBF16)
-    return launch(stream_add_bf16, n, kThreads, 1, 0, stream, (const bf16*)a,
-                  (const bf16*)b, (bf16*)c, n);
+    return launch(stream_add_bf16, n, kVecThreads, kVecElems<bf16>, 0,
+                  stream, (const bf16*)a, (const bf16*)b, (bf16*)c, n);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int stream_triad(const void* b, const void* c, void* a, float s,
                             long long n, int dtype, void* stream) {
   if (dtype == kF32)
-    return launch(stream_triad_f32, n, kThreads, 1, 0, stream, (const float*)b,
-                  (const float*)c, (float*)a, s, n);
+    return launch(stream_triad_f32, n, kVecThreads, kVecElems<float>, 0,
+                  stream, (const float*)b, (const float*)c, (float*)a, s, n);
   if (dtype == kBF16)
-    return launch(stream_triad_bf16, n, kThreads, 1, 0, stream, (const bf16*)b,
-                  (const bf16*)c, (bf16*)a, s, n);
+    return launch(stream_triad_bf16, n, kVecThreads, kVecElems<bf16>, 0,
+                  stream, (const bf16*)b, (const bf16*)c, (bf16*)a, s, n);
   return cudaErrorInvalidValue;
 }
 

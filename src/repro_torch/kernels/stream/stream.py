@@ -16,11 +16,13 @@ version (``ref.py``) is taken only when every tensor lies on the CPU; for
 CUDA tensors the wrapper launches the kernel on the current stream or
 raises — it never falls back.
 
-On the card copy, mul and dot load and store 16 bytes at a time, so
-their tensors (inputs and ``out=``) must start on a 16-byte boundary:
-every tensor PyTorch allocates does, while a view that starts elsewhere
-(``base.view(-1)[1:n + 1]``) raises ValueError.  add and triad take one
-element a thread and any start.  On the CPU every view is taken.
+On the card every kernel loads and stores 16 bytes at a time: copy,
+mul, add and triad one 16-byte vector of each input a thread in blocks
+of 1024 threads, dot 32 elements a thread in blocks of 256.  So their
+tensors (inputs and ``out=``) must start on a 16-byte boundary: every
+tensor PyTorch allocates does, while a view that starts elsewhere
+(``base.view(-1)[1:n + 1]``) raises ValueError.  On the CPU every view
+is taken.
 """
 from __future__ import annotations
 
@@ -45,8 +47,7 @@ SUM = Kernel("stream_sum", [_P, _P, _N, _P])
 KERNELS = {"copy": COPY, "mul": MUL, "add": ADD, "triad": TRIAD, "dot": DOT,
            "sum": SUM}                   # the C entry points
 
-THREADS = 1024                      # add, triad: threads per block
-VEC_THREADS = 1024                  # copy, mul: threads per block ...
+VEC_THREADS = 1024                  # copy, mul, add, triad: threads ...
 VEC_PER_THREAD = 1                  # ... and 16-byte vectors a thread
 DOT_THREADS = 256                   # dot and sum: threads per block ...
 DOT_PER_THREAD = 32                 # ... and elements a thread (kPer)
@@ -90,14 +91,12 @@ def launch_counts() -> Dict[str, int]:
 
 
 def block_elements(name: str, dtype: torch.dtype) -> int:
-    """Elements one block of ``name``'s first launch covers: 1024 for add
-    and triad, ``VEC_THREADS`` x ``VEC_PER_THREAD`` 16-byte vectors for
-    copy and mul (4096 f32, 8192 bf16), 8192 for dot."""
-    if name in ("copy", "mul"):
-        return VEC_THREADS * VEC_PER_THREAD * 16 // dtype.itemsize
+    """Elements one block of ``name``'s first launch covers:
+    ``VEC_THREADS`` x ``VEC_PER_THREAD`` 16-byte vectors for copy, mul,
+    add and triad (4096 f32, 8192 bf16), 8192 for dot."""
     if name == "dot":
         return DOT_THREADS * DOT_PER_THREAD
-    return THREADS
+    return VEC_THREADS * VEC_PER_THREAD * 16 // dtype.itemsize
 
 
 def dot_blocks(n: int) -> int:
@@ -123,8 +122,7 @@ def launches(name: str, dtype: torch.dtype, n: int
     geometry the instruction census is multiplied by."""
     own = f"stream_{name}_{SUFFIX[dtype]}"
     if name != "dot":
-        threads = VEC_THREADS if name in ("copy", "mul") else THREADS
-        return [(own, -(-n // block_elements(name, dtype)), threads)]
+        return [(own, -(-n // block_elements(name, dtype)), VEC_THREADS)]
     first, *rest = dot_passes(n)
     return [(own, dot_blocks(first), DOT_THREADS)] + [
         ("stream_sum_f32", dot_blocks(m), DOT_THREADS) for m in rest]
@@ -181,6 +179,7 @@ def add(a: torch.Tensor, b: torch.Tensor,
     if on_cpu(a, b, out):
         return _put(ref.add(a, b), out)
     out = _cuda_out("add", out, a, b)
+    check_aligned("add", a, b, out)
     _launch(ADD, a, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
             DTYPE_CODES[a.dtype])
     return out
@@ -193,6 +192,7 @@ def triad(b: torch.Tensor, c: torch.Tensor, scalar: float = ref.SCALAR,
     if on_cpu(b, c, out):
         return _put(ref.triad(b, c, scalar), out)
     out = _cuda_out("triad", out, b, c)
+    check_aligned("triad", b, c, out)
     _launch(TRIAD, b, b.data_ptr(), c.data_ptr(), out.data_ptr(),
             ref.scalar_in(b.dtype, scalar), b.numel(), DTYPE_CODES[b.dtype])
     return out

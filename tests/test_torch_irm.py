@@ -404,8 +404,8 @@ def _result(n, ms):
 
 def test_h100_irm_arithmetic():
     """Instructions = path length x warps launched (x 32 threads, which
-    Eq. 4 divides out again): copy and mul one 16-byte vector (4 f32
-    elements) a thread, add and triad one element; the copy point sits
+    Eq. 4 divides out again): copy, mul, add and triad one 16-byte
+    vector (4 f32 elements) a thread; the copy point sits
     exactly on the memory roof its own rate defines; dot sums the paths
     of its two launches (32 elements a thread in blocks of 8 warps: 4096
     blocks, then one)."""
@@ -424,7 +424,8 @@ def test_h100_irm_arithmetic():
     warps = n // 32
     assert by["copy"]["warp_insts"] == 16 * warps // 4
     assert by["mul"]["warp_insts"] == 18 * warps // 4
-    assert by["triad"]["warp_insts"] == 24 * warps
+    assert by["add"]["warp_insts"] == 20 * warps // 4
+    assert by["triad"]["warp_insts"] == 24 * warps // 4
     assert by["dot"]["warp_insts"] == 60 * warps // 32 + 50 * 1 * 8
     assert by["copy"]["bytes"] == 2 * 4 * n and by["add"]["bytes"] == 12 * n
     assert close(res.copy_gbs(), 8 * n / 0.09e-3 / 1e9)
@@ -466,8 +467,8 @@ def test_h100_report_prints_points_above_the_roof(monkeypatch):
 def test_h100_irm_needs_whole_warps():
     """An elementwise kernel over n not a multiple of its block's elements
     has warps that leave at a bounds guard, which one path per kernel
-    cannot count: 1024 for add and triad, 4096 f32 elements for copy and
-    mul (1024 threads of one 16-byte vector)."""
+    cannot count: 4096 f32 elements for copy, mul, add and triad (1024
+    threads of one 16-byte vector)."""
     hw = hardware.h100_spec("H100", 132, 1980.0, 0, measured_gbs=1.0)
     census = {f"stream_{k}_f32": sc.KernelCensus(k, 9, {}, 0)
               for k in babelstream.FUNCTIONS + ("sum",)}
@@ -479,15 +480,14 @@ def test_h100_irm_needs_whole_warps():
         with pytest.raises(ValueError, match="mul: .* multiple of the 4096 "
                                              "elements"):
             launch_irm.warp_instructions("mul", census, res)
-    res = _result(3000, dict.fromkeys(babelstream.FUNCTIONS, 0.01))
-    with pytest.raises(ValueError, match="add: .* multiple of the 1024 "
-                                         "elements"):
-        launch_irm.warp_instructions("add", census, res)
-    res = _result(5 * 1024, dict.fromkeys(babelstream.FUNCTIONS, 0.01))
-    assert launch_irm.warp_instructions("triad", census, res) == 9 * 160
+        for name in ("add", "triad"):
+            with pytest.raises(ValueError, match=f"{name}: .* multiple of "
+                                                 f"the 4096 elements"):
+                launch_irm.warp_instructions(name, census, res)
     res = _result(3 * 4096, dict.fromkeys(babelstream.FUNCTIONS, 0.01))
     assert launch_irm.warp_instructions("copy", census, res) == 9 * 3 * 32
-    assert launch_irm.warp_instructions("add", census, res) == 9 * 384
+    assert launch_irm.warp_instructions("add", census, res) == 9 * 3 * 32
+    assert launch_irm.warp_instructions("triad", census, res) == 9 * 3 * 32
     launch_irm.h100_irm(hw, census, res)
 
 
@@ -498,7 +498,7 @@ def test_h100_irm_needs_every_kernel_in_the_census():
                                                  0)}
     with pytest.raises(KeyError, match="stream_mul_f32"):
         launch_irm.h100_irm(hw, census, res)
-    assert stream.THREADS // 32 == 32
+    assert stream.VEC_THREADS // 32 == 32
 
 
 def test_paper_rows_recompute_tables():

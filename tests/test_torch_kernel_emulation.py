@@ -731,31 +731,39 @@ def test_emulated_stream_in_place_chain(cuda_path_on_cpu):
 
 # map_vec (csrc/stream.cu) in layouts the library does not build: several
 # 16-byte vectors a thread in small blocks, as the sweep script
-# instantiates it and as add and triad may take it up
+# instantiates it; op 0 copy, 1 mul, 2 add (x + w), 3 triad (x + s * w)
 MAP_VEC_PROBE = r"""
 #include "stream.cpp"
 namespace {
 template <int kT, int kV, typename T, typename Op>
-__global__ void probe_kernel(const T* a, T* y, long long n, Op op) {
-  map_vec<kT, kV>(a, a, y, n, op);
+__global__ void probe_kernel(const T* x, const T* w, T* y, long long n,
+                             Op op) {
+  map_vec<kT, kV>(x, w, y, n, op);
+}
+template <int kT, int kV, typename T, typename Op>
+int run(Op op, const void* x, const void* w, void* y, long long n) {
+  constexpr int per = kV * 16 / sizeof(T);
+  return launch(probe_kernel<kT, kV, T, Op>, n, kT, per, 0, nullptr,
+                (const T*)x, (const T*)w, (T*)y, n, op);
 }
 template <int kT, int kV, typename T>
-int probe(int mul, const void* a, void* y, float s, long long n) {
-  constexpr int per = kV * 16 / sizeof(T);
-  if (mul)
-    return launch(probe_kernel<kT, kV, T, MulOp>, n, kT, per, 0, nullptr,
-                  (const T*)a, (T*)y, n, MulOp{s});
-  return launch(probe_kernel<kT, kV, T, CopyOp>, n, kT, per, 0, nullptr,
-                (const T*)a, (T*)y, n, CopyOp{});
+int probe(int op, const void* x, const void* w, void* y, float s,
+          long long n) {
+  switch (op) {
+    case 0: return run<kT, kV, T>(CopyOp{}, x, w, y, n);
+    case 1: return run<kT, kV, T>(MulOp{s}, x, w, y, n);
+    case 2: return run<kT, kV, T>(AddOp{}, x, w, y, n);
+    default: return run<kT, kV, T>(TriadOp{s}, x, w, y, n);
+  }
 }
 }  // namespace
-extern "C" int probe_map_vec(int threads, int bf16, int mul, const void* a,
-                             void* y, float s, long long n) {
+extern "C" int probe_map_vec(int threads, int bf16, int op, const void* x,
+                             const void* w, void* y, float s, long long n) {
   if (threads == 32)
-    return bf16 ? probe<32, 4, __nv_bfloat16>(mul, a, y, s, n)
-                : probe<32, 4, float>(mul, a, y, s, n);
-  return bf16 ? probe<64, 2, __nv_bfloat16>(mul, a, y, s, n)
-              : probe<64, 2, float>(mul, a, y, s, n);
+    return bf16 ? probe<32, 4, __nv_bfloat16>(op, x, w, y, s, n)
+                : probe<32, 4, float>(op, x, w, y, s, n);
+  return bf16 ? probe<64, 2, __nv_bfloat16>(op, x, w, y, s, n)
+              : probe<64, 2, float>(op, x, w, y, s, n);
 }
 """
 
@@ -778,7 +786,8 @@ def map_vec_probe(tmp_path_factory):
                     str(d / "probe.cpp")], check=True)
     fn = ctypes.CDLL(str(lib)).probe_map_vec
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                   ctypes.c_longlong]
     fn.restype = ctypes.c_int
     return fn
 
@@ -790,25 +799,32 @@ def map_vec_probe(tmp_path_factory):
 def test_emulated_map_vec_several_vectors(threads, vectors, dtype,
                                           map_vec_probe):
     """map_vec with 4 vectors in 32-thread blocks and 2 in 64-thread ones
-    (512 f32 or 1024 bf16 elements a block): copy and mul bit-identical
-    to the plain versions, also in place, over n = 7 (the tail alone),
+    (512 f32 or 1024 bf16 elements a block): copy, mul, add and triad
+    bit-identical to the plain versions, also in place (add and triad with
+    the output aliasing each input in turn), over n = 7 (the tail alone),
     one whole block, and several blocks with a ragged last one and a
     ragged tail (n % 8 = 1 and 3)."""
     rng = np.random.default_rng(threads + vectors)
     per_block = threads * vectors * 16 // dtype.itemsize
     s = stream_ref.scalar_in(dtype)
+    bf16 = dtype == torch.bfloat16
     for n in (7, per_block, 9009, 5 * per_block + 3):
-        x = torch.from_numpy(rng.standard_normal(n, np.float32)).to(dtype)
-        for mul, want in ((0, stream_ref.copy(x)),
-                          (1, stream_ref.mul(x))):
+        x, w = (torch.from_numpy(rng.standard_normal(n, np.float32))
+                .to(dtype) for _ in range(2))
+        wants = {0: stream_ref.copy(x), 1: stream_ref.mul(x),
+                 2: stream_ref.add(x, w), 3: stream_ref.triad(x, w)}
+        for op, want in wants.items():
             y = torch.zeros_like(x)
-            assert map_vec_probe(threads, dtype == torch.bfloat16, mul,
-                                 x.data_ptr(), y.data_ptr(), s, n) == 0
-            assert torch.equal(y, want), (n, mul)
-            z = x.clone()
-            map_vec_probe(threads, dtype == torch.bfloat16, mul,
-                          z.data_ptr(), z.data_ptr(), s, n)
-            assert torch.equal(z, want), (n, mul, "in place")
+            assert map_vec_probe(threads, bf16, op, x.data_ptr(),
+                                 w.data_ptr(), y.data_ptr(), s, n) == 0
+            assert torch.equal(y, want), (n, op)
+            for alias in ((0, 1) if op >= 2 else (0,)):
+                z = [x.clone(), w.clone()]
+                map_vec_probe(threads, bf16, op, z[0].data_ptr(),
+                              z[1].data_ptr(), z[alias].data_ptr(), s, n)
+                assert torch.equal(z[alias], want), (n, op, "in place",
+                                                     alias)
+                assert torch.equal(z[1 - alias], (x, w)[1 - alias])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -827,6 +843,27 @@ def test_emulated_copy_mul_in_place(shape, dtype, cuda_path_on_cpu):
     y = x.clone()
     assert stream.mul(y, 1.5, out=y) is y and torch.equal(y, want)
     assert stream.copy(y, out=y) is y and torch.equal(y, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 7), (9, 1001)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_emulated_add_triad_in_place(shape, dtype, cuda_path_on_cpu):
+    """add and triad with ``out=`` each input in turn, through the
+    wrappers: the result is the plain version's and the other input is
+    untouched (n = 7: the ragged tail alone; 9009: ragged last block and
+    a 1-element tail)."""
+    rng = np.random.default_rng(sum(shape) + 6)
+    x, w = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dtype) for _ in range(2))
+    for name in ("add", "triad"):
+        fn, want = getattr(stream, name), getattr(stream_ref, name)(x, w)
+        for alias in range(2):
+            z = [x.clone(), w.clone()]
+            assert fn(*z, out=z[alias]) is z[alias]
+            assert torch.equal(z[alias], want), (name, alias)
+            assert torch.equal(z[1 - alias], (x, w)[1 - alias])
 
 
 # dot's ragged shapes: n = 7 (the tail alone), n % 8 = 3 in one block,
@@ -869,19 +906,25 @@ def test_emulated_dot_refuses_misaligned_view(cuda_path_on_cpu):
                        torch.tensor(1024.0))
 
 
-@pytest.mark.parametrize("op", ["copy", "mul"])
+@pytest.mark.parametrize("op", ["copy", "mul", "add", "triad"])
 def test_emulated_copy_mul_refuse_misaligned_views(op, cuda_path_on_cpu):
-    """copy and mul load and store 16 bytes at a time: an input or an
-    ``out=`` 4 bytes past a 16-byte boundary is refused, with no scalar
-    path standing in; aligned tensors of the same values go through."""
+    """copy, mul, add and triad load and store 16 bytes at a time: an
+    input (either input of add and triad) or an ``out=`` 4 bytes past a
+    16-byte boundary is refused, with no scalar path standing in; aligned
+    tensors of the same values go through."""
     fn = getattr(stream, op)
+    two = op in ("add", "triad")
     off = torch.ones(1025)[1:].view(8, 128)
+    ok = torch.ones(8, 128)
+    bad = [(off, ok), (ok, off)] if two else [(off,)]
+    for args in bad:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(*args)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fn(off)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        fn(torch.ones(8, 128), out=off)
+        fn(*((ok, ok) if two else (ok,)), out=off)
     n0 = stream.launch_counts()[op]
-    assert torch.equal(fn(off.clone()), getattr(stream_ref, op)(off))
+    args = (off.clone(), ok) if two else (off.clone(),)
+    assert torch.equal(fn(*args), getattr(stream_ref, op)(*args))
     assert stream.launch_counts()[op] == n0 + 1
 
 

@@ -156,10 +156,10 @@ def test_layout_checks(bad):
 
 def test_dot_passes_and_launch_geometry():
     """dot sums 2^25 products in two launches (2^25 -> 4096 -> 1), each
-    32 elements a thread in blocks of 256 (8192 a block); copy and mul
-    move one 16-byte vector a thread in blocks of 1024 (4096 f32 or 8192
-    bf16 elements a block: 8192 blocks at 2^25 f32); add and triad stay
-    one element a thread in blocks of 1024."""
+    32 elements a thread in blocks of 256 (8192 a block); copy, mul, add
+    and triad move one 16-byte vector (of each input) a thread in blocks
+    of 1024 (4096 f32 or 8192 bf16 elements a block: 8192 blocks at 2^25
+    f32)."""
     assert stream.dot_passes(2 ** 25) == [2 ** 25, 4096]
     assert stream.dot_passes(1000) == [1000]
     assert stream.dot_passes(8193) == [8193, 2]
@@ -168,9 +168,11 @@ def test_dot_passes_and_launch_geometry():
     assert stream.launches("dot", torch.bfloat16, 9009) == [
         ("stream_dot_bf16", 2, 256), ("stream_sum_f32", 1, 256)]
     assert stream.launches("triad", torch.bfloat16, 3000) == [
-        ("stream_triad_bf16", 3, 1024)]
+        ("stream_triad_bf16", 1, 1024)]
     assert stream.launches("add", torch.float32, 2 ** 25) == [
-        ("stream_add_f32", 32768, 1024)]
+        ("stream_add_f32", 8192, 1024)]
+    assert stream.launches("triad", torch.bfloat16, 9009) == [
+        ("stream_triad_bf16", 2, 1024)]
     assert stream.launches("copy", torch.float32, 2 ** 25) == [
         ("stream_copy_f32", 8192, 1024)]
     assert stream.launches("mul", torch.float32, 2 ** 25) == [
@@ -183,8 +185,9 @@ def test_dot_passes_and_launch_geometry():
         ("stream_copy_f32", 1, 1024)]
     assert [stream.block_elements(k, torch.float32) for k in
             ("copy", "mul", "add", "triad", "dot")] == [
-                4096, 4096, 1024, 1024, 8192]
-    assert stream.block_elements("mul", torch.bfloat16) == 8192
+                4096, 4096, 4096, 4096, 8192]
+    assert [stream.block_elements(k, torch.bfloat16) for k in
+            ("mul", "add", "triad")] == [8192, 8192, 8192]
 
 
 def test_dot_alignment_check():
@@ -199,20 +202,30 @@ def test_dot_alignment_check():
     assert torch.equal(stream.dot(a, a), ref.dot(a, a))
 
 
-@pytest.mark.parametrize("op", ["copy", "mul"])
+@pytest.mark.parametrize("op", ["copy", "mul", "add", "triad"])
 def test_copy_mul_alignment_check(op):
-    """The card's copy and mul load and store 16 bytes at a time: a view
-    4 bytes past a 16-byte boundary, as input or as ``out=``, is refused
-    there (the emulated kernel's test drives it through the wrappers);
-    the plain version on the CPU takes any view, also in place."""
+    """The card's copy, mul, add and triad load and store 16 bytes at a
+    time: a view 4 bytes past a 16-byte boundary, as input or as
+    ``out=``, is refused there (the emulated kernel's test drives it
+    through the wrappers); the plain version on the CPU takes any view,
+    also in place (add and triad: ``out=`` each input in turn)."""
     base = torch.arange(1025, dtype=torch.float32)
     stream.check_aligned(op, base[:1024], base[4:])
     with pytest.raises(ValueError, match=f"{op}: arrays must be 16-byte"):
         stream.check_aligned(op, base[:1024], base[1:])
     a = base[1:].view(8, 128)
-    want = getattr(ref, op)(a)
-    assert torch.equal(getattr(stream, op)(a), want)
-    assert getattr(stream, op)(a, out=a) is a and torch.equal(a, want)
+    fn, plain = getattr(stream, op), getattr(ref, op)
+    if op in ("copy", "mul"):
+        want = plain(a)
+        assert torch.equal(fn(a), want)
+        assert fn(a, out=a) is a and torch.equal(a, want)
+        return
+    for which in range(2):
+        x, y = a.clone(), (a * 0.5).clone()
+        want = plain(x, y)
+        assert torch.equal(fn(x, y), want)
+        out = (x, y)[which]
+        assert fn(x, y, out=out) is out and torch.equal(out, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
