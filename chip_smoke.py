@@ -12,14 +12,16 @@ Phases, each failing loudly (non-zero exit, no result line):
   2. kernels — holds each paged-attention kernel against its plain PyTorch
                version on the card (granite-8b and qwen2-0.5b geometry,
                page 16, and page 8 for prefill, ragged lengths up to ~2k
-               tokens, bf16/f32/int8 pools, an empty prefill slot), then
+               tokens, bf16/f32/int8 pools, an empty prefill slot; the
+               split decode kernel also at kv_len on its pieces' and
+               pages' edges, and kv_len 0, which must give exact zeros), then
                times the kernel, the plain version and one library
                yardstick (a gather plus ``scaled_dot_product_attention``,
                never used by the port) at the serving path's shapes,
                beside the least time the card could take for the same
-               work; prints the prefill grid's block count (at least 128)
-               and the redesigned kernels' device time with the host's
-               issue rate out of the way (``device_ms``).
+               work; prints the prefill grid's block count (at least 128),
+               the decode grid's splits, and both kernels' device time
+               with the host's issue rate out of the way (``device_ms``).
   3. serve   — granite-8b at full width and depth (36 layers, bf16,
                random weights from a seeded generator) through
                ``PagedEngine``: 8 requests of 64-300 prompt tokens, 32 new
@@ -49,8 +51,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                the plain side takes the chunked flash reference, among
                them a (608, 64) batch, which 512 does not divide).
      ssm     — the selective-scan kernel against its plain version (f32
-               and bf16; B 1 and 4; N 8 and 16; d_in 128, 1000 and 8192;
-               S 1, 37, 512 and 2048; B and C strided views, as the model
+               and bf16; B 1 and 4; N 8 and 16; d_in 128, 1000, 1001 and
+               8192; S 1, 37, 512 and 2048; B and C strided views, as the model
                passes them).  Then falcon-mamba-7b at full width and depth
                (64 Mamba1 layers, bf16, random weights from a seeded
                generator) through ``ServingEngine``: 4 prompts of 64-500
@@ -64,9 +66,10 @@ Phases, each failing loudly (non-zero exit, no result line):
                against its plain version on the same inputs.  Then
                falcon-mamba (reduced) in
                f32, kernel against plain path, greedy tokens identical;
-               and the kernel and plain version timed at the phase's
-               shape beside the bound (no single PyTorch call computes a
-               selective scan, so no library time).
+               and the kernel (also its ``device_ms``) and plain version
+               timed at the phase's shape beside the bound (no single
+               PyTorch call computes a selective scan, so no library
+               time).
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
                shapes that exercise the bounds guards, ragged last
@@ -97,7 +100,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                clamped.
 
 The line before the last is the kernels summary (JSON), every kernel's
-bound taken against the data sheet's 3.35 TB/s (``bound_ms``).  The log
+bound taken against the data sheet's 3.35 TB/s (``bound_ms``), and
+``device_ms`` for the attention kernels and the scan.  The log
 also gives each kernel's time at the measured ceiling (``copy_rate_ms``):
 the paper's roof, but the rate of the port's own copy kernel, which
 other kernels may beat, so it is no lower bound.  The last line is
@@ -392,12 +396,50 @@ def kernel_phase(torch):
                 log(f"[kernels] {kind:7s} {gname:10s} q={tname:8s} "
                     f"pool={pool:4s} page={pg:2d} max|kernel-plain|="
                     f"{err:.3e} (tol {tol})")
+    errs["decode"] = max(errs["decode"],
+                         paged_split_checks(torch, gen, geoms, pools))
     for tname, (tol, why) in TOL.items():
         log(f"[kernels] tolerance {tname}: rtol=atol={tol} — {why}")
     log("[kernels] empty prefill slot (new_len == 0): exact zeros from the "
         "kernel, as from the Pallas kernel (the plain version softmaxes it "
         "uniformly; excluded from the comparison)")
     return errs
+
+
+def paged_split_checks(torch, gen, geoms, pools):
+    """The split paged decode kernel at its pieces' and pages' edges: B =
+    4 over a 22-page table at page 16 (8 splits per kv head at granite's
+    KV = 8, 22 at qwen's KV = 2), kv_len of 0 (exact zeros), 1, one page,
+    one page and a token, 8 pages (one a piece at 8 splits), 9 pages and
+    a token (pieces 5-7 empty), 9 pages and the full table.  Returns
+    max |kernel - plain|."""
+    from repro_torch.kernels.decode_attention import paged
+    B, page, NB = 4, 16, 22
+    err = 0.0
+    for gname, g in geoms.items():
+        n = paged.splits(NB, B, g["KV"])
+        for tname, q_dtype, pool in pools:
+            tol, _ = TOL[tname]
+            e = 0.0
+            for lens in ([0, 1, page, page + 1],
+                         [8 * page, 8 * page + 1, 9 * page, NB * page]):
+                c = make_case(gen, B=B, T=1, NB=NB, L=2, page=page,
+                              q_dtype=q_dtype, pool=pool, lens=lens, **g)
+                got = run_kernel("decode", c)
+                want = run_plain("decode", c)
+                torch.cuda.synchronize()
+                live = c["lens"] > 0
+                if (got[~live] != 0).any().item():
+                    raise AssertionError(f"{gname} {pool} decode: kv_len == "
+                                         f"0 must give exact zeros")
+                e = max(e, check_close(
+                    f"{gname} {pool} pool, q {tname}, split decode lens="
+                    f"{lens} ({n} splits)", got[live], want[live], tol))
+            err = max(err, e)
+            log(f"[kernels] decode  {gname:10s} q={tname:8s} pool={pool:4s} "
+                f"{n} splits, kv_len on page and piece edges: max|kernel-"
+                f"plain|={e:.3e} (tol {tol}); kv_len 0 exact zeros")
+    return err
 
 
 def timing_phase(torch, serve_lens, serve_base, max_blocks, n_layers):
@@ -442,10 +484,15 @@ def timing_phase(torch, serve_lens, serve_base, max_blocks, n_layers):
             f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} "
             f"(by {bound_by}; live K/V bytes over "
             f"{HBM_BYTES_PER_S / 1e12} TB/s)")
-        if kind == "prefill":
-            dms = device_ms(lambda i: run_kernel(kind, c, layer=i % n_layers))
-            log(f"[timing] prefill kernel device_ms={dms:.4f} (queued ahead "
-                f"of the card; kernel_ms above is the wrapper's issue rate)")
+        dms = device_ms(lambda i: run_kernel(kind, c, layer=i % n_layers))
+        rows[kind]["device_ms"] = dms
+        log(f"[timing] {kind} kernel device_ms={dms:.4f} (queued ahead of "
+            f"the card; kernel_ms above is the wrapper's issue rate)")
+        if kind == "decode":
+            from repro_torch.kernels.decode_attention import paged
+            n = paged.splits(max_blocks, 4, g["KV"])
+            log(f"[timing] decode grid at NB={max_blocks}: {n} splits, "
+                f"{n * g['KV'] * 4} blocks (+ the combine's {g['KV'] * 4})")
     return rows
 
 
@@ -803,10 +850,12 @@ def dense_timing(torch, S):
         shape=f"B={B} T={T} kv_len={T} H={H} KV={KV} D={D}", bytes=nbytes,
         flops=4 * B * T * H * D)
     blocks = decode.grid_blocks(B, T, KV)
+    rows["decode_attention"]["device_ms"] = device_ms(calls[0])
     log(f"[timing] decode_attention grid at B={B} T={T} KV={KV}: "
         f"{decode.splits(T, B, KV)} splits, {blocks} blocks (+ the combine's "
         f"{KV * B}); device_ms (queued ahead of the card): kernel "
-        f"{device_ms(calls[0]):.4f}, SDPA {device_ms(calls[2]):.4f}")
+        f"{rows['decode_attention']['device_ms']:.4f}, SDPA "
+        f"{device_ms(calls[2]):.4f}")
     if blocks < 4 * B * KV:
         raise AssertionError(f"dense decode launches {blocks} blocks, fewer "
                              f"than 4 B KV = {4 * B * KV}")
@@ -827,8 +876,10 @@ def dense_timing(torch, S):
         shape=f"B={B} S=T={Sf} causal H={H} KV={KV} D={D}",
         bytes=2 * B * Sf * H * D * 2 + 2 * B * Sf * KV * D * 2,
         flops=4 * D * B * H * Sf * (Sf + 1) // 2)
+    rows["flash_attention"]["device_ms"] = device_ms(calls[0])
     log(f"[timing] flash_attention device_ms (queued ahead of the card): "
-        f"kernel {device_ms(calls[0]):.4f}, SDPA {device_ms(calls[2]):.4f}")
+        f"kernel {rows['flash_attention']['device_ms']:.4f}, SDPA "
+        f"{device_ms(calls[2]):.4f}")
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
                                                 BF16_FLOPS_PER_S)
@@ -1052,7 +1103,7 @@ def scan_checks(torch):
         for N in (8, 16):
             err = 0.0
             for B in (1, 4):
-                for d_in in (128, 1000, 8192):
+                for d_in in (128, 1000, 1001, 8192):
                     for S in (1, 37, 512, 2048):
                         x, dt, A, Bc, Cc = scan_inputs(gen, B, S, d_in, N,
                                                        dtype)
@@ -1078,7 +1129,8 @@ def scan_checks(torch):
                                                  f"{y.dtype}, {h.dtype}")
             worst = max(worst, err)
             log(f"[ssm] scan q={tname:8s} N={N:2d} B in 1/4, d_in in 128/"
-                f"1000/8192, S in 1/37/512/2048, strided B/C: "
+                f"1000/1001/8192 (1001: x, dt by plain loads), S in "
+                f"1/37/512/2048, strided B/C: "
                 f"max|kernel-plain|={err:.3e} (y rtol {rtol:.3g} atol "
                 f"{atol}; h_final 2e-5)")
     for tname, (rtol, atol, why) in SCAN_TOL.items():
@@ -1351,6 +1403,7 @@ def scan_timing(torch, S):
     sets = [scan_inputs(gen, B, S, d_in, N, torch.bfloat16)
             for _ in range(n_sets)]
     ms = time_ms(lambda i: scan.selective_scan(*sets[i % n_sets]))
+    dms = device_ms(lambda i: scan.selective_scan(*sets[i % n_sets]))
     plain_ms = time_ms(lambda i: mamba1_scan(*sets[i % n_sets]), iters=8,
                        warmup=1)
     elems = B * S * d_in
@@ -1361,11 +1414,12 @@ def scan_timing(torch, S):
              "exps": exps / SFU_EXP_PER_S,
              "flops": flops / F32_FLOPS_PER_S}
     by = max(times, key=times.get)
-    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, device_ms=dms,
                bound_ms=times[by] * 1e3,
                bound_by="bytes" if by == "bytes" else "operations")
     log(f"[timing] selective_scan falcon-mamba-7b bf16 B={B} S={S} "
-        f"d_in={d_in} N={N}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"d_in={d_in} N={N}: kernel_ms={ms:.4f} device_ms={dms:.4f} "
+        f"plain_ms={plain_ms:.4f} "
         f"library_ms=none (no single PyTorch call computes a selective "
         f"scan) bound_ms={row['bound_ms']:.5f} (by {by}: {nbytes} bytes "
         f"over 3.35 TB/s = {times['bytes'] * 1e3:.5f} ms, {exps} exps over "
@@ -1705,7 +1759,8 @@ def main() -> int:
             "replaces": rep, "launches": launches[kind],
             "max_abs_err": errs[kind], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"]})
     for name, (src, rep) in DENSE_KERNELS.items():
         t = d_timing[name]
         cms, _ = bound_ms(t["bytes"], t["flops"], BF16_FLOPS_PER_S, ceiling)
@@ -1716,7 +1771,7 @@ def main() -> int:
             "launches": wb["launches"][name], "max_abs_err": d_errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"]})
     kernels.append({
         "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES, "launches": ssm["launches"],

@@ -1,7 +1,7 @@
-// CUDA-core body of the paged-attention kernels: it serves the decode
-// kernel (paged_decode.cu, every dtype) and the f32 prefill kernel
-// (paged_prefill.cu, q in f32: the parity path); the bf16 prefill runs on
-// the tensor cores (attention_tc.cuh).  One thread block attends one
+// CUDA-core body of the f32 paged prefill kernel (paged_prefill.cu, q in
+// f32: the parity path); the bf16 prefill runs on the tensor cores
+// (attention_tc.cuh) and decode splits its pages across blocks
+// (paged_decode.cu, split_decode.cuh).  One thread block attends one
 // (slot b, kv-head h) over that slot's pages of a stacked
 // (L, num_pages, page, KV, D) pool, all in f32.
 //
@@ -13,8 +13,7 @@
 //
 // Query rows are flattened t-major, as in prefill_paged.py: row r of a
 // (slot, kv-head) is query token r / G, head h*G + r % G, at absolute
-// position base + r / G.  A decode step is the case T = 1,
-// base = kv_len - 1, new_len = kv_len.  Rows are processed in tiles of
+// position base + r / G.  Rows are processed in tiles of
 // ROWS; each tile sweeps the pages in logical order j = 0, 1, ... with
 //
 //   s      = (q . k) * scale, masked to NEG_INF unless
@@ -54,8 +53,8 @@ struct Params {
   const float* k_scale;    // (L, num_pages, page, KV) f32, int8 pools only
   const float* v_scale;
   const int* table;        // (B, NB) physical page ids
-  const int* lens_a;       // decode: kv_len (B,); prefill: base_len (B,)
-  const int* lens_b;       // prefill: new_len (B,); decode: unused
+  const int* lens_a;       // base_len (B,)
+  const int* lens_b;       // new_len (B,)
   int T, H, KV, G;
   int num_pages, page, NB, layer;
   float scale;             // 1 / sqrt(D)
@@ -203,9 +202,9 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
   }
 }
 
-// Launches kernel<QT, KVT, D> for the dtype codes and head dim given.
-// Returns cudaErrorInvalidValue for a combination no kernel was built
-// for (the Python wrapper refuses those before calling).
+// Launches LAUNCH(QT, KVT, D) for the head dim given; returns
+// cudaErrorInvalidValue for a head dim no kernel was built for (the Python
+// wrapper refuses those before calling).
 #define PAGED_DISPATCH_D(QT, KVT)                                           \
   switch (D) {                                                              \
     case 16: return LAUNCH(QT, KVT, 16);                                    \
@@ -214,20 +213,5 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
     case 128: return LAUNCH(QT, KVT, 128);                                  \
     default: return cudaErrorInvalidValue;                                  \
   }
-
-#define PAGED_DISPATCH(q_dtype, kv_dtype)                                   \
-  if (q_dtype == paged::kF32 && kv_dtype == paged::kF32) {                  \
-    PAGED_DISPATCH_D(float, float)                                          \
-  }                                                                         \
-  if (q_dtype == paged::kF32 && kv_dtype == paged::kI8) {                   \
-    PAGED_DISPATCH_D(float, int8_t)                                         \
-  }                                                                         \
-  if (q_dtype == paged::kBF16 && kv_dtype == paged::kBF16) {                \
-    PAGED_DISPATCH_D(__nv_bfloat16, __nv_bfloat16)                          \
-  }                                                                         \
-  if (q_dtype == paged::kBF16 && kv_dtype == paged::kI8) {                  \
-    PAGED_DISPATCH_D(__nv_bfloat16, int8_t)                                 \
-  }                                                                         \
-  return cudaErrorInvalidValue;
 
 }  // namespace paged

@@ -23,22 +23,20 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
-from repro_torch.kernels.decode_attention.paged import HEAD_DIMS, on_cpu
+from repro_torch.kernels.decode_attention.paged import (
+    HEAD_DIMS, SPLIT_TILE, TARGET_BLOCKS, on_cpu)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 KERNEL = Kernel("decode_attention", [_P] * 7 + [_I] * 7 + [_P])
 
-TILE = 32                  # cache positions per tile (csrc kTile)
-TARGET_BLOCKS = 2 * 132    # about two blocks on each of the H100's SMs
-
 
 def splits(T: int, B: int, KV: int) -> int:
     """Blocks per (slot, kv head): enough for ``TARGET_BLOCKS`` in all,
     at most one per tile of the cache.  A function of the static shape
     only, so that the launch does not depend on the device's lengths."""
-    return max(1, min(-(-T // TILE), TARGET_BLOCKS // (B * KV)))
+    return max(1, min(-(-T // SPLIT_TILE), TARGET_BLOCKS // (B * KV)))
 
 
 def grid_blocks(B: int, T: int, KV: int) -> int:

@@ -6,7 +6,13 @@ and its wrapper.
 The wrapper takes the plain version (``ref.paged_decode_attention_ref``)
 only when every tensor lies on the CPU.  For CUDA tensors it checks the
 arguments, launches the kernel on the current stream, or raises — it
-never falls back.
+never falls back.  The kernel splits each slot's live pages across
+``splits(NB, B, KV)`` blocks per kv head and merges their partials in a
+second launch of the same C call; the wrapper allocates the partials'
+scratch and reads nothing back from the card (no host sync), so a decode
+step that calls it can be captured in a CUDA graph.  A slot with
+``kv_len == 0`` gives exact zeros from the kernel and a uniform softmax
+from the plain version.
 """
 from __future__ import annotations
 
@@ -22,19 +28,43 @@ from repro_torch.kernels.decode_attention.ref import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 KERNEL = Kernel("paged_decode_attention",
-                [_P] * 8 + [_I] * 10 + [_P])
+                [_P] * 9 + [_I] * 11 + [_P])
 
 HEAD_DIMS = (16, 32, 64, 128)       # the head dims the kernels are built for
 SMEM_LIMIT = 232448                 # bytes of shared memory a block may use
-ROWS = {"decode": 8, "prefill": 64}  # CUDA-core body: rows per tile (kRows)
+PREFILL_ROWS = 64     # f32 prefill, CUDA-core body: rows per tile (kRows)
 TC_ROWS = 32          # bf16 prefill, tensor-core body: rows per block
 KV_TILE, KV_PAD = 64, 8   # its K/V positions per tile, bf16 row padding
+# the split decode body (csrc/split_decode.cuh): positions per tile, tiles
+# in the cp.async ring, query rows per row tile
+SPLIT_TILE, SPLIT_STAGES, SPLIT_ROWS = 32, 3, 16
+TARGET_BLOCKS = 2 * 132    # about two blocks on each of the H100's SMs
+
+
+def splits(NB: int, B: int, KV: int) -> int:
+    """Blocks per (slot, kv head) of the paged decode kernel: enough for
+    ``TARGET_BLOCKS`` in all, at most one per page of the table.  A
+    function of the static shape only, so that the launch does not depend
+    on the device's lengths."""
+    return max(1, min(NB, TARGET_BLOCKS // (B * KV)))
 
 
 def smem_bytes(D: int, rows: int, page: int) -> int:
     """Dynamic shared memory of one block of the CUDA-core body (csrc:
-    paged::smem_bytes): decode, and prefill with f32 q."""
+    paged::smem_bytes): prefill with f32 q."""
     return 4 * (rows * D + page * (D + 1) + page * D + rows * page + 3 * rows)
+
+
+def decode_smem_bytes(D: int, G: int, kv_dtype) -> int:
+    """Dynamic shared memory of one block of the split decode kernel (csrc:
+    splitkv::smem_bytes): the K/V ring of 16-byte padded rows (and the
+    int8 rows' scales), the query rows, their probabilities and
+    corrections.  Independent of the page."""
+    e = torch.empty((), dtype=kv_dtype).element_size()
+    ring = e * SPLIT_STAGES * 2 * SPLIT_TILE * (D + 16 // e)
+    scales = 4 * SPLIT_STAGES * 2 * SPLIT_TILE if e == 1 else 0
+    rows = min(G, SPLIT_ROWS)
+    return ring + scales + 4 * (rows * D + rows * SPLIT_TILE + rows)
 
 
 def tc_smem_bytes(D: int, rows: int, int8: bool) -> int:
@@ -44,11 +74,14 @@ def tc_smem_bytes(D: int, rows: int, int8: bool) -> int:
     return n + (4 * KV_TILE * D + 16 * KV_TILE if int8 else 0)
 
 
-def block_smem_bytes(kind: str, q_dtype, kv_dtype, D: int, page: int) -> int:
+def block_smem_bytes(kind: str, q_dtype, kv_dtype, D: int, page: int,
+                     G: int) -> int:
     """Dynamic shared memory of one block of the kernel a call launches."""
-    if kind == "prefill" and q_dtype == torch.bfloat16:
+    if kind == "decode":
+        return decode_smem_bytes(D, G, kv_dtype)
+    if q_dtype == torch.bfloat16:
         return tc_smem_bytes(D, TC_ROWS, kv_dtype == torch.int8)
-    return smem_bytes(D, ROWS[kind], page)
+    return smem_bytes(D, PREFILL_ROWS, page)
 
 
 def on_cpu(*tensors) -> bool:
@@ -123,7 +156,8 @@ def check_layout(kind: str, q, k_pool, v_pool, block_table, lens,
             raise ValueError(f"{kind}: lengths must be (B,) int32")
     if not 0 <= int(layer) < L:
         raise ValueError(f"{kind}: layer {layer} outside [0, {L})")
-    if block_smem_bytes(kind, q.dtype, k_pool.dtype, D, page) > SMEM_LIMIT:
+    if block_smem_bytes(kind, q.dtype, k_pool.dtype, D, page,
+                        H // KV) > SMEM_LIMIT:
         raise ValueError(f"{kind}: page {page} needs more shared memory "
                          f"than a block has")
     return B, T, H, KV, D, num_pages, page, block_table.shape[1]
@@ -144,7 +178,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     physical page ids (0 = the null page); kv_len (B,) int32; layer — the
     pool layer; k_scale, v_scale — (L, num_pages, page, KV) f32 row scales
     of int8 pools; pages_per_step — accepted, changes nothing (see
-    csrc/paged_decode.cu).  Returns (B, 1, H, D) in q's dtype."""
+    csrc/paged_decode.cu).  Returns (B, 1, H, D) in q's dtype.  On the
+    card q and the pools must start on a 16-byte boundary (the kernel
+    copies 16 bytes at a time); torch's allocations always do."""
     if pages_per_step < 1:
         raise ValueError("pages_per_step must be >= 1")
     if on_cpu(q, k_pool, v_pool, block_table, kv_len, k_scale, v_scale):
@@ -157,12 +193,18 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         k_scale, v_scale)
     if T != 1:
         raise ValueError("paged decode takes one query token per slot")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged decode: q and the pools must be 16-byte "
+                         "aligned (the kernel copies 16 bytes at a time)")
+    n = splits(NB, B, KV)
     out = torch.empty_like(q)
+    part = torch.empty(B * H * n * (D + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         KERNEL(out.data_ptr(), q.data_ptr(), k_pool.data_ptr(),
                v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
-               block_table.data_ptr(), kv_len.data_ptr(), B, H, KV, D,
-               num_pages, page, NB, int(layer), DTYPE_CODES[q.dtype],
-               DTYPE_CODES[k_pool.dtype],
+               block_table.data_ptr(), kv_len.data_ptr(), part.data_ptr(),
+               B, H, KV, D, num_pages, page, NB, int(layer), n,
+               DTYPE_CODES[q.dtype], DTYPE_CODES[k_pool.dtype],
                torch.cuda.current_stream(q.device).cuda_stream)
     return out

@@ -24,9 +24,16 @@ from repro_torch.kernels.ssm_scan.ref import mamba1_scan
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-KERNEL = Kernel("selective_scan", [_P] * 7 + [_I] * 4 + [_L] * 4 + [_I, _P])
+KERNEL = Kernel("selective_scan",
+                [_P] * 7 + [_I] * 4 + [_L] * 4 + [_I] * 3 + [_P])
 
 STATE_SIZES = (8, 16)               # N the kernel is instantiated for
+# lanes of a warp that share each channel's N states, of the 1, 2 and 4
+# the kernel is instantiated for: on the H100 1 and 2 run within a few per
+# cent of each other and 4 a quarter slower (scripts/
+# torch_kernel_profile.py); the result does not depend on it beyond the
+# order of y's sum over the states
+LANES = 2
 
 
 def scan_layout(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -72,6 +79,14 @@ def check_scan(x, dt, A, Bc, Cc) -> Tuple[int, int, int, int]:
     return scan_layout(x, dt, A, Bc, Cc)
 
 
+def copies_16_bytes(x: torch.Tensor, dt: torch.Tensor) -> bool:
+    """Whether the kernel copies x's and dt's tiles 16 bytes at a time:
+    both start on a 16-byte boundary and a row of d_in elements is a
+    multiple of 16 bytes.  Otherwise it reads them with plain loads."""
+    return (x.shape[-1] * x.element_size()) % 16 == 0 and \
+        x.data_ptr() % 16 == 0 and dt.data_ptr() % 16 == 0
+
+
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bc: torch.Tensor, Cc: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,6 +102,6 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         KERNEL(y.data_ptr(), h.data_ptr(), x.data_ptr(), dt.data_ptr(),
                A.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), B, S, d_in, N,
                Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1),
-               DTYPE_CODES[x.dtype],
+               LANES, int(copies_16_bytes(x, dt)), DTYPE_CODES[x.dtype],
                torch.cuda.current_stream(x.device).cuda_stream)
     return y, h

@@ -2,8 +2,9 @@
 plain versions.
 
 The CUDA kernels (``src/repro_torch/csrc/*.cu``: paged attention, dense
-decode attention with its split-KV combine, flash attention, BabelStream's
-five and the Mamba1 selective scan) build only with nvcc, on the card.
+and paged decode attention split over their positions with the combine
+they share, flash attention, BabelStream's five and the Mamba1 selective
+scan) build only with nvcc, on the card.
 Here the same sources are compiled with g++ against small stand-ins for
 ``cuda_runtime.h`` and ``cuda_bf16.h``: each thread block runs as many
 ``std::thread``s as its launch asks for (128 for the paged, decode and
@@ -23,8 +24,9 @@ and ``__syncwarp`` are per warp too.  The kernels are then driven through
 the real wrappers — their argument checks, ctypes marshalling and launch
 counters — on CPU tensors, and ``models.attention.attention`` through
 its kernel route.  This checks the kernels' indexing, masking, row
-tiling, split pieces and their combine, fragment layouts, online softmax,
-the dot reduction chain and its ragged tail, and the scan's strided B/C
+tiling, split pieces (of a window, or of pages found through the block
+table) and their combine, fragment layouts, online softmax, the dot
+reduction chain and its ragged tail, and the scan's lanes, strided B/C
 and ragged tiles before they reach the card; what
 nvcc accepts, and the kernels' speed, only ``chip_smoke.py`` on the card
 can show.
@@ -507,6 +509,109 @@ def test_emulated_decode_at_page_boundaries(cuda_path_on_cpu):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+# the paged decode kernel's pools: (q dtype, pool); int8 pools dequantize
+# in f32 under either q
+PAGED_POOLS = [(torch.float32, "f32"), (torch.bfloat16, "bf16"),
+               (torch.float32, "int8"), (torch.bfloat16, "int8")]
+
+
+def _paged_decode_case(seed, B, H, KV, D, page, NB, q_dtype, pool, lens):
+    """One-token q and a 2-layer pool whose pages are scattered through a
+    random table; kv_len as given."""
+    q, kp, vp, tbl, _, _, _, ks, vs = _case(
+        seed, B, 1, H, KV, D, page, NB, 2,
+        torch.float32 if pool == "int8" else q_dtype, pool == "int8")
+    return (q.to(q_dtype), kp, vp, tbl, torch.tensor(lens, dtype=torch.int32),
+            ks, vs)
+
+
+@pytest.mark.parametrize("q_dtype,pool", PAGED_POOLS,
+                         ids=lambda x: str(x).replace("torch.", ""))
+@pytest.mark.parametrize("G", [4, 7])
+def test_emulated_paged_decode_across_splits_and_pages(G, q_dtype, pool,
+                                                       cuda_path_on_cpu):
+    """B x KV = 12 leaves 22 splits of a 40-page table (page 4): kv_len
+    of one token, one page, one page and a token, 100 (25 live pages, one
+    or two a piece, pieces 13-21 empty) and the full table (two pages a
+    piece), against the plain version; a slot with kv_len == 0 gives
+    exact zeros.  G = 4 (granite-8b) and 7 (qwen2-0.5b)."""
+    B, KV, D, page, NB = 6, 2, 32, 4, 40
+    assert paged.splits(NB, B, KV) == 22
+    lens = [1, page, page + 1, 100, NB * page, 0]
+    q, kp, vp, tbl, kv_len, ks, vs = _paged_decode_case(
+        G + len(pool), B, G * KV, KV, D, page, NB, q_dtype, pool, lens)
+    tol = TOL[q_dtype]
+    n0 = paged.KERNEL.launches
+    got = paged.paged_decode_attention(q, kp, vp, tbl, kv_len, 1,
+                                       k_scale=ks, v_scale=vs)
+    want = paged_decode_attention_ref(q, kp, vp, tbl, kv_len, 1, ks, vs)
+    assert got.dtype == q_dtype and (got[-1] == 0).all()
+    torch.testing.assert_close(got[:-1].float(), want[:-1].float(),
+                               rtol=tol, atol=tol)
+    assert paged.KERNEL.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_emulated_paged_decode_online_softmax_across_tiles(dtype,
+                                                           cuda_path_on_cpu):
+    """B x KV = 33 leaves 8 splits of a 56-page table (page 16): the full
+    table gives pieces of 7 pages, four 32-position tiles that straddle
+    pages, so the online softmax carries m, l and acc across tiles and
+    the 3-stage cp.async ring reuses its stages; 600 tokens give pieces
+    of 5 pages and a shorter last one, and 37 tokens leave pieces 3-7
+    empty."""
+    B, H, KV, D, page, NB = 3, 44, 11, 16, 16, 56
+    assert paged.splits(NB, B, KV) == 8
+    q, kp, vp, tbl, kv_len, _, _ = _paged_decode_case(
+        57, B, H, KV, D, page, NB, dtype, "f32" if dtype == torch.float32
+        else "bf16", [NB * page, 600, 37])
+    got = paged.paged_decode_attention(q, kp, vp, tbl, kv_len)
+    want = paged_decode_attention_ref(q, kp, vp, tbl, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_emulated_paged_decode_splits_follow_static_shapes(
+        cuda_path_on_cpu, monkeypatch):
+    """The split count and the scratch the wrapper hands the kernel depend
+    on (NB, B, KV) only: every kv_len, from all zeros to the full table,
+    launches the same grid."""
+    calls = []
+    monkeypatch.setattr(paged.KERNEL, "_fn",
+                        lambda *a: calls.append(a) or 0)
+    B, H, KV, D, page, NB = 4, 32, 8, 16, 16, 22
+    for lens in ([0] * B, [1, 80, 316, 200], [NB * page] * B):
+        q, kp, vp, tbl, kv_len, _, _ = _paged_decode_case(
+            3, B, H, KV, D, page, NB, torch.float32, "f32", lens)
+        paged.paged_decode_attention(q, kp, vp, tbl, kv_len)
+    assert paged.splits(NB, B, KV) == 8
+    assert {a[17] for a in calls} == {8}             # the splits argument
+    assert paged.block_smem_bytes("decode", torch.bfloat16, torch.bfloat16,
+                                  128, 16, 4) == \
+        paged.block_smem_bytes("decode", torch.bfloat16, torch.bfloat16,
+                               128, 1, 4)
+
+
+def test_emulated_paged_decode_refuses_misaligned_pool(cuda_path_on_cpu):
+    """The kernel copies K and V rows 16 bytes at a time: a pool view 4
+    bytes past a 16-byte boundary is refused, not read another way, and
+    the same values in an aligned pool go through."""
+    q, kp, vp, tbl, kv_len, _, _ = _paged_decode_case(
+        5, 2, 4, 2, 16, 4, 3, torch.float32, "f32", [5, 12])
+    shifted = torch.zeros(kp.numel() + 1)[1:].view(kp.shape)
+    shifted.copy_(kp)
+    n0 = paged.KERNEL.launches
+    for k, v in ((shifted, vp), (kp, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            paged.paged_decode_attention(q, k, v, tbl, kv_len)
+    assert paged.KERNEL.launches == n0
+    torch.testing.assert_close(
+        paged.paged_decode_attention(q, shifted.clone(), vp, tbl, kv_len),
+        paged_decode_attention_ref(q, kp, vp, tbl, kv_len),
+        rtol=2e-5, atol=2e-5)
+
+
 def _dense(seed, B, S, T, H, KV, D, dtype):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dtype)
@@ -942,6 +1047,81 @@ SCAN_CASES = [(2, 70, 128, 8, torch.float32),
 # both sides from the same upcast inputs: 2e-5 in either dtype.
 SCAN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7 + 2e-5,
                                                           2e-5)}
+
+
+def _scan_inputs(rng, B, S, d_in, N, dtype):
+    """x, dt, A and B, C as strided column slices of one (B, S, 4 + 2N)
+    tensor, as the model passes them (8-byte offsets in f32)."""
+    x = torch.from_numpy(rng.standard_normal((B, S, d_in), np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, d_in), np.float32)) * 0.5 - 1.0)
+    A = -torch.exp(torch.from_numpy(rng.standard_normal((d_in, N),
+                                                        np.float32)) * 0.3)
+    dbc = torch.from_numpy(rng.standard_normal((B, S, 4 + 2 * N),
+                                               np.float32)).to(dtype)
+    return x.to(dtype), dt.to(dtype), A, dbc[..., 4:4 + N], dbc[..., 4 + N:]
+
+
+def _check_scan(x, dt, A, Bc, Cc):
+    """The kernel against the plain version with B and C strided and
+    contiguous; returns the number of launches."""
+    rtol, atol = SCAN_TOL[x.dtype]
+    want_y, want_h = mamba1_scan(x, dt, A, Bc, Cc)
+    n0 = scan.KERNEL.launches
+    for b, c in ((Bc, Cc), (Bc.contiguous(), Cc.contiguous())):
+        y, h = scan.selective_scan(x, dt, A, b, c)
+        assert y.dtype == x.dtype and h.dtype == torch.float32
+        torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol,
+                                   atol=atol)
+        torch.testing.assert_close(h, want_h, rtol=2e-5, atol=2e-5)
+    return scan.KERNEL.launches - n0
+
+
+# (B, S, d_in, N, dtype, lanes, 16-byte tiles): one lane a channel over
+# five 32-step tiles (the 3-stage ring reuses its stages); 2 lanes at N = 8
+# with 200-byte bf16 rows (plain loads) over two 64-channel blocks, the
+# last part-empty; 4 lanes (the wrapper's) at N = 16 over seven 32-channel
+# blocks, the last part-empty; 4 lanes at N = 8 (2 states a lane)
+SCAN_LANE_CASES = [(2, 150, 72, 16, torch.float32, 1, True),
+                   (1, 150, 100, 8, torch.bfloat16, 2, False),
+                   (2, 99, 200, 16, torch.bfloat16, 4, True),
+                   (1, 130, 48, 8, torch.float32, 4, True)]
+
+
+@pytest.mark.parametrize("case", SCAN_LANE_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_emulated_selective_scan_lanes_and_tiles(case, cuda_path_on_cpu,
+                                                monkeypatch):
+    """Each channel's state split over 1, 2 and 4 lanes, y's sum over them
+    by __shfl_xor_sync; S not a multiple of the tile and d_in not a
+    multiple of the block; x and dt tiles by 16-byte cp.async or plain
+    loads; strided and contiguous B/C; the same tolerances."""
+    B, S, d_in, N, dtype, lanes, vec = case
+    monkeypatch.setattr(scan, "LANES", lanes)
+    x, dt, A, Bc, Cc = _scan_inputs(np.random.default_rng(S + d_in), B, S,
+                                    d_in, N, dtype)
+    assert scan.copies_16_bytes(x, dt) == vec
+    assert _check_scan(x, dt, A, Bc, Cc) == 2
+
+
+def test_emulated_selective_scan_misaligned_rows_take_plain_loads(
+        cuda_path_on_cpu, monkeypatch):
+    """x 4 bytes past a 16-byte boundary: its tiles cannot be copied 16
+    bytes at a time, so the kernel reads them with plain loads and gives
+    the same result; a lane count the kernel is not built for is refused
+    by the C entry, and nothing launches."""
+    x, dt, A, Bc, Cc = _scan_inputs(np.random.default_rng(6), 2, 40, 64, 16,
+                                    torch.float32)
+    shifted = torch.zeros(x.numel() + 1)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert scan.copies_16_bytes(x, dt) and \
+        not scan.copies_16_bytes(shifted, dt)
+    assert _check_scan(shifted, dt, A, Bc, Cc) == 2
+    monkeypatch.setattr(scan, "LANES", 3)
+    n0 = scan.KERNEL.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        scan.selective_scan(x, dt, A, Bc, Cc)
+    assert scan.KERNEL.launches == n0
 
 
 @pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "-".join(

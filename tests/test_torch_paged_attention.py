@@ -196,12 +196,21 @@ def test_prefill_grid_and_shared_memory_follow_the_kernels():
     assert prefill_paged.grid_blocks(4, 32, 32, 8, torch.float32) == 32
     assert prefill_paged.grid_blocks(2, 20, 14, 2, torch.bfloat16) == 20
     bf = {paged.block_smem_bytes("prefill", torch.bfloat16, torch.bfloat16,
-                                 128, pg) for pg in (1, 16, 2048)}
+                                 128, pg, 4) for pg in (1, 16, 2048)}
     assert bf == {2 * (32 * 136 + 4 * 64 * 136)}
     assert paged.block_smem_bytes("prefill", torch.bfloat16, torch.int8,
-                                  128, 16) == max(bf) + 4 * 64 * 128 + 16 * 64
-    assert paged.block_smem_bytes("decode", torch.bfloat16, torch.bfloat16,
-                                  128, 16) == paged.smem_bytes(128, 8, 16)
+                                  128, 16, 4) == \
+        max(bf) + 4 * 64 * 128 + 16 * 64
+    # split decode: a 3-stage ring of 32 K and 32 V rows padded by 16
+    # bytes (int8: and their f32 scales), then G query rows, their 32
+    # probabilities and corrections in f32, whatever the page
+    for pg in (1, 16, 2048):
+        assert paged.block_smem_bytes("decode", torch.bfloat16,
+                                      torch.bfloat16, 128, pg, 4) == \
+            3 * 2 * 32 * 136 * 2 + 4 * (4 * 128 + 4 * 32 + 4)
+    assert paged.block_smem_bytes("decode", torch.float32, torch.int8, 64,
+                                  16, 7) == \
+        3 * 2 * 32 * 80 + 3 * 2 * 32 * 4 + 4 * (7 * 64 + 7 * 32 + 7)
     L, P, page, KV, D = 1, 3, 2048, 2, 16
     for dtype, refused in ((torch.float32, True), (torch.bfloat16, False)):
         a = _layout_args(q=torch.zeros(2, 3, 4, D, dtype=dtype),
@@ -215,6 +224,19 @@ def test_prefill_grid_and_shared_memory_follow_the_kernels():
                 paged.check_layout(*args)
         else:
             assert paged.check_layout(*args)[6] == page
+
+
+def test_paged_decode_splits_depend_on_static_shapes_only():
+    """About two blocks per SM over the grid (splits, KV, B), at most one
+    split per page of the table: 8 at the serving shape (NB ~ 22, B = 4,
+    KV = 8: 256 blocks), 22 at qwen2-0.5b's B = 6, KV = 2, one when the
+    table holds one page."""
+    assert paged.splits(22, 4, 8) == 8
+    assert paged.splits(22, 4, 8) * 8 * 4 == 256
+    assert paged.splits(131, 6, 2) == 22
+    assert paged.splits(1, 4, 8) == 1
+    assert paged.splits(5, 1, 1) == 5
+    assert paged.splits(400, 64, 64) == 1
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
