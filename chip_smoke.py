@@ -10,9 +10,12 @@ Phases, each failing loudly (non-zero exit, no result line):
                nvcc and prints the build time and the card's name and
                power limit.
   2. kernels — holds each paged-attention kernel against its plain PyTorch
-               version on the card (granite-8b and qwen2-0.5b geometry,
-               page 16, and page 8 for prefill, ragged lengths up to ~2k
-               tokens, bf16/f32/int8 pools, an empty prefill slot; the
+               version on the card (granite-8b, qwen2-0.5b, granite-20b
+               (48 heads over one KV head) and phi4-mini geometry, page
+               16, and page 8 for prefill, ragged lengths up to ~2k
+               tokens, bf16/f32/int8 pools, an empty prefill slot, tables
+               that alias another slot's pages with a prefill base and a
+               decode length that are not page multiples; the
                split decode kernel also at kv_len on its pieces' and
                pages' edges, and kv_len 0, which must give exact zeros), then
                times the kernel, the plain version and one library
@@ -28,7 +31,22 @@ Phases, each failing loudly (non-zero exit, no result line):
                tokens each, greedy.  Both kernels' launch counters must
                rise on this path, and one prefill chunk's and one decode
                step's logits on the kernel path are held against the plain
-               path.
+               path.  Sharing is off here (the JAX launcher's
+               ``--no-prefix-sharing`` path).
+     share   — the same model and weights through ``PagedEngine`` with
+               the default ServeConfig (prefix sharing and retention on),
+               max_batch 4, page 16, prefill chunks of 32: a 200-token
+               system prompt (12 pages and 8 tokens) behind 8 tails of
+               16-120 tokens, then 4 exact repeats after the drain, 32
+               new tokens each.  Every request gets 32 in-vocab tokens;
+               shared tokens, copy-on-write copies and retained
+               adoptions are all > 0; ``kv.check()`` and the prefix
+               index's check pass after every tick; fewer prefill chunks
+               than the same traffic with sharing off; a live sharer's
+               and a retained adopter's first-token logits are within
+               8 bf16 ulps of their prompts served alone with sharing
+               off; and one ``defrag()`` mid-run changes no token and no
+               bit of those logits.
      whole-batch — the same model and weights through ``ServingEngine``
                (lockstep whole-batch serving): 4 prompts of 64-500 tokens,
                32 new tokens, greedy.  The flash kernel must run for every
@@ -46,7 +64,9 @@ Phases, each failing loudly (non-zero exit, no result line):
                after it timed at the whole-batch path's shapes beside
                their bounds and SDPA.
   4. parity  — qwen2-0.5b (reduced) in f32, kernel path against plain path:
-               greedy tokens identical, through the engine and through
+               greedy tokens identical, through the engine (sharing and
+               retention on, shared-prefix traffic and repeats; equal
+               sharing counters) and through
                ``ServingEngine`` (prompts of multiples of 32 tokens, so
                the plain side takes the chunked flash reference, among
                them a (608, 64) batch, which 512 does not divide).
@@ -238,9 +258,11 @@ def check_close(what, got, want, tol) -> float:
 # ---------------------------------------------------------------------------
 
 def make_case(gen, *, B, T, H, KV, D, page, NB, L, q_dtype, pool,
-              lens, base=None):
+              lens, base=None, alias=0):
     """Random paged-attention inputs on the card: pools with every slot's
-    pages scattered through a random permutation, ragged lengths."""
+    pages scattered through a random permutation, ragged lengths.
+    ``alias`` > 0 maps slot 1's first ``alias`` table entries to slot 0's
+    pages, as prefix sharing does."""
     import torch
     from repro_torch.models.kv_quant import quantize_rows
     dev = "cuda"
@@ -257,6 +279,8 @@ def make_case(gen, *, B, T, H, KV, D, page, NB, L, q_dtype, pool,
         kp, vp = kp.to(q_dtype), vp.to(q_dtype)
     perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
     table = perm[:B * NB].reshape(B, NB).to(torch.int32)
+    if alias:
+        table[1, :alias] = table[0, :alias]
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     base = None if base is None else torch.tensor(base, dtype=torch.int32,
                                                   device=dev)
@@ -349,12 +373,18 @@ def work(kind, c):
     return nbytes, 4 * attended * H * D
 
 
+# the paged kernels' geometries: the dense archs the port serves
+PAGED_GEOMS = {"granite-8b": dict(H=32, KV=8, D=128),
+               "qwen2-0.5b": dict(H=14, KV=2, D=64),
+               "granite-20b": dict(H=48, KV=1, D=128),
+               "phi4-mini-3.8b": dict(H=24, KV=8, D=128)}
+
+
 def kernel_phase(torch):
     """Kernels against their plain versions; returns {kind: max_abs_err}."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
-    geoms = {"granite-8b": dict(H=32, KV=8, D=128),
-             "qwen2-0.5b": dict(H=14, KV=2, D=64)}
+    geoms = PAGED_GEOMS
     pools = [("bfloat16", torch.bfloat16, "bf16"),
              ("float32", torch.float32, "f32"),
              ("bfloat16", torch.bfloat16, "int8"),
@@ -363,23 +393,33 @@ def kernel_phase(torch):
     lens = [2093, 17, 1024, 700]                 # ragged, up to ~2k
     base = [2061, 0, 130, 0]                     # prefill: chunk of 32
     grants = [32, 17, 5, 0]                      # ... slot 3 is EMPTY
+    # aliased tables: slot 1's first 12 pages are slot 0's, as after a
+    # share of 200 tokens (12 pages and 8 rows, the 13th page copied on
+    # write); its prefill chunk starts at 200, not a page multiple
+    alias_lens = [2093, 209, 1024, 700]
+    alias_base = [2061, 200, 130, 0]
     errs = {"decode": 0.0, "prefill": 0.0}
-    # (kind, page, NB): decode and prefill at the serving page, and prefill
-    # at page 8, whose 64-position tiles span eight pages each
-    runs = [("decode", page, NB), ("prefill", page, NB),
-            ("prefill", 8, 2 * NB)]
+    # (kind, page, NB, aliased pages): decode and prefill at the serving
+    # page, prefill at page 8, whose 64-position tiles span eight pages
+    # each, and both at the serving page on aliased tables
+    runs = [("decode", page, NB, 0), ("prefill", page, NB, 0),
+            ("prefill", 8, 2 * NB, 0), ("decode", page, NB, 12),
+            ("prefill", page, NB, 12)]
     for gname, g in geoms.items():
         for tname, q_dtype, pool in pools:
             tol, _ = TOL[tname]
-            for kind, pg, nb in runs:
+            for kind, pg, nb, alias in runs:
                 if kind == "decode":
                     c = make_case(gen, B=B, T=1, NB=nb, L=L, page=pg,
-                                  q_dtype=q_dtype, pool=pool, lens=lens, **g)
+                                  q_dtype=q_dtype, pool=pool,
+                                  lens=alias_lens if alias else lens,
+                                  alias=alias, **g)
                 else:
+                    b = alias_base if alias else base
                     c = make_case(gen, B=B, T=T, NB=nb, L=L, page=pg,
                                   q_dtype=q_dtype, pool=pool,
-                                  lens=[b + n for b, n in zip(base, grants)],
-                                  base=base, **g)
+                                  lens=[x + n for x, n in zip(b, grants)],
+                                  base=b, alias=alias, **g)
                 got = run_kernel(kind, c, pages_per_step=3)
                 want = run_plain(kind, c)
                 torch.cuda.synchronize()
@@ -390,12 +430,14 @@ def kernel_phase(torch):
                         raise AssertionError(
                             f"{gname} {pool} prefill: the empty slot "
                             f"(new_len == 0) must be exact zeros")
-                err = check_close(f"{gname} {pool} pool, q {tname}, {kind}",
-                                  got[live], want[live], tol)
+                what = "aliased" if alias else "distinct"
+                err = check_close(f"{gname} {pool} pool, q {tname}, {kind}, "
+                                  f"{what} tables", got[live], want[live],
+                                  tol)
                 errs[kind] = max(errs[kind], err)
-                log(f"[kernels] {kind:7s} {gname:10s} q={tname:8s} "
-                    f"pool={pool:4s} page={pg:2d} max|kernel-plain|="
-                    f"{err:.3e} (tol {tol})")
+                log(f"[kernels] {kind:7s} {gname:14s} q={tname:8s} "
+                    f"pool={pool:4s} page={pg:2d} {what:8s} tables "
+                    f"max|kernel-plain|={err:.3e} (tol {tol})")
     errs["decode"] = max(errs["decode"],
                          paged_split_checks(torch, gen, geoms, pools))
     for tname, (tol, why) in TOL.items():
@@ -403,6 +445,8 @@ def kernel_phase(torch):
     log("[kernels] empty prefill slot (new_len == 0): exact zeros from the "
         "kernel, as from the Pallas kernel (the plain version softmaxes it "
         "uniformly; excluded from the comparison)")
+    log("[kernels] aliased tables: slot 1 maps slot 0's first 12 pages; "
+        "decode at kv_len 209, prefill from base 200 (not page multiples)")
     return errs
 
 
@@ -436,7 +480,7 @@ def paged_split_checks(torch, gen, geoms, pools):
                     f"{gname} {pool} pool, q {tname}, split decode lens="
                     f"{lens} ({n} splits)", got[live], want[live], tol))
             err = max(err, e)
-            log(f"[kernels] decode  {gname:10s} q={tname:8s} pool={pool:4s} "
+            log(f"[kernels] decode  {gname:14s} q={tname:8s} pool={pool:4s} "
                 f"{n} splits, kv_len on page and piece edges: max|kernel-"
                 f"plain|={e:.3e} (tol {tol}); kv_len 0 exact zeros")
     return err
@@ -522,6 +566,8 @@ def serve_phase(torch, decode_kernel, prefill_kernel):
     prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
                for n in prompt_lens]
     new_tokens = 32
+    # sharing off: the JAX launcher's --no-prefix-sharing path (the
+    # share phase serves the defaults)
     scfg = ServeConfig(max_batch=4, max_seq=int(prompt_lens.max())
                        + new_tokens + 16, max_new_tokens=new_tokens,
                        page_size=16, prefill_chunk_tokens=32,
@@ -563,6 +609,193 @@ def serve_phase(torch, decode_kernel, prefill_kernel):
           "max_blocks": engine.kv.max_blocks, "n_layers": cfg.n_layers}
     del engine
     return launches, n_out / dt, sv, cfg, params
+
+
+SHARE_PAGE, SHARE_CHUNK = 16, 32
+
+
+def share_traffic(rng, vocab):
+    """The share phase's traffic: a 200-token system prompt (12 pages and
+    8 tokens) behind 8 tails of 16-120 tokens, then a second wave that
+    repeats 4 of the first wave's prompts exactly."""
+    import numpy as np
+    sys_prompt = rng.randint(0, vocab, size=200)
+    first = [np.concatenate([sys_prompt, rng.randint(0, vocab, size=n)])
+             .astype("int32") for n in rng.randint(16, 121, size=8)]
+    return first, [first[j] for j in (0, 2, 5, 7)]
+
+
+def serve_waves(torch, cfg, params, waves, new_tokens, *, sharing=True,
+                defrag_at=0):
+    """Serves ``waves`` of prompts through a fresh ``PagedEngine`` (the
+    default ServeConfig at max_batch 4, page 16, prefill chunks of 32,
+    or with sharing and retention off), each wave submitted after the
+    last drained.  Records every request's first-token logits (the
+    prefill-lane chunk that drained its prompt) and how it was admitted;
+    checks ``kv.check()`` and the prefix index after every tick; calls
+    ``defrag()`` once after tick ``defrag_at`` (0: never).  Returns a
+    dict of the results, counters and the time spent in ``step()``."""
+    import dataclasses
+
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine, ServeConfig
+    longest = max(len(p) for w in waves for p in w)
+    scfg = ServeConfig(max_batch=4, max_seq=longest + new_tokens + 16,
+                       max_new_tokens=new_tokens, page_size=SHARE_PAGE,
+                       prefill_chunk_tokens=SHARE_CHUNK)
+    if not sharing:
+        scfg = dataclasses.replace(scfg, prefix_sharing=False,
+                                   retain_prefixes=False)
+    engine = PagedEngine(get_model(cfg), params, scfg)
+    model, rec, kinds, first = engine.model, {}, {}, {}
+    prefill_step = model.prefill_step_paged
+
+    def capture(*args):
+        logits, cache = prefill_step(*args)
+        rec["logits"] = logits
+        return logits, cache
+
+    model.prefill_step_paged = capture
+    find = engine._find_donor
+
+    def recording_find(prompt):
+        kind, ref, n = find(prompt)
+        kinds[engine.queue[0].rid] = (kind, n)
+        return kind, ref, n
+
+    engine._find_donor = recording_find
+    rids, step_s = [], 0.0
+    for wave in waves:
+        rids.append([engine.submit(p) for p in wave])
+        while engine.busy:
+            rec.clear()
+            t0 = time.perf_counter()
+            engine.step()
+            step_s += time.perf_counter() - t0
+            for i, slot in enumerate(engine.slots):
+                if slot.active and len(slot.out) == 1 \
+                        and slot.rid not in first:
+                    first[slot.rid] = rec["logits"][i].float().clone()
+            engine.kv.check()
+            engine._pindex.check(engine.slots)
+            for i, slot in enumerate(engine.slots):
+                if slot.active and len(slot.history) != \
+                        int(engine.kv.length[i]):
+                    raise AssertionError(f"slot {i}: history/length drift")
+            if defrag_at and engine.ticks == defrag_at:
+                engine.defrag()
+                engine.kv.check()
+    torch.cuda.synchronize()
+    return dict(engine=engine, rids=rids, kinds=kinds, first=first,
+                tokens=[[engine.results[r] for r in w] for w in rids],
+                step_s=step_s)
+
+
+def share_phase(torch, cfg, params, decode_kernel, prefill_kernel):
+    """granite-8b (the serve phase's weights) through ``PagedEngine`` with
+    the JAX engine's default sharing configuration: live shares from a
+    mid-page base, copy on write, retained adoptions after the donors
+    died, a defrag mid-run.  Returns the phase's readings."""
+    import numpy as np
+    new_tokens = 32
+    waves = share_traffic(np.random.RandomState(29), cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    decode_kernel.launches = 0                   # counts of this path
+    prefill_kernel.launches = 0
+    run = serve_waves(torch, cfg, params, waves, new_tokens)
+    launches = {"decode": decode_kernel.launches,
+                "prefill": prefill_kernel.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng = run["engine"]
+    n_out = sum(len(t) for w in run["tokens"] for t in w)
+    tok_s = n_out / run["step_s"]
+    chunks = launches["prefill"] // cfg.n_layers
+    log(f"[share] granite-8b, default ServeConfig (sharing and retention "
+        f"on), max_batch 4, page {SHARE_PAGE}, prefill chunks of "
+        f"{SHARE_CHUNK}: 8 prompts of {[len(p) for p in waves[0]]} tokens "
+        f"(a 200-token system prompt), then 4 exact repeats after the "
+        f"drain; {n_out} tokens in {run['step_s']:.2f} s of step() = "
+        f"{tok_s:.1f} tokens/s (host clock), {eng.ticks} ticks, peak "
+        f"memory {peak:.2f} GiB")
+    log(f"[share] shared {eng.shared_tokens} prompt tokens (logical/"
+        f"physical x{eng.logical_physical_ratio:.3f}), {eng.kv.cow_copies} "
+        f"COW copies in {eng.kv.cow_dispatches} flushes, "
+        f"{eng.kv.retained_hits} retained adoptions "
+        f"({eng.kv.retained_hit_tokens} tokens), {eng.kv.retained_pages} "
+        f"pages retained at the end; admissions "
+        + ", ".join(f"{r}:{k or 'none'}/{n}" for r, (k, n) in
+                    sorted(run["kinds"].items())))
+    log(f"[share] launches on this path: paged_decode_attention="
+        f"{launches['decode']}, paged_prefill_attention="
+        f"{launches['prefill']} ({chunks} chunks of {cfg.n_layers} layers)")
+    bad = [t for w in run["tokens"] for t in w
+           if len(t) != new_tokens or not all(0 <= x < cfg.vocab_size
+                                              for x in t)]
+    if bad:
+        raise AssertionError(f"share: {len(bad)} requests without "
+                             f"{new_tokens} in-vocab tokens")
+    if not (launches["decode"] > 0 and launches["prefill"] > 0):
+        raise AssertionError(f"share: a kernel was not launched: {launches}")
+    if not (eng.shared_tokens > 0 and eng.kv.cow_copies > 0
+            and eng.kv.retained_hits > 0):
+        raise AssertionError("share: no sharing, copy on write or retained "
+                             "adoption happened")
+
+    decode_kernel.launches = prefill_kernel.launches = 0
+    off = serve_waves(torch, cfg, params, waves, new_tokens, sharing=False)
+    off_chunks = prefill_kernel.launches // cfg.n_layers
+    off_launches = prefill_kernel.launches
+    same = sum(a == b for a, b in zip(sum(off["tokens"], []),
+                                      sum(run["tokens"], [])))
+    log(f"[share] the same traffic with sharing off: {off_chunks} prefill "
+        f"chunks ({off_launches} launches) against {chunks} with sharing; "
+        f"{same}/12 requests give the same tokens (bf16: sharing changes "
+        f"the batches' rounding, so this is reported, not required)")
+    if not chunks < off_chunks:
+        raise AssertionError(f"share: {chunks} prefill chunks with sharing, "
+                             f"not fewer than {off_chunks} without")
+    del off
+
+    rid_of = {r: (w, j) for w, ids in enumerate(run["rids"])
+              for j, r in enumerate(ids)}
+    sharer = next(r for r, (k, n) in sorted(run["kinds"].items())
+                  if k == "live" and n % SHARE_PAGE)
+    adopter = next(r for r, (k, n) in sorted(run["kinds"].items())
+                   if k == "retained")
+    for name, rid in (("live sharer", sharer), ("retained adopter",
+                                                adopter)):
+        w, j = rid_of[rid]
+        alone = serve_waves(torch, cfg, params, [[waves[w][j]]], new_tokens,
+                            sharing=False)
+        want = alone["first"][alone["rids"][0][0]]
+        got = run["first"][rid]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        lim = LOGIT_ULPS * 2.0 ** -8 * scale
+        kind, n = run["kinds"][rid]
+        log(f"[share] {name} (request {rid}, {n} tokens {kind}) first-token "
+            f"logits against its prompt served alone with sharing off: "
+            f"max|diff|={err:.4e}, bound {lim:.4e} ({LOGIT_ULPS} bf16 ulps "
+            f"of the logit scale {scale:.3f}); argmax "
+            f"{'agrees' if got.argmax() == want.argmax() else 'differs'}")
+        if not err <= lim:
+            raise AssertionError(f"share: {name} logits drift {err:.4e} > "
+                                 f"{lim:.4e}")
+        del alone
+
+    mid = eng.ticks // 3
+    redo = serve_waves(torch, cfg, params, waves, new_tokens, defrag_at=mid)
+    worst = max((redo["first"][r] - run["first"][r]).abs().max().item()
+                for r in (sharer, adopter))
+    log(f"[share] the same traffic with one defrag() after tick {mid}: "
+        f"tokens {'unchanged' if redo['tokens'] == run['tokens'] else 'CHANGED'}"
+        f", sharer's and adopter's first-token logits max|diff|={worst:.3e}")
+    if redo["tokens"] != run["tokens"] or worst != 0.0:
+        raise AssertionError("share: defrag changed the tokens or logits")
+    return dict(tok_s=tok_s, shared=eng.shared_tokens,
+                ratio=eng.logical_physical_ratio, cow=eng.kv.cow_copies,
+                hits=eng.kv.retained_hits, peak=peak, chunks=chunks,
+                off_chunks=off_chunks, launches=launches)
 
 
 def _leaves(tree):
@@ -631,8 +864,11 @@ def compare_logits(torch, cfg, params):
 
 
 def parity_phase(torch):
-    """qwen2-0.5b (reduced) in f32: the engine on the kernel path and on
-    the plain path must give identical greedy tokens."""
+    """qwen2-0.5b (reduced) in f32, prefix sharing and retention on (the
+    default ServeConfig's): the engine on the kernel path and on the
+    plain path must give identical greedy tokens and sharing counters.
+    The traffic: 8 random prompts, 6 behind a common 13-token prefix
+    (three pages and one token), then 3 repeats after the drain."""
     import dataclasses
 
     import numpy as np
@@ -649,21 +885,35 @@ def parity_phase(torch):
     work = [(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), int(b))
             for n, b in zip(rng.randint(3, 40, size=8),
                             rng.randint(3, 12, size=8))]
-    outs = []
+    head = rng.randint(0, cfg.vocab_size, size=13)
+    work += [(np.concatenate([head, rng.randint(0, cfg.vocab_size, size=n)])
+              .astype(np.int32), int(b))
+             for n, b in zip(rng.randint(1, 12, size=6),
+                             rng.randint(3, 12, size=6))]
+    repeats = [work[j] for j in (8, 10, 13)]
+    outs, stats = [], []
     for plain in (False, True):
         engine = PagedEngine(
             get_model(cfg, plain_attention=plain), params,
             ServeConfig(max_batch=3, max_seq=64, page_size=4,
-                        prefill_chunk=3, prefill_chunk_tokens=8,
-                        prefix_sharing=False, retain_prefixes=False))
+                        prefill_chunk=3, prefill_chunk_tokens=8))
         rids = [engine.submit(p, max_new_tokens=b) for p, b in work]
+        engine.run()
+        rids += [engine.submit(p, max_new_tokens=b) for p, b in repeats]
         res = engine.run()
         outs.append([res[r] for r in rids])
+        stats.append((engine.shared_tokens, engine.kv.cow_copies,
+                      engine.kv.retained_hits))
     same = sum(a == b for a, b in zip(*outs))
-    log(f"[parity] qwen2-0.5b-reduced f32, kernel vs plain path: "
-        f"{same}/{len(work)} requests token-identical")
-    if same != len(work):
+    log(f"[parity] qwen2-0.5b-reduced f32, sharing and retention on, kernel "
+        f"vs plain path: {same}/{len(outs[0])} requests token-identical; "
+        f"(shared tokens, COW copies, retained adoptions) kernel "
+        f"{stats[0]}, plain {stats[1]}")
+    if same != len(outs[0]):
         raise AssertionError("kernel path and plain path disagree in f32")
+    if stats[0] != stats[1] or not all(stats[0]):
+        raise AssertionError(f"parity: sharing counters {stats} differ or "
+                             f"are zero")
 
 
 # ---------------------------------------------------------------------------
@@ -673,10 +923,14 @@ def parity_phase(torch):
 DECODE_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                 "qwen2 GQA": dict(H=14, KV=2, D=64),
                 "MQA": dict(H=16, KV=1, D=128),
-                "MHA": dict(H=8, KV=8, D=64)}
+                "MHA": dict(H=8, KV=8, D=64),
+                "granite-20b": dict(H=48, KV=1, D=128),
+                "phi4-mini": dict(H=24, KV=8, D=128)}
 FLASH_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                "MQA": dict(H=8, KV=1, D=64),
-               "MHA": dict(H=8, KV=8, D=64)}
+               "MHA": dict(H=8, KV=8, D=64),
+               "granite-20b": dict(H=48, KV=1, D=128),
+               "phi4-mini": dict(H=24, KV=8, D=128)}
 
 
 def dense_inputs(gen, B, S, T, H, KV, D, dtype):
@@ -1730,6 +1984,8 @@ def main() -> int:
     d_errs = dense_checks(torch)
     launches, tok_s, sv, cfg, params = serve_phase(torch, paged.KERNEL,
                                                    prefill_paged.KERNEL)
+    share = share_phase(torch, cfg, params, paged.KERNEL,
+                        prefill_paged.KERNEL)
     wb = whole_batch_phase(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -1784,7 +2040,10 @@ def main() -> int:
             "replaces": f"src/repro/kernels/stream/stream.py:{line}",
             "launches": s_launches[name], "max_abs_err": s_errs[name],
             **t})
-    log(f"[summary] serve tokens/s {tok_s:.1f}; whole-batch tokens/s "
+    log(f"[summary] serve tokens/s {tok_s:.1f} (sharing off); share tokens/s "
+        f"{share['tok_s']:.1f} ({share['shared']} shared tokens, logical/"
+        f"physical x{share['ratio']:.3f}, {share['hits']} retained "
+        f"adoptions, peak {share['peak']:.2f} GiB); whole-batch tokens/s "
         f"{wb['tok_s']:.1f}; falcon-mamba-7b whole-batch tokens/s "
         f"{ssm['tok_s']:.1f}; memory ceiling "
         f"{res.copy_gbs():.3f} GB/s; on {gpu}")

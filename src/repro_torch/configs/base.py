@@ -2,9 +2,11 @@
 
 The dataclass is copied field for field (the tests hold it equal to the
 JAX package's for every ported arch), so one config describes the same
-model in both packages.  Only the archs of the ported serving path are
-registered here: granite-8b (the serving arch), qwen2-0.5b (the test
-arch) and falcon-mamba-7b (the Mamba1 family, whole-batch serving).
+model in both packages.  All ten of the JAX package's archs are
+registered: the dense ones (granite-8b, the serving arch; granite-20b;
+qwen2-0.5b, the test arch; phi4-mini-3.8b) and falcon-mamba-7b (Mamba1,
+whole-batch serving) run; the others (MoE, VLM, audio, hybrid) are
+config mirrors that ``transformer.check_supported`` refuses.
 ``attention_impl`` is mirrored for equality only: in the port the DEVICE
 of the tensors picks the paged-attention implementation (CUDA tensors
 always reach the hand-written kernels, CPU tensors the plain version),
@@ -125,9 +127,10 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def registry() -> Dict[str, ArchConfig]:
     if not _REGISTRY:
-        import repro_torch.configs.falcon_mamba_7b  # noqa: F401  (populates)
-        import repro_torch.configs.granite_8b  # noqa: F401
-        import repro_torch.configs.qwen2_0_5b  # noqa: F401
+        from repro_torch.configs import (  # noqa: F401  (populates)
+            falcon_mamba_7b, granite_8b, granite_20b, grok_1_314b,
+            llama4_scout_17b_a16e, phi4_mini_3_8b, qwen2_0_5b, qwen2_vl_72b,
+            whisper_large_v3, zamba2_7b)
     return _REGISTRY
 
 

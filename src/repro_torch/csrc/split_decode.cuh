@@ -25,8 +25,8 @@
 //     kMaxRows), lane t scores position t of the tile (kTile = 32, one per
 //     lane), and the row's max and sum are warp shuffles; m and l stay in
 //     the warp's registers.  p @ v gives each thread 4 neighbouring
-//     columns of a row.  G > kMaxRows (no ported config) walks the row
-//     tiles in turn, each reading the piece again.
+//     columns of a row.  G > kMaxRows (granite-20b: 48 heads over one kv
+//     head) walks the row tiles in turn, each reading the piece again.
 //   * int8 rows are scaled in f32: the score as (q . k) * k_scale, and
 //     p @ v as (p * v_scale) @ v, with l summing the unscaled p.
 // An empty piece keeps m = -inf and l = 0, and the combine skips pieces

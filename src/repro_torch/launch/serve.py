@@ -6,6 +6,8 @@ whole-batch lockstep generation, on one card.
     python -m repro_torch.launch.serve --whole-batch --legacy-loop
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --whole-batch
     python -m repro_torch.launch.serve --local-smoke --device cpu
+    python -m repro_torch.launch.serve --local-smoke --device cpu \
+        --no-prefix-sharing
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device
 (nothing is downloaded).  The demo workloads are the JAX launcher's: for
@@ -13,9 +15,10 @@ the paged engine, twice ``--batch`` requests of a shared system prompt
 plus a short random tail, with staggered output budgets; for
 ``--whole-batch``, ``--batch`` random prompts of 4-15 tokens.  The SSM
 arch (falcon-mamba-7b) is served whole-batch only: the paged engine
-refuses it, as the JAX package's does.  Prefix sharing, retention,
-preemption, deadlines, speculation, snapshots and int8 pools are not
-ported yet, so their flags are absent.
+refuses it, as the JAX package's does.  Prefix sharing and cross-lifetime
+retention are on by default, as in the JAX launcher, which reports the
+same sharing and retention lines.  Preemption, deadlines, speculation,
+snapshots and int8 pools are not ported yet, so their flags are absent.
 """
 import argparse
 import sys
@@ -39,6 +42,22 @@ def main() -> int:
     ap.add_argument("--legacy-loop", action="store_true",
                     help="with --whole-batch: per-token host loop instead "
                          "of the fused decode_many")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable prompt-prefix page sharing on admission "
+                         "(implies no cross-lifetime retention)")
+    ap.add_argument("--no-retain-prefixes", action="store_true",
+                    help="disable cross-lifetime prefix retention: a "
+                         "finished request's page-aligned prefix pages "
+                         "return to the free list at once instead of "
+                         "staying adoptable by digest")
+    ap.add_argument("--retain-policy", default="lru",
+                    choices=("lru", "popularity"),
+                    help="retained-pool reclamation order under pool "
+                         "pressure: least recently touched first (lru) or "
+                         "fewest adoptions first (popularity)")
+    ap.add_argument("--retain-pool-pages", type=int, default=0,
+                    help="cap on retained-only pages held idle (0 = "
+                         "pool-bounded: pressure reclaims them lazily)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=4,
                     help="decode steps per engine tick")
@@ -58,6 +77,13 @@ def main() -> int:
         ap.error("--pages-per-step must be >= 1")
     if args.prefill_chunk_tokens < 0:
         ap.error("--prefill-chunk-tokens must be >= 0 (0 = auto)")
+    if args.retain_pool_pages < 0:
+        ap.error("--retain-pool-pages must be >= 0 (0 = pool-bounded)")
+    if args.no_prefix_sharing and not args.no_retain_prefixes \
+            and not args.whole_batch:
+        print("[launch.serve] NOTE: --no-prefix-sharing disables the "
+              "donor index, so cross-lifetime retention is off too "
+              "(retention is digest-keyed prefix sharing)")
 
     import dataclasses
 
@@ -96,7 +122,10 @@ def main() -> int:
                        page_size=args.page_size,
                        prefill_chunk=args.prefill_chunk,
                        prefill_chunk_tokens=args.prefill_chunk_tokens,
-                       prefix_sharing=False, retain_prefixes=False)
+                       prefix_sharing=not args.no_prefix_sharing,
+                       retain_prefixes=not args.no_retain_prefixes,
+                       retain_policy=args.retain_policy,
+                       retain_pool_pages=args.retain_pool_pages)
     rng = np.random.RandomState(0)
     if args.whole_batch:
         return whole_batch(ServingEngine(model, params, scfg), rng, cfg,
@@ -126,6 +155,16 @@ def main() -> int:
           f"{n_tok} tokens, {engine.joins} joins over {args.batch} slots "
           f"in {engine.steps_run} ticks, {dt:.2f} s "
           f"({n_tok / dt:.1f} tokens/s, host clock)")
+    util = engine.util_trace
+    print(f"[launch.serve] paged: shared {engine.shared_tokens} prefix "
+          f"tokens (logical/physical x{engine.logical_physical_ratio:.2f}, "
+          f"{engine.kv.cow_copies} COW copies), page util "
+          f"mean={np.mean(util) if util else 0:.2f} "
+          f"max={np.max(util) if util else 0:.2f}")
+    print(f"[launch.serve] retention: {engine.kv.retained_hits} retained "
+          f"adoptions ({engine.kv.retained_hit_tokens} tokens re-shared "
+          f"from dead donors), {engine.kv.retained_pages} pages retained, "
+          f"{engine.kv.retained_reclaimed_pages} reclaimed under pressure")
     return 0
 
 

@@ -23,13 +23,19 @@ torch calls on the engine's device (the device of the parameters).  It
 serves decoder-only attention LMs only, and refuses the SSM family as the
 JAX package's ``PagedEngine`` does.
 
+A request whose prompt starts with tokens already resident in a live
+slot's pages shares those pages on admission (found through a rolling-hash
+prefix index), and with retention on, a finished slot's page-aligned
+prefix stays adoptable after the slot is gone (``PagedKVCache``'s retained
+pool) — the JAX engine's defaults, ``prefix_sharing`` and
+``retain_prefixes``.
+
 Not ported yet, and refused with ``NotImplementedError`` where a config
-asks for them: prefix sharing and retention, preemption, deadlines,
-bounded queues, fault injection, speculation, snapshots, the
-prefill-by-decode lane, int8 pools in the engine, and a pool smaller than
-every slot's full table.  With the pool sized to fit every slot no tick
-can need preemption; if one ever does, the engine raises instead of
-stalling.
+asks for them: preemption, deadlines, bounded queues, fault injection,
+speculation, snapshots, the prefill-by-decode lane, int8 pools in the
+engine, and a pool smaller than every slot's full table.  With the pool
+sized to fit every slot no tick can need preemption; if one ever does,
+the engine raises instead of stalling.
 """
 from __future__ import annotations
 
@@ -43,16 +49,16 @@ import torch
 
 from repro_torch.models.model import Model, sample_token
 from repro_torch.models.transformer import check_supported
-from repro_torch.serve.cache import PagedKVCache
+from repro_torch.serve.cache import PagedKVCache, digest_step
 from repro_torch.serve.scheduler import TickScheduler
 
 
 @dataclasses.dataclass
 class ServeConfig:
     """The JAX package's ``ServeConfig``, field for field, with its
-    defaults.  ``PagedEngine`` refuses the features this port lacks (see
-    the module docstring), so callers set ``prefix_sharing=False`` and
-    ``retain_prefixes=False``."""
+    defaults, which ``PagedEngine`` serves as they are (prefix sharing and
+    retention on).  It refuses the features this port lacks (see the
+    module docstring)."""
     max_batch: int = 4
     max_seq: int = 128
     max_new_tokens: int = 16
@@ -110,11 +116,14 @@ class Request:
 class _Slot:
     """One schedulable slot: ``forced`` holds the prompt tokens queued
     behind the feed token; ``prompt_left`` counts prompt tokens not yet
-    appended (the scheduler's lane selector); ``served`` counts tokens
+    appended (the scheduler's lane selector); ``history`` the tokens whose
+    K/V rows are resident in the slot's pages (``len(history) ==
+    kv.length[i]``; the donor index reads it); ``served`` counts tokens
     appended (the fairness key)."""
     rid: int = -1
     forced: List[int] = dataclasses.field(default_factory=list)
     out: List[int] = dataclasses.field(default_factory=list)
+    history: List[int] = dataclasses.field(default_factory=list)
     budget: int = 0
     served: int = 0
     prompt_left: int = 0
@@ -257,10 +266,99 @@ class ServingEngine:
         }
 
 
+def _lcp(a: List[int], b: List[int]) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+class _PrefixIndex:
+    """Rolling-hash index over every live slot's token-history prefixes:
+    each slot registers the digest of history[:n] for every n (extended a
+    few keys per appended token), and a lookup walks the prompt's own
+    digest outward, stopping at the first length no slot matches — a
+    prompt that shares nothing costs one probe.  The engine verifies the
+    winner against the real history and falls back to an exact scan on a
+    collision.  The digest is the retained pool's (``digest_step``), so a
+    prefix hashes the same whether its donor is live or gone."""
+
+    def __init__(self):
+        self._map: Dict[tuple, set] = {}      # (n, digest) -> slot ids
+        self._keys: Dict[int, List[tuple]] = {}
+        self._digest: Dict[int, int] = {}
+        self._len: Dict[int, int] = {}
+
+    def add(self, slot: int, tokens) -> None:
+        """Extend the slot's indexed history by ``tokens``."""
+        h = self._digest.get(slot, 0)
+        n = self._len.get(slot, 0)
+        keys = self._keys.setdefault(slot, [])
+        for t in tokens:
+            h = digest_step(h, t)
+            n += 1
+            key = (n, h)
+            self._map.setdefault(key, set()).add(slot)
+            keys.append(key)
+        self._digest[slot] = h
+        self._len[slot] = n
+
+    def drop(self, slot: int) -> None:
+        for key in self._keys.pop(slot, ()):
+            owners = self._map.get(key)
+            if owners is not None:
+                owners.discard(slot)
+                if not owners:
+                    del self._map[key]
+        self._digest.pop(slot, None)
+        self._len.pop(slot, None)
+
+    def lookup(self, prompt: List[int], cap: int):
+        """Longest n <= cap with a live slot whose indexed history starts
+        with prompt[:n]; returns (slot, n) or (-1, 0)."""
+        h, best, donor = 0, 0, -1
+        for n in range(1, cap + 1):
+            h = digest_step(h, prompt[n - 1])
+            owners = self._map.get((n, h))
+            if not owners:
+                break
+            best, donor = n, next(iter(owners))
+        return donor, best
+
+    def check(self, slots) -> None:
+        """Every indexed slot is live, its indexed length equals its
+        history, its digest chain recomputes from that history, and every
+        key's owner set round-trips."""
+        for slot_id, n in self._len.items():
+            s = slots[slot_id]
+            assert s.active, \
+                f"prefix index holds entries for inactive slot {slot_id}"
+            assert n == len(s.history), \
+                f"slot {slot_id}: indexed length {n} != history " \
+                f"{len(s.history)}"
+            h = 0
+            keys = self._keys.get(slot_id, [])
+            assert len(keys) == n, \
+                f"slot {slot_id}: {len(keys)} keys for {n} indexed tokens"
+            for j, t in enumerate(s.history):
+                h = digest_step(h, t)
+                assert keys[j] == (j + 1, h), \
+                    f"slot {slot_id}: key {j} drifted from history"
+                assert slot_id in self._map.get((j + 1, h), ()), \
+                    f"slot {slot_id}: key {(j + 1, h)} unregistered"
+            assert self._digest.get(slot_id, 0) == h, \
+                f"slot {slot_id}: digest accumulator drifted"
+        for key, owners in self._map.items():
+            assert owners, f"empty owner set left behind for {key}"
+            for s_id in owners:
+                assert s_id in self._len and self._len[s_id] >= key[0], \
+                    f"key {key} names slot {s_id} beyond its indexed length"
+
+
 def _refuse_unported(cfg: ServeConfig, model: Model, full_pool: int) -> None:
     asks = {
-        "prefix_sharing": cfg.prefix_sharing,
-        "retain_prefixes": cfg.retain_prefixes,
         "spec_k": cfg.spec_k > 0,
         "snapshot_every_ticks": cfg.snapshot_every_ticks > 0,
         "prefill_lane=False": not cfg.prefill_lane,
@@ -281,7 +379,9 @@ class PagedEngine:
     """Non-lockstep continuous batching over the paged KV cache (see the
     module docstring).  Every slot advances at its own position on its
     own pages, so a request admitted mid-flight starts at position 0 and
-    its greedy output equals a fresh single-request run."""
+    its greedy output equals a fresh single-request run; a shared or
+    adopted prefix references the same K/V rows a fresh run would write,
+    so sharing does not change the tokens either."""
 
     def __init__(self, model: Model, params, cfg: ServeConfig):
         self.model = model
@@ -296,17 +396,26 @@ class PagedEngine:
         self._chunk_tokens = (cfg.prefill_chunk_tokens
                               or model.cfg.prefill_chunk_tokens
                               or 2 * cfg.page_size)
+        # retention rides the sharing machinery: without prefix_sharing
+        # nothing could ever adopt a retained page
+        self._retain = bool(cfg.prefix_sharing and cfg.retain_prefixes)
         self.kv = PagedKVCache(model, B, cfg.max_seq,
                                page_size=cfg.page_size,
                                max_blocks=cfg.max_blocks,
-                               num_pages=cfg.num_pages, device=self.device)
+                               num_pages=cfg.num_pages,
+                               retain=self._retain,
+                               retain_cap=cfg.retain_pool_pages,
+                               retain_policy=cfg.retain_policy,
+                               device=self.device)
         # device copies of the block table and lengths, patched at the
-        # rows the cache marks dirty
+        # rows the cache marks dirty (admission, share, adoption, COW,
+        # eviction, defrag)
         self._table_dev = torch.zeros((B, self.kv.max_blocks),
                                       dtype=torch.int32, device=self.device)
         self._length_dev = torch.zeros((B,), dtype=torch.int32,
                                        device=self.device)
         self.kv.dirty.clear()            # mirrors start in sync (all zero)
+        self._pindex = _PrefixIndex()
         self.scheduler = TickScheduler(fairness=cfg.fairness,
                                        tick_budget=cfg.tick_budget)
         self.generator = torch.Generator(device=self.device)
@@ -322,6 +431,10 @@ class PagedEngine:
         self.steps_run = 0                # ticks that ran device work
         self.joins = 0
         self.rejected = 0
+        self.shared_tokens = 0            # prompt tokens served by reference
+        self.tokens_appended = 0          # fresh K/V rows written
+        self.util_trace: List[float] = []        # per-tick page utilization
+        self.occupancy_trace: List[float] = []   # per-tick row occupancy
 
     # -- request lifecycle ----------------------------------------------
 
@@ -365,29 +478,87 @@ class PagedEngine:
             self.step()
         return self.results
 
+    def _find_donor(self, prompt: List[int]):
+        """Longest common prefix of ``prompt`` with (a) a live slot's
+        history, through the prefix index, and (b) the retained pool (the
+        same digests, ``kv.match_retained``).  Returns (kind, ref,
+        n_shared): kind "live" (ref = slot index), "retained" (ref = the
+        entry) or None when nothing reaches ``share_min_tokens``.  A live
+        match wins ties.  The cap at ``len(prompt) - 1`` keeps the last
+        prompt token fed: its logits give the first output."""
+        cap = len(prompt) - 1
+        donor, best = self._pindex.lookup(prompt, cap)
+        if donor >= 0 and not (self.slots[donor].active
+                               and self.slots[donor].history[:best]
+                               == prompt[:best]):
+            # digest collision (or index drift): exact-scan fallback
+            best, donor = 0, -1
+            for j, s in enumerate(self.slots):
+                if not s.active:
+                    continue
+                n = min(_lcp(prompt, s.history), cap)
+                if n > best:
+                    best, donor = n, j
+        entry, n_ret = (None, 0)
+        if self._retain:
+            entry, n_ret = self.kv.match_retained(prompt, cap)
+        min_share = max(1, self.cfg.share_min_tokens)
+        if best >= n_ret and best >= min_share:
+            return "live", donor, best
+        if entry is not None and n_ret >= min_share:
+            return "retained", entry, n_ret
+        return None, None, 0
+
     def _admit(self) -> None:
         for i, slot in enumerate(self.slots):
             if slot.active or not self.queue:
                 continue
-            if self.kv.allocatable == 0:
-                break
+            prompt = [int(t) for t in self.queue[0].prompt]
+            kind, ref, n_shared = (None, None, 0)
+            if self.cfg.prefix_sharing:
+                kind, ref, n_shared = self._find_donor(prompt)
+            if n_shared == 0 and self.kv.allocatable == 0:
+                break                      # pool dry: wait for eviction
             req = self.queue.pop(0)
-            prompt = [int(t) for t in req.prompt]
-            self.kv.ensure(i, 1)
-            self.slots[i] = _Slot(rid=req.rid, forced=prompt[1:], out=[],
+            if kind == "live":
+                self.kv.share(i, ref, n_shared)
+                self.shared_tokens += n_shared
+            elif kind == "retained":       # the donor is gone, its pages
+                self.kv.adopt_retained(i, ref, n_shared)    # are not
+                self.shared_tokens += n_shared
+            self.kv.ensure(i, n_shared + 1)
+            self.slots[i] = _Slot(rid=req.rid, forced=prompt[n_shared + 1:],
+                                  out=[], history=prompt[:n_shared],
                                   budget=req.max_new_tokens,
-                                  prompt_left=len(prompt), active=True)
-            self._feed[i] = prompt[0]
+                                  prompt_left=len(prompt) - n_shared,
+                                  active=True)
+            if self.cfg.prefix_sharing:
+                self._pindex.add(i, prompt[:n_shared])
+            self._feed[i] = prompt[n_shared]
             self.status[req.rid] = RequestStatus.RUNNING
             self.joins += 1
+
+    def _release_slot(self, i: int) -> None:
+        """Return slot ``i`` to the pool: its prefix index entries dropped,
+        its pages freed refcount-aware (a shared page stays for its other
+        referents) and, with retention on, its history's page-aligned
+        prefix kept in the retained pool."""
+        history = self.slots[i].history
+        self.slots[i] = _Slot()
+        self._feed[i] = self.cfg.pad_id
+        self._pindex.drop(i)
+        self.kv.free_slot(i, retain_tokens=history if self._retain else None)
 
     def _finish(self, i: int) -> None:
         slot = self.slots[i]
         self.results[slot.rid] = slot.out
         self.status[slot.rid] = RequestStatus.FINISHED
-        self.slots[i] = _Slot()
-        self._feed[i] = self.cfg.pad_id
-        self.kv.free_slot(i)
+        self._release_slot(i)
+
+    def defrag(self) -> None:
+        """Compact the page pool (``PagedKVCache.defrag``); the next tick
+        re-uploads every table row."""
+        self.kv.defrag()
 
     def _sync_dirty(self) -> None:
         """Patch the device table/length copies at the cache's dirty rows."""
@@ -447,16 +618,25 @@ class PagedEngine:
                 num_steps=int(steps.max()), temperature=cfg.temperature)
         self._length_dev = cache["length"]     # the device advanced it
         self.kv.length += steps + pgr          # host mirror of the increment
+        self.tokens_appended += int(steps.sum()) + int(pgr.sum())
         self.steps_run += 1
+        if cfg.trace_pool:
+            self.util_trace.append(self.kv.utilization())
+            self.occupancy_trace.append(self.kv.occupancy())
         toks_np = toks.cpu().numpy() if toks is not None else None
         nxt_np = nxt.cpu().numpy() if nxt is not None else None
 
-        # prefill-lane bookkeeping: only the ONE sampled token per slot
-        # came back, and it matters only when the prompt drained
+        # prefill-lane bookkeeping: the chunk's tokens are known on the
+        # host; only the ONE sampled token per slot came back, and it
+        # matters only when the prompt drained
         for i, slot in enumerate(self.slots):
             g = int(pgr[i])
             if not slot.active or g == 0:
                 continue
+            fed = [int(self._feed[i])] + [int(t) for t in slot.forced[:g - 1]]
+            slot.history.extend(fed)
+            if cfg.prefix_sharing:
+                self._pindex.add(i, fed)
             slot.served += g
             del slot.forced[:g - 1]
             slot.prompt_left -= g
@@ -464,11 +644,16 @@ class PagedEngine:
                 self._feed[i] = slot.forced.pop(0)
                 continue
             self._emit(i, [int(nxt_np[i])])
-        # decode bookkeeping
+        # decode bookkeeping: the tokens fed this tick are its K/V rows
         for i, slot in enumerate(self.slots):
             si = int(steps[i])
             if not slot.active or si == 0:
                 continue
+            fed = [int(self._feed[i])] \
+                + [int(toks_np[s, i]) for s in range(si - 1)]
+            slot.history.extend(fed)
+            if cfg.prefix_sharing:
+                self._pindex.add(i, fed)
             slot.served += si
             self._emit(i, [int(toks_np[s, i]) for s in range(si)])
 
@@ -485,3 +670,17 @@ class PagedEngine:
                 self._finish(i)
                 return
         self._feed[i] = toks[-1]
+
+    # -- bookkeeping ----------------------------------------------------
+
+    @property
+    def logical_tokens(self) -> int:
+        """Tokens logically resident over the run: fresh appends plus
+        prompt tokens served by page reference."""
+        return self.tokens_appended + self.shared_tokens
+
+    @property
+    def logical_physical_ratio(self) -> float:
+        """Logical tokens per physically written token (1.0 when nothing
+        was shared)."""
+        return self.logical_tokens / max(1, self.tokens_appended)

@@ -15,7 +15,11 @@ from repro.models import get_model as jget_model
 from repro_torch import configs as tconfigs
 from repro_torch.models.params import init_params, params_from_jax
 
-ARCHS = ["granite-8b", "qwen2-0.5b", "falcon-mamba-7b"]
+# the archs the port runs, and all ten whose configs it mirrors
+ARCHS = ["granite-8b", "qwen2-0.5b", "falcon-mamba-7b", "granite-20b",
+         "phi4-mini-3.8b"]
+ALL_ARCHS = ARCHS + ["llama4-scout-17b-a16e", "grok-1-314b", "zamba2-7b",
+                     "whisper-large-v3", "qwen2-vl-72b"]
 JNP_TO_TORCH = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
                 jnp.dtype(jnp.float32): torch.float32,
                 jnp.dtype(jnp.int32): torch.int32}
@@ -31,7 +35,7 @@ def _flat(tree, prefix=""):
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_config_equal_field_for_field(arch, reduced):
     j, t = jconfigs.get(arch), tconfigs.get(arch)
     if reduced:
@@ -82,6 +86,20 @@ def test_bridge_bit_exact_mamba1(dtype):
         twin = torch.int16 if a.dtype.itemsize == 2 else torch.int32
         np.testing.assert_array_equal(
             b.view(twin).numpy().view(bits), a.view(bits), err_msg=k)
+
+
+def test_registries_hold_the_same_archs():
+    assert sorted(tconfigs.registry()) == sorted(ALL_ARCHS) \
+        == sorted(jconfigs.registry())
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS[len(ARCHS):])
+def test_unported_families_refused(arch):
+    """The mirrored configs of the families the port does not run (MoE,
+    hybrid Mamba2, encoder-decoder, VLM) are refused, not half-served."""
+    from repro_torch.models.transformer import check_supported
+    with pytest.raises(NotImplementedError):
+        check_supported(tconfigs.get(arch))
 
 
 def test_bridge_rejects_wrong_shape():

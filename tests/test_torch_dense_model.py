@@ -38,7 +38,7 @@ from repro_torch.serve.engine import ServingEngine as TServingEngine
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["qwen2-0.5b", "granite-8b"]
+ARCHS = ["qwen2-0.5b", "granite-8b", "granite-20b", "phi4-mini-3.8b"]
 
 
 def _models(arch, dtype="float32", seed=1):

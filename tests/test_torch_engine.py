@@ -1,7 +1,8 @@
 """The port's PagedEngine against the JAX package's, end to end on the CPU.
 
 Both engines serve the same prompts from the same weights (bridged bit-
-exact from the JAX tree) with prefix sharing and retention off.  In f32
+exact from the JAX tree) with prefix sharing and retention off (their
+default, on, is held in test_torch_prefix_sharing.py).  In f32
 the greedy outputs must be token-identical and every tick's grant plan
 equal, with the page-pool invariants clean after every tick; a bf16 run
 holds a logit-drift bound.  Also: the launcher's CPU smoke, the features
@@ -70,7 +71,8 @@ def _drive(engine, work):
     return [engine.results[r] for r in rids], plans
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "granite-8b", "granite-20b",
+                                  "phi4-mini-3.8b"])
 def test_engine_token_identical_to_jax_f32(arch):
     jm, jp, tm, tp = _models(arch, "float32")
     work = _workload(jm.cfg.vocab_size)
@@ -112,10 +114,9 @@ def test_bf16_logit_drift_bound():
 
 
 def test_cache_copy_on_write_matches_jax():
-    """The ported COW path (reserve, rollback, one flush per tick, free
-    with a pending copy) keeps the host state of the JAX cache and copies
-    the same page rows.  The port has no ``share()`` yet, so the shared
-    page is mapped by hand on its side."""
+    """The ported COW path (share, reserve, rollback, one flush per tick,
+    free with a pending copy) keeps the host state of the JAX cache and
+    copies the same page rows."""
     from repro.serve.cache import PagedKVCache as JCache
     from repro_torch.serve.cache import PagedKVCache as TCache
     jm, _, tm, _ = _models("qwen2-0.5b", "float32")
@@ -126,14 +127,9 @@ def test_cache_copy_on_write_matches_jax():
     rows = np.random.RandomState(0).randn(*tc.k.shape).astype(np.float32)
     jc.k = jax.numpy.asarray(rows)
     tc.k = torch.from_numpy(rows.copy())
-    jc.share(1, 0, 6)
-    jc.share(2, 0, 6)
-    for i in (1, 2):                                # the same mapping
-        tc.owned[i] = list(tc.owned[0])
-        tc.table[i, :2] = tc.table[0, :2]
-        tc.length[i] = 6
-        tc.refcount[tc.owned[0]] += 1
     for c in (jc, tc):
+        c.share(1, 0, 6)
+        c.share(2, 0, 6)
         assert c.shared_blocks(1, 6, 9) == [1]
         assert c.cow_reserve(1, 1) and c.cow_reserve(2, 0)
         assert c.cow_rollback(2, 0) == 1
@@ -144,14 +140,14 @@ def test_cache_copy_on_write_matches_jax():
         assert c.cow_reserve(2, 0)
         c.free_slot(2)                              # cancels the pending copy
         c.check()
-    for name in ("table", "refcount", "owned", "free"):
+    for name in ("table", "length", "refcount", "owned", "free",
+                 "cow_copies", "shared_pages"):
         assert np.array_equal(np.asarray(getattr(tc, name), dtype=object),
                               np.asarray(getattr(jc, name), dtype=object)), name
     np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
 
 
 @pytest.mark.parametrize("change", [
-    dict(prefix_sharing=True), dict(retain_prefixes=True, prefix_sharing=False),
     dict(spec_k=2), dict(snapshot_every_ticks=3), dict(prefill_lane=False),
     dict(deadline_ticks=4), dict(num_pages=5)])
 def test_engine_refuses_unported_features(change):

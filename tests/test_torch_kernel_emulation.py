@@ -395,13 +395,16 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 # (B, T, H, KV, D, page, NB, L, dtype, int8 pools): GQA, MQA, G=7 with
 # T*G = 140 rows (three prefill row tiles), granite's G=4 / D=128, MHA on
-# single-row pages
+# single-row pages, granite-20b's G=48 over one KV head (three decode row
+# tiles) and phi4-mini's G=3 / D=128
 CASES = [
     (2, 6, 4, 2, 16, 8, 3, 2, torch.float32, False),
     (3, 5, 4, 1, 32, 4, 5, 1, torch.float32, True),
     (2, 20, 14, 2, 64, 16, 3, 2, torch.bfloat16, False),
     (2, 3, 32, 8, 128, 16, 2, 1, torch.bfloat16, True),
     (2, 4, 4, 4, 16, 1, 9, 1, torch.float32, False),
+    (2, 3, 48, 1, 128, 16, 2, 1, torch.bfloat16, False),
+    (2, 3, 24, 8, 128, 16, 2, 1, torch.bfloat16, True),
 ]
 
 
@@ -527,14 +530,15 @@ def _paged_decode_case(seed, B, H, KV, D, page, NB, q_dtype, pool, lens):
 
 @pytest.mark.parametrize("q_dtype,pool", PAGED_POOLS,
                          ids=lambda x: str(x).replace("torch.", ""))
-@pytest.mark.parametrize("G", [4, 7])
+@pytest.mark.parametrize("G", [4, 7, 48])
 def test_emulated_paged_decode_across_splits_and_pages(G, q_dtype, pool,
                                                        cuda_path_on_cpu):
     """B x KV = 12 leaves 22 splits of a 40-page table (page 4): kv_len
     of one token, one page, one page and a token, 100 (25 live pages, one
     or two a piece, pieces 13-21 empty) and the full table (two pages a
     piece), against the plain version; a slot with kv_len == 0 gives
-    exact zeros.  G = 4 (granite-8b) and 7 (qwen2-0.5b)."""
+    exact zeros.  G = 4 (granite-8b), 7 (qwen2-0.5b) and 48 (granite-20b:
+    three row tiles of 16, each reading the piece again)."""
     B, KV, D, page, NB = 6, 2, 32, 4, 40
     assert paged.splits(NB, B, KV) == 22
     lens = [1, page, page + 1, 100, NB * page, 0]
@@ -549,6 +553,37 @@ def test_emulated_paged_decode_across_splits_and_pages(G, q_dtype, pool,
     torch.testing.assert_close(got[:-1].float(), want[:-1].float(),
                                rtol=tol, atol=tol)
     assert paged.KERNEL.launches == n0 + 1
+
+
+@pytest.mark.parametrize("q_dtype,pool", PAGED_POOLS,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_emulated_paged_kernels_on_aliased_tables(q_dtype, pool,
+                                                  cuda_path_on_cpu):
+    """Prefix sharing maps one physical page into several tables: slot 1's
+    first 3 pages are slot 0's, and slot 2's first page is too.  Decode at
+    kv_len off the page edges and a prefill chunk from a base that is not
+    a page multiple (a sharer's first chunk after a mid-page share) read
+    the aliased pages as the plain version does."""
+    B, H, KV, D, page, NB, T = 3, 8, 2, 32, 4, 6, 5
+    q, kp, vp, tbl, _, _, _, ks, vs = _case(
+        17 + len(pool), B, T, H, KV, D, page, NB, 2,
+        torch.float32 if pool == "int8" else q_dtype, pool == "int8")
+    q = q.to(q_dtype)
+    tbl[1, :3] = tbl[0, :3]
+    tbl[2, :1] = tbl[0, :1]
+    tol = TOL[q_dtype]
+    kv_len = torch.tensor([13, 14, 7], dtype=torch.int32)
+    got = paged.paged_decode_attention(q[:, :1].contiguous(), kp, vp, tbl,
+                                       kv_len, 1, k_scale=ks, v_scale=vs)
+    want = paged_decode_attention_ref(q[:, :1], kp, vp, tbl, kv_len, 1, ks,
+                                      vs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    base = torch.tensor([10, 10, 2], dtype=torch.int32)
+    new = base + torch.tensor([T, 3, T], dtype=torch.int32)
+    got = prefill_paged.paged_prefill_attention(
+        q, kp, vp, tbl, base, new, 1, k_scale=ks, v_scale=vs)
+    want = paged_prefill_attention_ref(q, kp, vp, tbl, base, new, 1, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -624,7 +659,9 @@ DECODE_CASES = [(2, 24, 4, 2, 16, torch.float32),
                 (3, 150, 4, 1, 32, torch.float32),
                 (2, 40, 14, 2, 64, torch.bfloat16),
                 (2, 20, 32, 8, 128, torch.bfloat16),
-                (2, 9, 4, 4, 16, torch.float32)]
+                (2, 9, 4, 4, 16, torch.float32),
+                (2, 40, 48, 1, 128, torch.bfloat16),
+                (2, 20, 24, 8, 128, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(
@@ -728,6 +765,9 @@ FLASH_CASES += [(2, 100, 100, 4, 2, 32, True, torch.bfloat16),
                 (1, 45, 130, 7, 1, 16, False, torch.bfloat16),
                 (1, 130, 70, 4, 1, 64, True, torch.bfloat16),
                 (1, 40, 90, 14, 2, 16, True, torch.bfloat16)]
+# granite-20b (G = 48 over one KV head) and phi4-mini (G = 3) at D = 128
+FLASH_CASES += [(1, 20, 20, 48, 1, 128, True, torch.bfloat16),
+                (1, 33, 33, 24, 8, 128, True, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
