@@ -47,6 +47,32 @@ Phases, each failing loudly (non-zero exit, no result line):
                8 bf16 ulps of their prompts served alone with sharing
                off; and one ``defrag()`` mid-run changes no token and no
                bit of those logits.
+               Both phases print the engine's per-tick host split
+               (median and p90 of ``host_ms_trace``, the means of
+               ``dispatch_trace`` and ``upload_trace``).
+     overload — the same model and weights through ``PagedEngine`` with
+               40 allocatable pages (under half of four slots' full
+               tables), max_queue 6: 11 requests of 150-300 prompt and
+               48 new tokens in two bursts (the first burst's 7th is
+               rejected queue-full), the second burst's first request
+               with a deadline, a running request cancelled, and a
+               ``FaultPlan`` with a squeeze, an evict, a drop and a
+               poison at fixed ticks.  Hard checks: every request
+               terminal; a capacity preemption, recomputed tokens and a
+               ``PREEMPTED_RESUMED`` request; a quarantine, dropped
+               grants and all four fault kinds; the deadline request
+               partial; ``kv.check()`` and the prefix index after every
+               tick; drained with no live page and, after
+               ``flush_retained``, the whole free list; every kept token
+               in vocabulary; both paged kernels launched.  Against the
+               same requests served uninterrupted: the count of
+               identical requests (bf16, reported) and one resumed
+               request's first logits after its resume within 8 bf16
+               ulps of the uninterrupted run's at that position.  Prints
+               tokens/s, recompute_tokens / tokens_out and the host
+               split.  Then the first 4 requests on int8 pools and the
+               same pool: terminal, preempted, ``kv.check()`` clean, and
+               their first-token logits' drift against bf16 printed.
      whole-batch — the same model and weights through ``ServingEngine``
                (lockstep whole-batch serving): 4 prompts of 64-500 tokens,
                32 new tokens, greedy.  The flash kernel must run for every
@@ -66,7 +92,10 @@ Phases, each failing loudly (non-zero exit, no result line):
   4. parity  — qwen2-0.5b (reduced) in f32, kernel path against plain path:
                greedy tokens identical, through the engine (sharing and
                retention on, shared-prefix traffic and repeats; equal
-               sharing counters) and through
+               sharing counters; then tests/test_overload_props.py's two
+               regression schedules and a ``FaultPlan.random(28)`` fuzz
+               run, where every finished or resumed request gives the
+               tokens of its uninterrupted run on both paths) and through
                ``ServingEngine`` (prompts of multiples of 32 tokens, so
                the plain side takes the chunked flash reference, among
                them a (608, 64) batch, which 512 does not divide).
@@ -603,10 +632,13 @@ def serve_phase(torch, decode_kernel, prefill_kernel):
     if not (launches["decode"] > 0 and launches["prefill"] > 0):
         raise AssertionError(f"a kernel was not launched on the serving "
                              f"path: {launches}")
+    split = host_split(engine, dt)
+    log_host("serve", split)
     compare_logits(torch, cfg, params)
     sv = {"lens": [int(n) + new_tokens // 2 for n in prompt_lens[:4]],
           "base": [int(n) - int(n) % 32 for n in prompt_lens[:4]],
-          "max_blocks": engine.kv.max_blocks, "n_layers": cfg.n_layers}
+          "max_blocks": engine.kv.max_blocks, "n_layers": cfg.n_layers,
+          "host": split}
     del engine
     return launches, n_out / dt, sv, cfg, params
 
@@ -728,6 +760,8 @@ def share_phase(torch, cfg, params, decode_kernel, prefill_kernel):
     log(f"[share] launches on this path: paged_decode_attention="
         f"{launches['decode']}, paged_prefill_attention="
         f"{launches['prefill']} ({chunks} chunks of {cfg.n_layers} layers)")
+    split = host_split(eng, run["step_s"])
+    log_host("share", split)
     bad = [t for w in run["tokens"] for t in w
            if len(t) != new_tokens or not all(0 <= x < cfg.vocab_size
                                               for x in t)]
@@ -795,7 +829,337 @@ def share_phase(torch, cfg, params, decode_kernel, prefill_kernel):
     return dict(tok_s=tok_s, shared=eng.shared_tokens,
                 ratio=eng.logical_physical_ratio, cow=eng.kv.cow_copies,
                 hits=eng.kv.retained_hits, peak=peak, chunks=chunks,
-                off_chunks=off_chunks, launches=launches)
+                off_chunks=off_chunks, launches=launches, host=split)
+
+
+# ---------------------------------------------------------------------------
+# overload: preempt-and-recompute, deadlines, queue bound, cancel, faults
+# ---------------------------------------------------------------------------
+
+# 40 allocatable pages of 16 rows (2.36 MB each at granite-8b's width):
+# under half of what four slots' full tables need, so the pool oversells
+OVERLOAD_CFG = dict(max_batch=4, page_size=16, prefill_chunk_tokens=32,
+                    max_seq=512, num_pages=41, max_new_tokens=48,
+                    max_queue=6)
+OVERLOAD_BURST2 = 10     # the second burst is submitted before this tick
+OVERLOAD_DEADLINE = 58   # ticks: the second burst's first request's budget
+OVERLOAD_CANCEL = 20     # from this tick: cancel a running request
+OVERLOAD_FAULTS = ((12, "squeeze", dict(pages=6, duration=4)),
+                   (24, "evict", {}), (28, "drop", {}),
+                   (33, "poison", {}))
+
+
+def host_split(engine, step_s: float) -> dict:
+    """The engine's per-tick host traces: median and p90 of
+    ``host_ms_trace``, the means of ``dispatch_trace`` and
+    ``upload_trace``, and the traces' host time as a share of
+    ``step_s``, the time the phase spent in ``step()`` (the rest is the
+    wait for the device)."""
+    import numpy as np
+    h = engine.host_ms_trace
+    return dict(ticks=len(h), med=float(np.median(h)),
+                p90=float(np.percentile(h, 90)),
+                disp=float(np.mean(engine.dispatch_trace)),
+                up=float(np.mean(engine.upload_trace)),
+                share=sum(h) / 1e3 / step_s, step_s=step_s)
+
+
+def log_host(phase: str, s: dict) -> None:
+    log(f"[{phase}] per-tick host split over {s['ticks']} busy ticks: "
+        f"host_ms_trace median {s['med']:.3f} ms, p90 {s['p90']:.3f} ms, "
+        f"{100 * s['share']:.1f}% of the {s['step_s']:.2f} s in step(); "
+        f"dispatch_trace mean {s['disp']:.2f} device calls; upload_trace "
+        f"mean {s['up']:.1f} B; on {gpu_line()}")
+
+
+def overload_traffic(rng, vocab):
+    """11 prompts of 150-300 tokens: 7 in the first burst (the 7th past
+    ``max_queue``), 4 in the second."""
+    return [rng.randint(0, vocab, size=n).astype("int32")
+            for n in rng.randint(150, 301, size=11)]
+
+
+def drive_overload(torch, cfg, params, prompts, *, num_pages, faults,
+                   lifecycle, want=(), kv_dtype=None):
+    """Serves ``prompts`` through a fresh ``PagedEngine`` at
+    ``OVERLOAD_CFG`` with ``num_pages`` (0: every slot's full table): the
+    first 7 at once, the rest before tick ``OVERLOAD_BURST2``.  ``faults``
+    arms ``OVERLOAD_FAULTS``; ``lifecycle`` gives the second burst's first
+    request a deadline and cancels a running request from tick
+    ``OVERLOAD_CANCEL``.  ``kv.check()`` and the prefix index's check run
+    after every tick.  Records the logits behind output token k of
+    request r for every (r, k) in ``want`` and, for a resumed request,
+    behind its first token after the resume.  Returns a dict of the
+    readings."""
+    import dataclasses
+
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine, ServeConfig
+    from repro_torch.serve.faults import FaultEvent, FaultPlan
+    if kv_dtype:
+        cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
+    engine = PagedEngine(get_model(cfg), params,
+                         ServeConfig(**dict(OVERLOAD_CFG,
+                                            num_pages=num_pages)))
+    if faults:
+        engine.install_faults(FaultPlan([FaultEvent(t, k, **kw)
+                                         for t, k, kw in OVERLOAD_FAULTS]))
+    model, rec, at, logits, capacity = engine.model, {}, {}, {}, [0]
+    prefill_step, decode_step = (model.prefill_step_paged,
+                                 model.decode_step_paged)
+
+    def prefill_rec(*args):
+        out, cache = prefill_step(*args)
+        rec["prefill"] = out
+        return out, cache
+
+    def decode_rec(*args):
+        out, cache = decode_step(*args)
+        rec["decode"].append(out)
+        return out, cache
+
+    model.prefill_step_paged, model.decode_step_paged = (prefill_rec,
+                                                         decode_rec)
+    plan = engine.scheduler.plan
+
+    def plan_rec(slots, kv, *args, **kwargs):
+        p = plan(slots, kv, *args, **kwargs)
+        reqs = engine._reqs
+        at["plan"] = p
+        at["slots"] = [(s.rid, len(reqs[s.rid].emitted) + len(s.out),
+                        s.prompt_left, reqs[s.rid].preempts)
+                       if s.active else None for s in slots]
+        return p
+
+    engine.scheduler.plan = plan_rec
+    preempt = engine._preempt_for_capacity
+
+    def counting():
+        ok = preempt()
+        capacity[0] += ok
+        return ok
+
+    engine._preempt_for_capacity = counting
+    rids = [engine.submit(p) for p in prompts[:7]]
+    deadline_rid = cancelled = None
+    step_s = 0.0
+    while engine.busy or engine._squeezed or len(rids) < len(prompts):
+        if len(rids) < len(prompts) and (engine.ticks + 1 >= OVERLOAD_BURST2
+                                         or not engine.busy):
+            for j, p in enumerate(prompts[7:]):
+                dl = OVERLOAD_DEADLINE if lifecycle and j == 0 else None
+                rids.append(engine.submit(p, deadline_ticks=dl))
+            deadline_rid = rids[7] if lifecycle else None
+        if lifecycle and cancelled is None \
+                and engine.ticks + 1 >= OVERLOAD_CANCEL:
+            victim = next((s.rid for s in engine.slots if s.active and s.out
+                           and s.rid != deadline_rid), None)
+            if victim is not None:
+                if not engine.cancel(victim):
+                    raise AssertionError(f"overload: cancel({victim}) of a "
+                                         f"running request refused")
+                cancelled = victim
+        rec.clear()
+        rec["decode"] = []
+        at.clear()
+        t0 = time.perf_counter()
+        engine.step()
+        step_s += time.perf_counter() - t0
+        engine.kv.check()
+        engine._pindex.check(engine.slots)
+        for i, slot in enumerate(engine.slots):
+            if slot.active and len(slot.history) != int(engine.kv.length[i]):
+                raise AssertionError(f"overload: slot {i} history/length "
+                                     f"drift")
+        if engine.ticks > 2000:
+            raise AssertionError("overload: the engine did not drain")
+        if "plan" not in at:
+            continue                     # the tick ran no device work
+        p = at["plan"]
+        for i, st in enumerate(at["slots"]):
+            if st is None:
+                continue
+            rid, k, left, preempts = st
+            g = int(p.prefill[i])
+            if g and left - g <= 0 and (
+                    (rid, k) in want or (preempts and k)):
+                logits[(rid, k)] = rec["prefill"][i].float().clone()
+            for s in range(int(p.steps[i])):
+                if (rid, k + s) in want:
+                    logits[(rid, k + s)] = rec["decode"][s][i].float().clone()
+    if params["embed"].device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(engine=engine, rids=rids, logits=logits,
+                capacity=capacity[0], step_s=step_s,
+                deadline_rid=deadline_rid, cancelled=cancelled)
+
+
+def overload_checks(run, vocab, new_tokens):
+    """The overload phase's hard checks on one run; raises on a miss."""
+    from repro_torch.serve.engine import TERMINAL_STATUSES, RequestStatus
+    eng, rids = run["engine"], run["rids"]
+    st = [eng.status[r] for r in rids]
+    bad = [r for r, s in zip(rids, st) if s not in TERMINAL_STATUSES]
+    if bad:
+        raise AssertionError(f"overload: requests {bad} not terminal")
+    kept = [t for r in rids for t in eng.results[r]]
+    if not all(0 <= t < vocab for t in kept):
+        raise AssertionError("overload: a kept token is out of vocabulary")
+    if not (run["capacity"] >= 1 and eng.recompute_tokens > 0
+            and RequestStatus.PREEMPTED_RESUMED in st):
+        raise AssertionError(f"overload: no capacity preemption and resume "
+                             f"({run['capacity']} capacity preemptions, "
+                             f"{eng.recompute_tokens} recomputed tokens)")
+    done = [r for r in rids if eng.status[r] in
+            (RequestStatus.FINISHED, RequestStatus.PREEMPTED_RESUMED)]
+    if any(len(eng.results[r]) != new_tokens for r in done):
+        raise AssertionError("overload: a finished request lacks tokens")
+    eng.kv.check()
+    if eng.kv.live_pages != 0 or eng.kv.seized:
+        raise AssertionError("overload: pages still live or seized after "
+                             "the drain")
+    eng.kv.flush_retained()
+    eng.kv.check()
+    if len(eng.kv.free) != eng.kv.num_pages - 1:
+        raise AssertionError(f"overload: {len(eng.kv.free)} free pages "
+                             f"after the flush, not {eng.kv.num_pages - 1}")
+    return st
+
+
+def overload_phase(torch, cfg, params, decode_kernel, prefill_kernel):
+    """granite-8b (the serve phase's weights, bf16, kernels on) through
+    ``PagedEngine`` with a pool under half of what four slots' full tables
+    need, two bursts of requests, a queue bound, a deadline, a cancel and
+    a fault plan (squeeze, evict, drop, poison); against the same requests
+    served uninterrupted; then a short int8 run.  Returns the readings."""
+    import numpy as np
+
+    from repro_torch.serve.engine import RequestStatus
+    new = OVERLOAD_CFG["max_new_tokens"]
+    prompts = overload_traffic(np.random.RandomState(41), cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    decode_kernel.launches = 0                   # counts of this path
+    prefill_kernel.launches = 0
+    run = drive_overload(torch, cfg, params, prompts,
+                         num_pages=OVERLOAD_CFG["num_pages"], faults=True,
+                         lifecycle=True)
+    launches = {"decode": decode_kernel.launches,
+                "prefill": prefill_kernel.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng, rids = run["engine"], run["rids"]
+    split = host_split(eng, run["step_s"])
+    counts = {s.value: sum(eng.status[r] is s for r in rids)
+              for s in RequestStatus}
+    tok_s = eng.tokens_out / run["step_s"]
+    overhead = eng.recompute_tokens / max(1, eng.tokens_out)
+    page_mb = 2 * eng.kv.k[:, 0].numel() * eng.kv.k.element_size() / 1e6
+    log(f"[overload] granite-8b, bf16, max_batch 4, page 16, prefill chunks "
+        f"of 32, {eng.kv.num_pages - 1} allocatable pages of {page_mb:.2f} "
+        f"MB, "
+        f"max_queue {OVERLOAD_CFG['max_queue']}: {len(rids)} requests of "
+        f"{[len(p) for p in prompts]} prompt tokens, {new} new each, in two "
+        f"bursts; {eng.ticks} ticks, peak memory {peak:.2f} GiB; on "
+        f"{gpu_line()}")
+    log(f"[overload] statuses "
+        + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+        + f"; {eng.preemptions} preemptions ({run['capacity']} for capacity"
+        f", the rest forced evictions), {eng.recompute_tokens} recomputed "
+        f"tokens, {eng.quarantines} quarantines, {eng.dropped_grants} "
+        f"dropped grant tokens, faults {eng.fault_counts}, {eng.stalls} "
+        f"stalls, {eng.no_progress_ticks} no-progress ticks; rejected: "
+        + "; ".join(eng.reject_reason.values()))
+    log(f"[overload] {eng.tokens_out} kept tokens in {run['step_s']:.2f} s "
+        f"of step() = {tok_s:.1f} tokens/s (host clock); recompute "
+        f"overhead recompute_tokens / tokens_out = {overhead:.3f}; on "
+        f"{gpu_line()}")
+    log(f"[overload] launches on this path: paged_decode_attention="
+        f"{launches['decode']}, paged_prefill_attention="
+        f"{launches['prefill']}")
+    log_host("overload", split)
+    st = overload_checks(run, cfg.vocab_size, new)
+    if not (eng.quarantines >= 1 and eng.dropped_grants > 0
+            and all(eng.fault_counts.get(k) for k in
+                    ("squeeze", "evict", "drop", "poison"))):
+        raise AssertionError(f"overload: a fault did not act "
+                             f"({eng.fault_counts}, {eng.quarantines} "
+                             f"quarantines, {eng.dropped_grants} dropped)")
+    if counts["rejected"] < 1 or not all(
+            "queue full" in why for why in eng.reject_reason.values()):
+        raise AssertionError("overload: no submit was rejected queue-full")
+    dl, cx = run["deadline_rid"], run["cancelled"]
+    if not (eng.status[dl] is RequestStatus.DEADLINE_EXCEEDED
+            and 0 < len(eng.results[dl]) < new):
+        raise AssertionError(f"overload: request {dl} did not end "
+                             f"DEADLINE_EXCEEDED with partial output "
+                             f"({eng.status[dl]}, "
+                             f"{len(eng.results[dl])} tokens)")
+    if cx is None or eng.status[cx] is not RequestStatus.CANCELLED:
+        raise AssertionError("overload: no running request was cancelled")
+    if not (launches["decode"] > 0 and launches["prefill"] > 0):
+        raise AssertionError(f"overload: a kernel was not launched: "
+                             f"{launches}")
+
+    # the same requests, uninterrupted: a full pool, no faults, no
+    # deadline, no cancel
+    resumed = sorted(run["logits"])
+    base = drive_overload(torch, cfg, params, prompts, num_pages=0,
+                          faults=False, lifecycle=False,
+                          want=set(resumed) | {(r, 0) for r in rids[:4]})
+    beng = base["engine"]
+    done = [r for r in rids if eng.status[r] in
+            (RequestStatus.FINISHED, RequestStatus.PREEMPTED_RESUMED)]
+    same = sum(eng.results[r] == beng.results[r] for r in done)
+    log(f"[overload] against the same requests served uninterrupted (a full "
+        f"pool, no faults, no deadline or cancel; {beng.preemptions} "
+        f"preemptions there): {same}/{len(done)} finished requests give "
+        f"the same tokens (bf16: recompute writes the resumed rows through "
+        f"the prefill kernel, so this is reported, not required)")
+    match = [(r, k) for r, k in resumed
+             if eng.results[r][:k] == beng.results[r][:k]
+             and (r, k) in base["logits"]]
+    if not match:
+        raise AssertionError(f"overload: no resumed request kept the "
+                             f"uninterrupted run's tokens up to its resume "
+                             f"({resumed})")
+    r, k = match[0]
+    got, want = run["logits"][(r, k)], base["logits"][(r, k)]
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    lim = LOGIT_ULPS * 2.0 ** -8 * scale
+    log(f"[overload] resumed request {r}: logits of its first token after "
+        f"the resume (output {k}, through the prefill kernel) against the "
+        f"uninterrupted run's at the same position (a decode step): "
+        f"max|diff|={err:.4e}, bound {lim:.4e} ({LOGIT_ULPS} bf16 ulps of "
+        f"the logit scale {scale:.3f}); argmax "
+        f"{'agrees' if got.argmax() == want.argmax() else 'differs'}")
+    if not err <= lim:
+        raise AssertionError(f"overload: resumed logits drift {err:.4e} > "
+                             f"{lim:.4e}")
+
+    # int8 pools: the first four requests, the same oversold pool
+    q = drive_overload(torch, cfg, params, prompts[:4],
+                       num_pages=OVERLOAD_CFG["num_pages"], faults=False,
+                       lifecycle=False, want={(r, 0) for r in rids[:4]},
+                       kv_dtype="int8")
+    qeng = q["engine"]
+    qst = overload_checks(q, cfg.vocab_size, new)
+    drift = []
+    for r in rids[:4]:
+        a, b = q["logits"][(r, 0)], base["logits"][(r, 0)]
+        drift.append((a - b).abs().max().item() / b.abs().max().item())
+    log(f"[overload] int8 pools, the first 4 requests on the same pool: "
+        f"statuses {[s.value for s in qst]}, {qeng.preemptions} "
+        f"preemptions ({q['capacity']} for capacity), "
+        f"{qeng.recompute_tokens} recomputed tokens, kv.check() clean every "
+        f"tick; first-token logits against the bf16 run: max|diff| / logit "
+        f"scale {', '.join(f'{d:.4f}' for d in drift)} (reported); "
+        f"{sum(qeng.results[r] == beng.results[r] for r in rids[:4])}/4 "
+        f"requests give the bf16 tokens")
+    return dict(tok_s=tok_s, overhead=overhead, split=split, peak=peak,
+                launches=launches, preemptions=eng.preemptions,
+                capacity=run["capacity"], recompute=eng.recompute_tokens,
+                same=same, done=len(done), counts=counts, drift=drift,
+                logit_err=err, logit_lim=lim)
 
 
 def _leaves(tree):
@@ -914,6 +1278,122 @@ def parity_phase(torch):
     if stats[0] != stats[1] or not all(stats[0]):
         raise AssertionError(f"parity: sharing counters {stats} differ or "
                              f"are zero")
+    overload_parity(torch, cfg, params)
+
+
+def overload_schedules(engine_for, vocab):
+    """tests/test_overload_props.py's two regression schedules and one
+    seeded ``FaultPlan.random`` fuzz run (its oversubscription schedule:
+    10 requests over 7 pages, bursts, deadlines, cancels).  ``engine_for
+    (**serve)`` builds the engine.  Returns one (engine, [(rid, prompt,
+    budget)]) per schedule, each drained."""
+    import numpy as np
+
+    from repro_torch.serve.faults import FaultEvent, FaultPlan
+
+    def drain(engine):
+        while engine.busy or engine._squeezed:
+            engine.step()
+            engine.kv.check()
+            engine._pindex.check(engine.slots)
+            if engine.ticks > 2000:
+                raise AssertionError("parity: the engine did not drain")
+
+    out = []
+    rng = np.random.RandomState(0)               # the formerly crashing one
+    eng = engine_for(max_batch=2, max_seq=8, page_size=4, num_pages=3,
+                     prefill_chunk=2, max_new_tokens=4)
+    work = []
+    for _ in range(2):
+        p = rng.randint(0, vocab, size=3).astype(np.int32)
+        work.append((eng.submit(p, 4), p, 4))
+    drain(eng)
+    out.append((eng, work))
+    rng = np.random.RandomState(1)               # forced eviction
+    eng = engine_for(max_batch=2, max_seq=32, page_size=4, prefill_chunk=2,
+                     max_new_tokens=5)
+    p = rng.randint(0, vocab, size=5).astype(np.int32)
+    work = [(eng.submit(p, 5), p, 5)]
+    eng.install_faults(FaultPlan([FaultEvent(3, "evict", slot=0),
+                                  FaultEvent(6, "evict", slot=0)]))
+    drain(eng)
+    out.append((eng, work))
+    seed = 28                                    # the fuzz, faults on
+    rng = np.random.RandomState(seed)
+    eng = engine_for(max_batch=3, max_seq=48, page_size=4, num_pages=8,
+                     prefill_chunk=3, max_new_tokens=5)
+    eng.install_faults(FaultPlan.random(seed, n_events=5, max_tick=10,
+                                        max_batch=3, max_pages=3,
+                                        max_duration=4))
+    pending = [(rng.randint(0, vocab, size=rng.choice((3, 5, 8)))
+                .astype(np.int32), int(rng.choice((3, 5))),
+                int(rng.randint(4, 25)) if rng.rand() < 0.3 else 0)
+               for _ in range(10)]
+    work, ticks = [], 0
+    while pending or eng.busy:
+        if pending and (ticks % 5 == 0 or not eng.busy):
+            for _ in range(min(len(pending), rng.randint(2, 5))):
+                p, b, dl = pending.pop()
+                work.append((eng.submit(p, b, deadline_ticks=dl), p, b))
+        if rng.rand() < 0.15 and work:
+            eng.cancel(int(rng.choice(sorted(r for r, _, _ in work))))
+        if eng.busy:
+            eng.step()
+            eng.kv.check()
+        ticks += 1
+    drain(eng)
+    out.append((eng, work))
+    return out
+
+
+def overload_parity(torch, cfg, params):
+    """The f32 gate of overload handling: ``overload_schedules`` on the
+    kernel path and on the plain path, against each request served
+    uninterrupted on the kernel path (a full pool, no faults).  Every
+    finished and resumed request gives the uninterrupted tokens on both
+    paths, a cancelled or expired one a prefix of them, and the two paths
+    agree on every status and result."""
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import (PagedEngine, RequestStatus,
+                                          ServeConfig)
+    runs = [overload_schedules(
+        lambda **serve: PagedEngine(get_model(cfg, plain_attention=plain),
+                                    params, ServeConfig(**serve)),
+        cfg.vocab_size) for plain in (False, True)]
+    alone = PagedEngine(get_model(cfg), params,
+                        ServeConfig(max_batch=1, max_seq=64, page_size=4))
+    names = ("formerly crashing", "forced eviction", "FaultPlan.random(28)")
+    resumed = 0
+    for name, (ke, work), (pe, _) in zip(names, *runs):
+        want = {}
+        for r, p, b in work:
+            rid = alone.submit(p, b)
+            alone.run()
+            want[r] = alone.results[rid]
+        st = {r: ke.status[r] for r, _, _ in work}
+        ok = 0
+        for r, _, _ in work:
+            got = ke.results[r]
+            if st[r] in (RequestStatus.FINISHED,
+                         RequestStatus.PREEMPTED_RESUMED):
+                ok += got == want[r]
+            else:
+                ok += got == want[r][:len(got)]
+        same = ({r: (pe.status[r], pe.results[r]) for r, _, _ in work}
+                == {r: (st[r], ke.results[r]) for r, _, _ in work})
+        resumed += sum(s is RequestStatus.PREEMPTED_RESUMED
+                       for s in st.values())
+        log(f"[parity] overload, {name}: {len(work)} requests, statuses "
+            f"{sorted(s.value for s in st.values())}, {ke.preemptions} "
+            f"preemptions, {ke.quarantines} quarantines, faults "
+            f"{ke.fault_counts}; {ok}/{len(work)} as served uninterrupted "
+            f"(partial ones a prefix), kernel and plain paths "
+            f"{'agree' if same else 'DIFFER'}")
+        if ok != len(work) or not same:
+            raise AssertionError(f"parity: overload schedule {name} "
+                                 f"diverges in f32")
+    if not resumed:
+        raise AssertionError("parity: no request was preempted and resumed")
 
 
 # ---------------------------------------------------------------------------
@@ -1986,6 +2466,8 @@ def main() -> int:
                                                    prefill_paged.KERNEL)
     share = share_phase(torch, cfg, params, paged.KERNEL,
                         prefill_paged.KERNEL)
+    over = overload_phase(torch, cfg, params, paged.KERNEL,
+                          prefill_paged.KERNEL)
     wb = whole_batch_phase(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -2040,6 +2522,15 @@ def main() -> int:
             "replaces": f"src/repro/kernels/stream/stream.py:{line}",
             "launches": s_launches[name], "max_abs_err": s_errs[name],
             **t})
+    log(f"[summary] host_ms_trace median/p90 per busy tick: "
+        + ", ".join(f"{name} {h['med']:.3f}/{h['p90']:.3f} ms "
+                    f"({100 * h['share']:.1f}% of step())"
+                    for name, h in (("serve", sv["host"]),
+                                    ("share", share["host"]),
+                                    ("overload", over["split"])))
+        + f"; overload tokens/s {over['tok_s']:.1f}, recompute overhead "
+        f"{over['overhead']:.3f}, {over['preemptions']} preemptions "
+        f"({over['capacity']} for capacity); on {gpu}")
     log(f"[summary] serve tokens/s {tok_s:.1f} (sharing off); share tokens/s "
         f"{share['tok_s']:.1f} ({share['shared']} shared tokens, logical/"
         f"physical x{share['ratio']:.3f}, {share['hits']} retained "

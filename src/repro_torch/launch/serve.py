@@ -8,6 +8,8 @@ whole-batch lockstep generation, on one card.
     python -m repro_torch.launch.serve --local-smoke --device cpu
     python -m repro_torch.launch.serve --local-smoke --device cpu \
         --no-prefix-sharing
+    python -m repro_torch.launch.serve --local-smoke --device cpu \
+        --kv-dtype int8 --max-queue 4 --deadline-ticks 40
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device
 (nothing is downloaded).  The demo workloads are the JAX launcher's: for
@@ -17,8 +19,13 @@ plus a short random tail, with staggered output budgets; for
 arch (falcon-mamba-7b) is served whole-batch only: the paged engine
 refuses it, as the JAX package's does.  Prefix sharing and cross-lifetime
 retention are on by default, as in the JAX launcher, which reports the
-same sharing and retention lines.  Preemption, deadlines, speculation,
-snapshots and int8 pools are not ported yet, so their flags are absent.
+same sharing and retention lines; so are preempt-and-recompute and the
+overload flags (``--no-preempt``, ``--preempt-policy``, ``--max-queue``,
+``--deadline-ticks``, ``--wedge-ticks``) and ``--kv-dtype int8``.  The
+overload line gives the preemptions, the recomputed tokens and the
+requests' terminal statuses; the host line the median and p90 of the
+engine's per-tick host time.  Speculation, snapshots and the
+prefill-by-decode lane are not ported yet, so their flags are absent.
 """
 import argparse
 import sys
@@ -58,6 +65,29 @@ def main() -> int:
     ap.add_argument("--retain-pool-pages", type=int, default=0,
                     help="cap on retained-only pages held idle (0 = "
                          "pool-bounded: pressure reclaims them lazily)")
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"),
+                    help="paged KV pool storage: the model's dtype or int8 "
+                         "rows with per-row f32 scales")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission: reject submits once this many "
+                         "requests wait (0 = unbounded)")
+    ap.add_argument("--deadline-ticks", type=int, default=0,
+                    help="per-request tick deadline (0 = none): a request "
+                         "still unfinished this many ticks after submit "
+                         "ends DEADLINE_EXCEEDED with its partial output")
+    ap.add_argument("--preempt-policy", default="fewest-tokens",
+                    choices=("fewest-tokens", "most-pages"),
+                    help="victim when no slot can get pages: the request "
+                         "with the fewest generated tokens, or the one "
+                         "holding the most pages; it requeues and "
+                         "recomputes")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="disable preempt-and-recompute: a pool that "
+                         "cannot give any slot capacity raises 'page pool "
+                         "exhausted'")
+    ap.add_argument("--wedge-ticks", type=int, default=10_000,
+                    help="consecutive idle-but-busy ticks before the "
+                         "engine declares itself wedged and raises")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=4,
                     help="decode steps per engine tick")
@@ -79,6 +109,16 @@ def main() -> int:
         ap.error("--prefill-chunk-tokens must be >= 0 (0 = auto)")
     if args.retain_pool_pages < 0:
         ap.error("--retain-pool-pages must be >= 0 (0 = pool-bounded)")
+    if args.max_queue < 0:
+        ap.error("--max-queue must be >= 0 (0 = unbounded admission)")
+    if args.deadline_ticks < 0:
+        ap.error("--deadline-ticks must be >= 0 (0 = no deadline)")
+    if args.wedge_ticks < 1:
+        ap.error("--wedge-ticks must be >= 1 (idle ticks before the "
+                 "wedge tripwire fires)")
+    if args.kv_dtype == "int8" and args.whole_batch:
+        ap.error("--kv-dtype int8 quantizes the paged engine's page pools; "
+                 "the whole-batch cache has none")
     if args.no_prefix_sharing and not args.no_retain_prefixes \
             and not args.whole_batch:
         print("[launch.serve] NOTE: --no-prefix-sharing disables the "
@@ -91,8 +131,8 @@ def main() -> int:
 
     from repro_torch import configs
     from repro_torch.models.model import get_model
-    from repro_torch.serve.engine import (PagedEngine, ServeConfig,
-                                          ServingEngine)
+    from repro_torch.serve.engine import (PagedEngine, RequestStatus,
+                                          ServeConfig, ServingEngine)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("[launch.serve] no CUDA device: the port serves on the card "
@@ -108,7 +148,8 @@ def main() -> int:
                  f"previous occupant's state)")
     if args.local_smoke:
         cfg = cfg.reduced()
-    cfg = dataclasses.replace(cfg, pages_per_step=args.pages_per_step)
+    cfg = dataclasses.replace(cfg, pages_per_step=args.pages_per_step,
+                              kv_dtype=args.kv_dtype)
     model = get_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -125,7 +166,12 @@ def main() -> int:
                        prefix_sharing=not args.no_prefix_sharing,
                        retain_prefixes=not args.no_retain_prefixes,
                        retain_policy=args.retain_policy,
-                       retain_pool_pages=args.retain_pool_pages)
+                       retain_pool_pages=args.retain_pool_pages,
+                       preempt=not args.no_preempt,
+                       preempt_policy=args.preempt_policy,
+                       max_queue=args.max_queue,
+                       deadline_ticks=args.deadline_ticks,
+                       wedge_ticks=args.wedge_ticks)
     rng = np.random.RandomState(0)
     if args.whole_batch:
         return whole_batch(ServingEngine(model, params, scfg), rng, cfg,
@@ -165,6 +211,21 @@ def main() -> int:
           f"adoptions ({engine.kv.retained_hit_tokens} tokens re-shared "
           f"from dead donors), {engine.kv.retained_pages} pages retained, "
           f"{engine.kv.retained_reclaimed_pages} reclaimed under pressure")
+    n_status = {s.value: sum(1 for r in rids if engine.status[r] == s)
+                for s in RequestStatus}
+    print(f"[launch.serve] overload: {engine.preemptions} preemptions "
+          f"({engine.recompute_tokens} recomputed tokens), "
+          f"{engine.rejected} rejected, "
+          f"{engine.deadline_exceeded} deadline-exceeded, "
+          f"{engine.no_progress_ticks} no-progress ticks; statuses "
+          + ", ".join(f"{k}={v}" for k, v in n_status.items() if v))
+    host = engine.host_ms_trace
+    if host:
+        print(f"[launch.serve] host: {len(host)} busy ticks, host ms per "
+              f"tick median {np.median(host):.3f} p90 "
+              f"{np.percentile(host, 90):.3f} ({device}), "
+              f"{np.mean(engine.dispatch_trace):.2f} device calls and "
+              f"{np.mean(engine.upload_trace):.0f} upload bytes per tick")
     return 0
 
 

@@ -25,13 +25,16 @@ those pages (``match_retained`` / ``adopt_retained``).  Retained pages are
 reclaimable: ``_alloc_page`` drops entries in policy order before it
 reports a dry pool.
 
-Not ported yet: seized pages (the fault-injection squeeze) and
-``warm_copy`` (see ``cow_flush``).
+Fault injection's pool pressure (``seize_pages``) moves pages from the
+free list (reclaiming retained ones first, as any allocation does) into a
+SEIZED set until ``release_pages`` returns them.  Not ported: ``warm_copy``
+(see ``cow_flush``).
 
 Invariants (``check()``): every page's refcount equals its block-table
-references; the null page, the referenced pages, the free list and the
-retained-only pages partition [0, num_pages) — no page is double-
-allocated, leaked, or freed while referenced or retained.
+references; the null page, the referenced pages, the free list, the
+seized pages and the retained-only pages partition [0, num_pages) — no
+page is double-allocated, leaked, or freed while referenced, seized or
+retained.
 """
 from __future__ import annotations
 
@@ -119,6 +122,9 @@ class PagedKVCache:
         # (dst, src, slot, blk) pairs reserved by cow_reserve(), copied by
         # the tick's one cow_flush()
         self._pending_cow: List[Tuple[int, int, int, int]] = []
+        # pages the fault injection's squeeze took from the free list: not
+        # allocatable, not referenced, counted by check()
+        self.seized: Set[int] = set()
         # slot rows whose table/length changed since the engine last
         # synced its device mirrors
         self.dirty: Set[int] = set(range(max_batch))
@@ -269,6 +275,27 @@ class PagedKVCache:
         b1 = (hi_tok - 1) // self.page
         return [b for b in range(b0, min(b1, len(self.owned[i]) - 1) + 1)
                 if self.refcount[self.owned[i][b]] > 1]
+
+    def seize_pages(self, n: int) -> List[int]:
+        """Pool pressure (fault injection): move up to ``n`` pages into the
+        SEIZED set, unallocatable until ``release_pages``.  They come
+        through ``_alloc_page``, so a squeeze deeper than the free list
+        drains the retained pool too.  Returns the seized page ids."""
+        took = []
+        while len(took) < n:
+            pg = self._alloc_page()
+            if pg is None:
+                break
+            took.append(pg)
+        self.seized.update(took)
+        return took
+
+    def release_pages(self, pages: Iterable[int]) -> None:
+        """Return previously seized pages to the free list."""
+        for pg in pages:
+            assert pg in self.seized, f"page {pg} was not seized"
+            self.seized.discard(pg)
+            self.free.append(pg)
 
     def free_slot(self, i: int, retain_tokens=None) -> None:
         """Eviction: cancel the slot's pending copies (a copy into a page
@@ -491,9 +518,10 @@ class PagedKVCache:
         page's refcount equals its block-table references, every page's
         retained count its retaining entries, every entry is page-aligned
         and registered under exactly its digest keys, and the null page,
-        the referenced pages, the free list and the retained-only pages
-        partition [0, num_pages).  ``allow_pending`` checks the mid-plan
-        state: pending copies may touch live pages only."""
+        the referenced pages, the free list, the seized pages and the
+        retained-only pages partition [0, num_pages).  ``allow_pending``
+        checks the mid-plan state: pending copies may touch live pages
+        only."""
         if allow_pending:
             free = set(self.free)
             for (q, pg, s, b) in self._pending_cow:
@@ -519,6 +547,8 @@ class PagedKVCache:
                 f"{refs.get(p, 0)} table references"
         assert len(set(self.free)) == len(self.free), "free-list duplicate"
         assert not set(refs) & set(self.free), "page both referenced and free"
+        assert not self.seized & set(refs), "seized page still referenced"
+        assert not self.seized & set(self.free), "seized page still free"
         rr = Counter(p for e in self.retained for p in e.pages)
         assert 0 not in rr, "null page retained"
         for p in range(1, self.num_pages):
@@ -526,6 +556,7 @@ class PagedKVCache:
                 f"page {p}: retained_refs {self.retained_refs[p]} != " \
                 f"{rr.get(p, 0)} retaining entries"
         assert not set(rr) & set(self.free), "retained page in the free list"
+        assert not set(rr) & self.seized, "retained page seized"
         for e in self.retained:
             assert e.pages and len(e.tokens) == self.page * len(e.pages), \
                 "retained entry is not page-aligned"
@@ -541,16 +572,17 @@ class PagedKVCache:
         assert n_keys == sum(len(e.keys) for e in self.retained), \
             "digest map holds keys for a dropped entry"
         retained_only = {p for p in rr if self.refcount[p] == 0}
-        assert set(refs) | set(self.free) | retained_only \
+        assert set(refs) | set(self.free) | self.seized | retained_only \
             == set(range(1, self.num_pages)), "page leaked"
 
     # -- defrag ----------------------------------------------------------------
 
     def defrag(self) -> None:
         """Compact the occupied pages to the pool's prefix — [null | live |
-        retained-only | free] — and renumber every table and retained
-        entry through the same permutation (a page shared by several
-        tables moves once).  Pending copies address the old page ids, so
+        retained-only | seized | free] — and renumber every table, retained
+        entry and seized page through the same permutation (a page shared
+        by several tables moves once); seized pages stay out of the rebuilt
+        free list.  Pending copies address the old page ids, so
         they are flushed first; every row is marked dirty.  Purely
         physical: outputs are the same across a defrag.
 
@@ -576,7 +608,12 @@ class PagedKVCache:
                     mapping[pg] = len(perm)
                     perm.append(pg)
             e.pages = [mapping[pg] for pg in e.pages]
-        kept = len(perm) - 1             # live + retained-only
+        for pg in sorted(self.seized):   # seized keep their rows, renumbered
+            if pg not in mapping:
+                mapping[pg] = len(perm)
+                perm.append(pg)
+        self.seized = {mapping[pg] for pg in self.seized}
+        kept = len(perm) - 1             # live + retained-only + seized
         perm.extend(p for p in range(1, self.num_pages) if p not in mapping)
         new_rc = np.zeros_like(self.refcount)
         new_rr = np.zeros_like(self.retained_refs)

@@ -30,19 +30,30 @@ prefix stays adoptable after the slot is gone (``PagedKVCache``'s retained
 pool) — the JAX engine's defaults, ``prefix_sharing`` and
 ``retain_prefixes``.
 
+Overload is handled as in the JAX engine: ``submit`` rejects a request
+that can never fit (``max_blocks``, the pool) or arrives past
+``max_queue``; a request may carry a tick deadline; ``cancel`` ends a
+queued or running one; and a tick where no slot can get step capacity
+preempts a victim (``TickScheduler.pick_victim``), which requeues at the
+front with its emitted output and recomputes it through the prefill lane
+(``PREEMPTED_RESUMED``).  A seeded ``FaultPlan`` (``serve/faults.py``)
+injects pool squeezes, forced evictions, dropped grants and poisoned
+tokens; an always-on guard quarantines a slot that samples a token outside
+the vocabulary.  int8 pools ride the tick with their scale pools.  Under
+``trace_ticks`` each tick that runs device work records its host time
+(``host_ms_trace``: wall time less the wait for the device), its device
+calls (``dispatch_trace``) and its upload bytes (``upload_trace``).
+
 Not ported yet, and refused with ``NotImplementedError`` where a config
-asks for them: preemption, deadlines, bounded queues, fault injection,
-speculation, snapshots, the prefill-by-decode lane, int8 pools in the
-engine, and a pool smaller than every slot's full table.  With the pool
-sized to fit every slot no tick can need preemption; if one ever does,
-the engine raises instead of stalling.
+asks for them: speculation, snapshots (and so recovery from a ``kill``
+fault) and the prefill-by-decode lane.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -50,15 +61,16 @@ import torch
 from repro_torch.models.model import Model, sample_token
 from repro_torch.models.transformer import check_supported
 from repro_torch.serve.cache import PagedKVCache, digest_step
+from repro_torch.serve.faults import EngineKilled
 from repro_torch.serve.scheduler import TickScheduler
 
 
 @dataclasses.dataclass
 class ServeConfig:
     """The JAX package's ``ServeConfig``, field for field, with its
-    defaults, which ``PagedEngine`` serves as they are (prefix sharing and
-    retention on).  It refuses the features this port lacks (see the
-    module docstring)."""
+    defaults, which ``PagedEngine`` serves as they are (prefix sharing,
+    retention and preemption on).  It refuses the features this port
+    lacks (see the module docstring)."""
     max_batch: int = 4
     max_seq: int = 128
     max_new_tokens: int = 16
@@ -96,20 +108,33 @@ class ServeConfig:
 
 
 class RequestStatus(enum.Enum):
-    QUEUED = "queued"
+    """Request lifecycle: every submitted rid ends in a terminal status."""
+    QUEUED = "queued"                  # waiting for a slot (incl. requeued)
     RUNNING = "running"
-    FINISHED = "finished"
-    PREEMPTED_RESUMED = "preempted_resumed"
-    REJECTED = "rejected"
-    CANCELLED = "cancelled"
-    DEADLINE_EXCEEDED = "deadline_exceeded"
+    FINISHED = "finished"              # completed, never preempted
+    PREEMPTED_RESUMED = "preempted_resumed"  # completed after a preemption
+    REJECTED = "rejected"              # failed admission at submit()
+    CANCELLED = "cancelled"            # cancel(); partial output kept
+    DEADLINE_EXCEEDED = "deadline_exceeded"  # partial output kept
+
+
+TERMINAL_STATUSES = frozenset({
+    RequestStatus.FINISHED, RequestStatus.PREEMPTED_RESUMED,
+    RequestStatus.REJECTED, RequestStatus.CANCELLED,
+    RequestStatus.DEADLINE_EXCEEDED})
 
 
 @dataclasses.dataclass
 class Request:
+    """One submitted request.  ``prompt`` never changes; ``emitted``
+    gathers the output across preemptions (replayed as prompt on
+    re-admission); ``max_new_tokens`` is the total output budget."""
     rid: int
     prompt: np.ndarray                # (S,) int32
     max_new_tokens: int
+    deadline_tick: int = -1           # absolute engine tick; -1 = none
+    emitted: List[int] = dataclasses.field(default_factory=list)
+    preempts: int = 0                 # times this request lost its slot
 
 
 @dataclasses.dataclass
@@ -357,16 +382,13 @@ class _PrefixIndex:
                     f"key {key} names slot {s_id} beyond its indexed length"
 
 
-def _refuse_unported(cfg: ServeConfig, model: Model, full_pool: int) -> None:
+
+
+def _refuse_unported(cfg: ServeConfig) -> None:
     asks = {
         "spec_k": cfg.spec_k > 0,
         "snapshot_every_ticks": cfg.snapshot_every_ticks > 0,
         "prefill_lane=False": not cfg.prefill_lane,
-        "kv_dtype='int8'": model.cfg.kv_quantized,
-        "deadline_ticks": cfg.deadline_ticks > 0,
-        "max_queue": cfg.max_queue > 0,
-        "num_pages below every slot's full table":
-            0 < cfg.num_pages < full_pool,
     }
     missing = [name for name, on in asks.items() if on]
     if missing:
@@ -381,16 +403,18 @@ class PagedEngine:
     own pages, so a request admitted mid-flight starts at position 0 and
     its greedy output equals a fresh single-request run; a shared or
     adopted prefix references the same K/V rows a fresh run would write,
-    so sharing does not change the tokens either."""
+    and a preempted request replays its prompt and emitted output through
+    the prefill lane, so neither sharing nor preemption changes the
+    tokens in f32 (in bf16 the recomputed rows round as a prefill chunk
+    rounds, not as the decode steps that first wrote them)."""
 
     def __init__(self, model: Model, params, cfg: ServeConfig):
         self.model = model
         self.params = params
         self.cfg = cfg
         B = cfg.max_batch
-        max_blocks = cfg.max_blocks or -(-cfg.max_seq // cfg.page_size)
         check_supported(model.cfg, paged=True)
-        _refuse_unported(cfg, model, B * max_blocks + 1)
+        _refuse_unported(cfg)
         self.device = params["embed"].device
         self._chunk = max(1, cfg.prefill_chunk)
         self._chunk_tokens = (cfg.prefill_chunk_tokens
@@ -417,39 +441,77 @@ class PagedEngine:
         self.kv.dirty.clear()            # mirrors start in sync (all zero)
         self._pindex = _PrefixIndex()
         self.scheduler = TickScheduler(fairness=cfg.fairness,
-                                       tick_budget=cfg.tick_budget)
+                                       tick_budget=cfg.tick_budget,
+                                       preempt_policy=cfg.preempt_policy)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self.slots = [_Slot() for _ in range(B)]
         self.queue: List[Request] = []
         self.results: Dict[int, List[int]] = {}
+        self._reqs: Dict[int, Request] = {}
         self.status: Dict[int, RequestStatus] = {}
         self.reject_reason: Dict[int, str] = {}
         self._feed = np.full((B,), cfg.pad_id, np.int32)
         self._next_rid = 0
-        self.ticks = 0                    # step() calls
+        self.ticks = 0                    # step() calls, idle ones too
+                                          # (the deadline and fault clock)
         self.steps_run = 0                # ticks that ran device work
+        self._idle = 0                    # consecutive no-work busy ticks
+        self.no_progress_ticks = 0        # all no-work busy ticks
         self.joins = 0
         self.rejected = 0
+        self.preemptions = 0              # capacity preemptions + evictions
+        self.recompute_tokens = 0         # tokens re-appended on resume
+        self.cancelled = 0
+        self.deadline_exceeded = 0
+        self.quarantines = 0              # poison-triggered requeues
+        self.dropped_grants = 0           # granted tokens a fault dropped
+        self.fault_counts: Dict[str, int] = {}
+        self._quarantined: Dict[int, int] = {}  # slot -> usable-again tick
+        self._squeezed: List[Tuple[int, List[int]]] = []  # (release, pages)
+        self._faults = None               # the armed FaultPlan
+        self._drop_slots: Set[int] = set()
+        self._poison_slots: Set[int] = set()
+        self.stalls = 0
+        self.tokens_out = 0               # kept output tokens
         self.shared_tokens = 0            # prompt tokens served by reference
         self.tokens_appended = 0          # fresh K/V rows written
         self.util_trace: List[float] = []        # per-tick page utilization
         self.occupancy_trace: List[float] = []   # per-tick row occupancy
+        # host-to-device bytes: dirty table/length rows, prefill-lane token
+        # blocks and grants, and all of a tick's uploads
+        self.table_upload_bytes = 0
+        self.prefill_upload_bytes = 0
+        self.upload_bytes = 0
+        self.host_ms_trace: List[float] = []     # host work per busy tick
+        self.dispatch_trace: List[int] = []      # device calls per busy tick
+        self.upload_trace: List[int] = []        # bytes uploaded per tick
 
     # -- request lifecycle ----------------------------------------------
 
     def _admissible(self, prompt: np.ndarray, mnt: int) -> Optional[str]:
+        """None if the request can complete on this engine, otherwise the
+        reason it is rejected."""
         total = int(prompt.size) + mnt
         blocks = -(-total // self.kv.page)
         if blocks > self.kv.max_blocks:
             return (f"prompt+output needs {blocks} blocks > max_blocks="
                     f"{self.kv.max_blocks} (max_seq={self.cfg.max_seq})")
+        if blocks > self.kv.num_pages - 1:
+            return (f"prompt+output needs {blocks} blocks > pool of "
+                    f"{self.kv.num_pages - 1} allocatable pages")
+        if self.cfg.max_queue > 0 and len(self.queue) >= self.cfg.max_queue:
+            return f"queue full ({self.cfg.max_queue} requests waiting)"
         return None
 
     def submit(self, prompt: np.ndarray,
-               max_new_tokens: Optional[int] = None) -> int:
-        """Queue a request; one that can never fit a slot's block table
-        gets a ``REJECTED`` status (reason in ``reject_reason[rid]``)."""
+               max_new_tokens: Optional[int] = None,
+               deadline_ticks: Optional[int] = None) -> int:
+        """Queue a request.  One that can never fit a slot's block table
+        or the page pool, or arrives while ``max_queue`` requests wait,
+        gets a ``REJECTED`` status (reason in ``reject_reason[rid]``).
+        ``deadline_ticks`` (default ``cfg.deadline_ticks``; 0 = none)
+        bounds the engine ticks the request may stay live."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.size == 0:
             raise ValueError("empty prompt: a slot needs at least one "
@@ -464,9 +526,35 @@ class PagedEngine:
             self.results[rid] = []
             self.rejected += 1
             return rid
+        dl = self.cfg.deadline_ticks if deadline_ticks is None \
+            else deadline_ticks
+        req = Request(rid, prompt, mnt,
+                      deadline_tick=self.ticks + dl if dl > 0 else -1)
+        self._reqs[rid] = req
         self.status[rid] = RequestStatus.QUEUED
-        self.queue.append(Request(rid, prompt, mnt))
+        self.queue.append(req)
         return rid
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a queued or running request: its partial output stays in
+        ``results[rid]``, its slot and pages are released.  False if the
+        rid is unknown or already terminal."""
+        st = self.status.get(rid)
+        if st is None or st in TERMINAL_STATUSES:
+            return False
+        req = self._reqs[rid]
+        if st is RequestStatus.QUEUED:
+            self.queue.remove(req)
+        else:
+            i = next((j for j, s in enumerate(self.slots)
+                      if s.active and s.rid == rid), -1)
+            if i >= 0:
+                req.emitted.extend(self.slots[i].out)
+                self._release_slot(i)
+        self.results[rid] = list(req.emitted)
+        self.status[rid] = RequestStatus.CANCELLED
+        self.cancelled += 1
+        return True
 
     @property
     def busy(self) -> bool:
@@ -477,6 +565,55 @@ class PagedEngine:
         while self.busy:
             self.step()
         return self.results
+
+    # -- fault injection ------------------------------------------------
+
+    def install_faults(self, plan) -> None:
+        """Arm a ``FaultPlan``; its events fire at the top of their tick.
+        Squeezed pages go back when their duration ends (idle ticks
+        included).  A ``kill`` raises ``EngineKilled``; recovering from
+        one needs a snapshot, which the port does not have yet."""
+        self._faults = plan
+
+    def _apply_faults(self) -> None:
+        now = self.ticks
+        if self._squeezed:                # releases first: a squeeze never
+            keep = []                     # outlives its duration
+            for until, pages in self._squeezed:
+                if until <= now:
+                    self.kv.release_pages(pages)
+                else:
+                    keep.append((until, pages))
+            self._squeezed = keep
+        if self._faults is None:
+            return
+        events = self._faults.events_at(now)
+        for ev in events:
+            if ev.kind == "kill":         # process death: no state advanced
+                self.fault_counts["kill"] = \
+                    self.fault_counts.get("kill", 0) + 1
+                raise EngineKilled(now)
+        for ev in events:
+            self.fault_counts[ev.kind] = self.fault_counts.get(ev.kind, 0) + 1
+            if ev.kind == "squeeze":      # pool pressure
+                pages = self.kv.seize_pages(ev.pages)
+                if pages:
+                    self._squeezed.append((now + max(1, ev.duration), pages))
+            elif ev.kind == "evict":      # forced eviction -> requeue
+                i = ev.slot
+                if not (0 <= i < len(self.slots) and self.slots[i].active):
+                    i = next((j for j, s in enumerate(self.slots)
+                              if s.active), -1)
+                if i >= 0:
+                    self._preempt(i)
+            elif ev.kind == "drop":       # this tick's grant vanishes
+                self._drop_slots.update(
+                    range(len(self.slots)) if ev.slot < 0 else (ev.slot,))
+            elif ev.kind == "poison":     # sampled tokens out of vocabulary
+                self._poison_slots.update(
+                    range(len(self.slots)) if ev.slot < 0 else (ev.slot,))
+
+    # -- admission, preemption, expiry ------------------------------------
 
     def _find_donor(self, prompt: List[int]):
         """Longest common prefix of ``prompt`` with (a) a live slot's
@@ -513,7 +650,11 @@ class PagedEngine:
         for i, slot in enumerate(self.slots):
             if slot.active or not self.queue:
                 continue
-            prompt = [int(t) for t in self.queue[0].prompt]
+            if self._quarantined.get(i, 0) > self.ticks:
+                continue                   # a poisoned slot sits out
+            head = self.queue[0]
+            # a resumed request replays its emitted output as prompt
+            prompt = [int(t) for t in head.prompt] + list(head.emitted)
             kind, ref, n_shared = (None, None, 0)
             if self.cfg.prefix_sharing:
                 kind, ref, n_shared = self._find_donor(prompt)
@@ -529,30 +670,91 @@ class PagedEngine:
             self.kv.ensure(i, n_shared + 1)
             self.slots[i] = _Slot(rid=req.rid, forced=prompt[n_shared + 1:],
                                   out=[], history=prompt[:n_shared],
-                                  budget=req.max_new_tokens,
+                                  budget=req.max_new_tokens
+                                  - len(req.emitted),
                                   prompt_left=len(prompt) - n_shared,
                                   active=True)
             if self.cfg.prefix_sharing:
                 self._pindex.add(i, prompt[:n_shared])
             self._feed[i] = prompt[n_shared]
             self.status[req.rid] = RequestStatus.RUNNING
+            if req.preempts:               # shared tokens cost nothing
+                self.recompute_tokens += len(prompt) - n_shared
             self.joins += 1
 
     def _release_slot(self, i: int) -> None:
         """Return slot ``i`` to the pool: its prefix index entries dropped,
         its pages freed refcount-aware (a shared page stays for its other
         referents) and, with retention on, its history's page-aligned
-        prefix kept in the retained pool."""
+        prefix kept in the retained pool (a preempted victim's resume
+        adopts it)."""
         history = self.slots[i].history
         self.slots[i] = _Slot()
         self._feed[i] = self.cfg.pad_id
         self._pindex.drop(i)
         self.kv.free_slot(i, retain_tokens=history if self._retain else None)
 
+    def _preempt(self, i: int, quarantine: bool = False) -> None:
+        """Evict slot ``i`` and requeue its request at the front with its
+        output so far; on re-admission that output is replayed through
+        the prefill lane.  ``quarantine``: the slot sat out a poisoned
+        tick and stays empty for ``cfg.quarantine_ticks``."""
+        slot = self.slots[i]
+        req = self._reqs[slot.rid]
+        req.emitted.extend(slot.out)
+        req.preempts += 1
+        self.status[req.rid] = RequestStatus.QUEUED
+        self.queue.insert(0, req)
+        self._release_slot(i)
+        if quarantine:
+            self._quarantined[i] = self.ticks \
+                + max(1, self.cfg.quarantine_ticks)
+            self.quarantines += 1
+        else:
+            self.preemptions += 1
+
+    def _preempt_for_capacity(self) -> bool:
+        """Preempt one victim when no slot can get step capacity.  Needs
+        two active slots: a lone stuck slot only happens under a fault
+        squeeze, whose pages come back on schedule."""
+        active = [i for i, s in enumerate(self.slots) if s.active]
+        if len(active) < 2:
+            return False
+        gen = {i: len(self._reqs[self.slots[i].rid].emitted)
+               + len(self.slots[i].out) for i in active}
+        victim = self.scheduler.pick_victim(self.slots, self.kv,
+                                            generated=gen)
+        if victim < 0:
+            return False
+        self._preempt(victim)
+        return True
+
+    def _expire_deadlines(self) -> None:
+        """Requests past their deadline end ``DEADLINE_EXCEEDED`` with the
+        output they have, queued and running alike."""
+        now = self.ticks
+        for req in [r for r in self.queue if 0 <= r.deadline_tick < now]:
+            self.queue.remove(req)
+            self.results[req.rid] = list(req.emitted)
+            self.status[req.rid] = RequestStatus.DEADLINE_EXCEEDED
+            self.deadline_exceeded += 1
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            req = self._reqs[slot.rid]
+            if 0 <= req.deadline_tick < now:
+                req.emitted.extend(slot.out)
+                self.results[req.rid] = list(req.emitted)
+                self.status[req.rid] = RequestStatus.DEADLINE_EXCEEDED
+                self.deadline_exceeded += 1
+                self._release_slot(i)
+
     def _finish(self, i: int) -> None:
         slot = self.slots[i]
-        self.results[slot.rid] = slot.out
-        self.status[slot.rid] = RequestStatus.FINISHED
+        req = self._reqs[slot.rid]
+        self.results[slot.rid] = req.emitted + slot.out
+        self.status[slot.rid] = (RequestStatus.PREEMPTED_RESUMED
+                                 if req.preempts else RequestStatus.FINISHED)
         self._release_slot(i)
 
     def defrag(self) -> None:
@@ -560,10 +762,15 @@ class PagedEngine:
         re-uploads every table row."""
         self.kv.defrag()
 
-    def _sync_dirty(self) -> None:
-        """Patch the device table/length copies at the cache's dirty rows."""
+    def _sync_dirty(self) -> int:
+        """Patch the device table/length copies at the cache's dirty rows;
+        returns the bytes uploaded, counted as the JAX engine counts them,
+        rows x (max_blocks + 1) x 4, but over the rows really uploaded (the
+        JAX engine pads the row batch to a power of two so that its
+        patcher compiles once per size; an indexed torch copy needs no
+        padding)."""
         if not self.kv.dirty:
-            return
+            return 0
         rows = sorted(self.kv.dirty)
         self.kv.dirty.clear()
         idx = torch.tensor(rows, dtype=torch.long, device=self.device)
@@ -571,28 +778,86 @@ class PagedEngine:
             self.kv.table[rows]).to(self.device)
         self._length_dev[idx] = torch.from_numpy(
             self.kv.length[rows]).to(self.device)
+        return len(rows) * (self.kv.max_blocks + 1) * 4
 
     # -- stepping -------------------------------------------------------
 
     def step(self) -> None:
-        """One engine tick (see the module docstring)."""
+        """One engine tick: faults, deadlines, admission, the plan (with
+        preemption until some slot can advance, then the dropped-grant
+        fault), the dirty-row sync, at most one prefill chunk and one
+        decode loop on the device, the output guard, the bookkeeping, and
+        quarantine of poisoned slots."""
         cfg = self.cfg
         T = self._chunk_tokens
+        t0 = time.perf_counter()
         self.ticks += 1
+        self._apply_faults()
+        self._expire_deadlines()
         self._admit()
+        cow_disp0 = self.kv.cow_dispatches
         plan = self.scheduler.plan(self.slots, self.kv, self._chunk,
                                    prefill_tokens=T)
+        self.stalls += plan.stalled
+        # preempt-and-recompute: each pass drops one active slot, so the
+        # loop is bounded by the batch; each plan ends in its own COW
+        # flush, and the dirty rows are synced after the last one
+        while not plan.any_work and cfg.preempt \
+                and self._preempt_for_capacity():
+            plan = self.scheduler.plan(self.slots, self.kv, self._chunk,
+                                       prefill_tokens=T)
+            self.stalls += plan.stalled
+        # dropped-grant fault: the work vanishes after planning (lost work,
+        # not a reason to preempt); the scheduler grants it again next tick
+        if self._drop_slots:
+            for i in self._drop_slots:
+                if 0 <= i < len(self.slots):
+                    d = int(plan.steps[i]) + int(plan.prefill[i])
+                    if d:
+                        self.dropped_grants += d
+                        plan.steps[i] = 0
+                        plan.prefill[i] = 0
+            self._drop_slots.clear()
         if not plan.any_work:
+            self._poison_slots.clear()
             if self.busy:
-                raise RuntimeError(
-                    f"no slot can get step capacity ({len(self.kv.free)} "
-                    f"free pages): preemption is not ported yet")
+                if not cfg.preempt:
+                    raise RuntimeError(
+                        f"page pool exhausted: {len(self.kv.free)} free "
+                        f"pages cannot give any slot step capacity "
+                        f"(num_pages={self.kv.num_pages}, "
+                        f"page={self.kv.page})")
+                # idle-but-busy ticks are bounded (every queued request is
+                # admissible, a lone stuck slot waits out a squeeze), so a
+                # long run of them is a bookkeeping bug: raise
+                self._idle += 1
+                self.no_progress_ticks += 1
+                if self._idle > cfg.wedge_ticks:
+                    raise RuntimeError(
+                        f"engine wedged: {cfg.wedge_ticks} consecutive "
+                        "idle ticks with work pending (queue="
+                        f"{len(self.queue)}, active="
+                        f"{sum(s.active for s in self.slots)}, free="
+                        f"{len(self.kv.free)}, seized="
+                        f"{len(self.kv.seized)})")
             return
+        self._idle = 0
         B = len(self.slots)
         steps, pgr = plan.steps, plan.prefill
-        self._sync_dirty()
+        # device calls, counted as the JAX engine counts its cells: the COW
+        # flushes, the row patch, the prefill chunk, the decode loop
+        dispatches = self.kv.cow_dispatches - cow_disp0
+        tick_upload = 0
+        row_bytes = self._sync_dirty()
+        if row_bytes:
+            self.table_upload_bytes += row_bytes
+            tick_upload += row_bytes
+            dispatches += 1
         cache = {"k": self.kv.k, "v": self.kv.v,
                  "table": self._table_dev, "length": self._length_dev}
+        if self.kv.quantized:            # scale pools ride the cache
+            cache["k_scale"] = self.kv.k_scale
+            cache["v_scale"] = self.kv.v_scale
 
         nxt = None
         if pgr.any():                     # prefill lane: one (B, T) chunk
@@ -602,20 +867,30 @@ class PagedEngine:
                 if g:
                     tok_mat[i, 0] = self._feed[i]
                     tok_mat[i, 1:g] = slot.forced[:g - 1]
+            pbytes = B * (T + 1) * 4          # token block + grant vector
+            self.prefill_upload_bytes += pbytes
+            tick_upload += pbytes
             nxt, cache = self.model.prefill_many_paged(
                 self.params, torch.from_numpy(tok_mat).to(self.device),
                 cache, self.generator,
                 torch.from_numpy(pgr).to(self.device),
                 temperature=cfg.temperature)
+            dispatches += 1
         toks = None
         if steps.any():
             # decode loop over the grants; steps past the largest grant
             # would be idle for every slot, so the loop stops there
+            tick_upload += 2 * B * 4          # feed tokens + step grants
             feed = torch.from_numpy(self._feed).to(self.device)[:, None]
             toks, cache = self.model.decode_many_paged(
                 self.params, feed, cache, self.generator,
                 torch.from_numpy(steps).to(self.device),
                 num_steps=int(steps.max()), temperature=cfg.temperature)
+            dispatches += 1
+        self.kv.k, self.kv.v = cache["k"], cache["v"]
+        if self.kv.quantized:
+            self.kv.k_scale = cache["k_scale"]
+            self.kv.v_scale = cache["v_scale"]
         self._length_dev = cache["length"]     # the device advanced it
         self.kv.length += steps + pgr          # host mirror of the increment
         self.tokens_appended += int(steps.sum()) + int(pgr.sum())
@@ -623,15 +898,44 @@ class PagedEngine:
         if cfg.trace_pool:
             self.util_trace.append(self.kv.utilization())
             self.occupancy_trace.append(self.kv.occupancy())
-        toks_np = toks.cpu().numpy() if toks is not None else None
-        nxt_np = nxt.cpu().numpy() if nxt is not None else None
+
+        t1 = time.perf_counter()
+        toks_np = toks.cpu().numpy() if toks is not None else None  # the
+        nxt_np = nxt.cpu().numpy() if nxt is not None else None  # device wait
+        t2 = time.perf_counter()
+        # poison fault: the slot's sampled tokens this tick come back as
+        # an out-of-vocabulary sentinel
+        if self._poison_slots:
+            for i in self._poison_slots:
+                if 0 <= i < B:
+                    if toks_np is not None and steps[i]:
+                        toks_np[:, i] = -1
+                    if nxt_np is not None and pgr[i]:
+                        nxt_np[i] = -1
+            self._poison_slots.clear()
+        # the always-on output guard: a kept token outside the vocabulary
+        # means garbage logits; the slot skips this tick's bookkeeping and
+        # is quarantined below, its request requeued with its pre-tick
+        # output
+        vocab = self.model.cfg.vocab_size
+        poisoned: Set[int] = set()
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            g, si = int(pgr[i]), int(steps[i])
+            if g and slot.prompt_left - g <= 0:   # sampled token is kept
+                if not 0 <= int(nxt_np[i]) < vocab:
+                    poisoned.add(i)
+            if si and i not in poisoned \
+                    and not all(0 <= int(t) < vocab for t in toks_np[:si, i]):
+                poisoned.add(i)
 
         # prefill-lane bookkeeping: the chunk's tokens are known on the
         # host; only the ONE sampled token per slot came back, and it
         # matters only when the prompt drained
         for i, slot in enumerate(self.slots):
             g = int(pgr[i])
-            if not slot.active or g == 0:
+            if not slot.active or g == 0 or i in poisoned:
                 continue
             fed = [int(self._feed[i])] + [int(t) for t in slot.forced[:g - 1]]
             slot.history.extend(fed)
@@ -647,7 +951,7 @@ class PagedEngine:
         # decode bookkeeping: the tokens fed this tick are its K/V rows
         for i, slot in enumerate(self.slots):
             si = int(steps[i])
-            if not slot.active or si == 0:
+            if not slot.active or si == 0 or i in poisoned:
                 continue
             fed = [int(self._feed[i])] \
                 + [int(toks_np[s, i]) for s in range(si - 1)]
@@ -656,6 +960,16 @@ class PagedEngine:
                 self._pindex.add(i, fed)
             slot.served += si
             self._emit(i, [int(toks_np[s, i]) for s in range(si)])
+        for i in sorted(poisoned):
+            if self.slots[i].active:
+                self._preempt(i, quarantine=True)
+        t3 = time.perf_counter()
+        if cfg.trace_ticks:
+            # the tick's host time: everything but the wait for the device
+            self.host_ms_trace.append(((t1 - t0) + (t3 - t2)) * 1e3)
+            self.dispatch_trace.append(dispatches)
+            self.upload_trace.append(tick_upload)
+        self.upload_bytes += tick_upload
 
     def _emit(self, i: int, toks: List[int]) -> None:
         """Append slot ``i``'s new output tokens up to eos or its budget
@@ -665,6 +979,7 @@ class PagedEngine:
         cfg = self.cfg
         for tok in toks:
             slot.out.append(tok)
+            self.tokens_out += 1
             if (cfg.eos_id >= 0 and tok == cfg.eos_id) \
                     or len(slot.out) >= slot.budget:
                 self._finish(i)

@@ -18,9 +18,9 @@ the per-slot GRANTS:
     token budget (0 = uncapped).
 
 It mutates the ``PagedKVCache`` through ``ensure()`` / ``cow_reserve()``
-and returns a ``TickPlan``; the engine owns the device steps.  Victim
-selection for preemption is not ported yet (the port's engine sizes the
-pool to fit every slot and raises where a tick would need it).
+and returns a ``TickPlan``; the engine owns the device steps.  When no
+slot can get step capacity the engine asks ``pick_victim`` for the slot
+to preempt, under one of ``PREEMPT_POLICIES``.
 """
 from __future__ import annotations
 
@@ -60,20 +60,54 @@ class TickPlan:
         return bool(self.steps.any()) or bool(self.prefill.any())
 
 
-class TickScheduler:
-    """Allocates each tick's per-slot grants (see module docstring)."""
+PREEMPT_POLICIES = ("fewest-tokens", "most-pages")
 
-    def __init__(self, fairness: str = "least-served", tick_budget: int = 0):
+
+class TickScheduler:
+    """Allocates each tick's per-slot grants (see module docstring) and
+    picks preemption victims when the engine must reclaim capacity."""
+
+    def __init__(self, fairness: str = "least-served", tick_budget: int = 0,
+                 preempt_policy: str = "fewest-tokens"):
         if fairness not in ("least-served", "slot-order"):
             raise ValueError(f"unknown fairness policy: {fairness!r}")
+        if preempt_policy not in PREEMPT_POLICIES:
+            raise ValueError(f"unknown preempt policy: {preempt_policy!r} "
+                             f"(choices: {PREEMPT_POLICIES})")
         self.fairness = fairness
         self.tick_budget = tick_budget
+        self.preempt_policy = preempt_policy
 
     def _order(self, slots) -> List[int]:
         idx = range(len(slots))
         if self.fairness == "least-served":
             return sorted(idx, key=lambda i: (slots[i].served, i))
         return list(idx)
+
+    def pick_victim(self, slots, kv: PagedKVCache,
+                    generated=None, exclude=()) -> int:
+        """The slot to preempt when no slot can be granted work.
+        ``"fewest-tokens"``: the fewest tokens generated (the least
+        recompute), ties to the most pages held, then the lowest index;
+        ``"most-pages"``: the most pages held first, fewest tokens as the
+        tie break.  ``generated`` maps slot -> tokens generated across
+        preemptions (default: the slot's current ``out``).  Returns -1 if
+        no active slot is eligible."""
+        cand = [i for i, s in enumerate(slots)
+                if s.active and i not in exclude]
+        if not cand:
+            return -1
+
+        def gen(i):
+            if generated is not None and i in generated:
+                return generated[i]
+            return len(slots[i].out)
+
+        if self.preempt_policy == "most-pages":
+            key = lambda i: (-len(kv.owned[i]), gen(i), i)  # noqa: E731
+        else:
+            key = lambda i: (gen(i), -len(kv.owned[i]), i)  # noqa: E731
+        return min(cand, key=key)
 
     def _grant(self, kv: PagedKVCache, i: int, length: int, want: int):
         """Privatize shared blocks the appends would touch, then reserve

@@ -6,8 +6,8 @@ default, on, is held in test_torch_prefix_sharing.py).  In f32
 the greedy outputs must be token-identical and every tick's grant plan
 equal, with the page-pool invariants clean after every tick; a bf16 run
 holds a logit-drift bound.  Also: the launcher's CPU smoke, the features
-the port refuses, and that no module of the port (nor chip_smoke.py)
-imports JAX or the JAX package.
+the port refuses, an unknown preemption policy, and that no module of the
+port (nor chip_smoke.py) imports JAX or the JAX package.
 """
 import ast
 import dataclasses
@@ -148,19 +148,20 @@ def test_cache_copy_on_write_matches_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(spec_k=2), dict(snapshot_every_ticks=3), dict(prefill_lane=False),
-    dict(deadline_ticks=4), dict(num_pages=5)])
+    dict(spec_k=2), dict(snapshot_every_ticks=3), dict(prefill_lane=False)])
 def test_engine_refuses_unported_features(change):
     _, _, tm, tp = _models("qwen2-0.5b", "float32")
     with pytest.raises(NotImplementedError):
         TPagedEngine(tm, tp, TServeConfig(**dict(SERVE, **change)))
 
 
-def test_engine_refuses_int8_pools():
+def test_engine_refuses_unknown_preempt_policy():
+    """An unknown ``preempt_policy`` raises ``ValueError``, as the JAX
+    scheduler does, instead of passing unread."""
     _, _, tm, tp = _models("qwen2-0.5b", "float32")
-    tm8 = tget_model(dataclasses.replace(tm.cfg, kv_dtype="int8"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        TPagedEngine(tm8, tp, TServeConfig(**SERVE))
+    with pytest.raises(ValueError, match="preempt policy"):
+        TPagedEngine(tm, tp, TServeConfig(**dict(SERVE,
+                                                 preempt_policy="lifo")))
 
 
 def test_launcher_local_smoke_cpu():
