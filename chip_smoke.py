@@ -24,7 +24,9 @@ Phases, each failing loudly (non-zero exit, no result line):
                beside the least time the card could take for the same
                work; prints the prefill grid's block count (at least 128),
                the decode grid's splits, and both kernels' device time
-               with the host's issue rate out of the way (``device_ms``).
+               with the host's issue rate out of the way (``device_ms``);
+               the prefill kernel also at the speculative verify's shape
+               (T = 5 from mid-page bases), checked and timed.
   3. serve   — granite-8b at full width and depth (36 layers, bf16,
                random weights from a seeded generator) through
                ``PagedEngine``: 8 requests of 64-300 prompt tokens, 32 new
@@ -33,6 +35,26 @@ Phases, each failing loudly (non-zero exit, no result line):
                step's logits on the kernel path are held against the plain
                path.  Sharing is off here (the JAX launcher's
                ``--no-prefix-sharing`` path).
+     by-decode — the same requests with ``prefill_lane=False``: every
+               prompt token rides the decode loop as a forced token.
+               Hard checks: in-vocab tokens; the decode kernel's counter
+               rises and the prefill kernel's does not;
+               ``forced_upload_bytes`` > 0 and ``prefill_upload_bytes``
+               0; each request's first-token logits within 8 bf16 ulps
+               of the lane's (the serve phase's).
+     spec    — the same requests with ``spec_k=4`` and two drafts: the
+               target's first 4 layers (views), and layer 1 of a
+               doctored target whose layers 2-36 have zeroed ``wo`` and
+               ``w_down`` (a ceiling for the machinery).  Hard checks:
+               32 in-vocab tokens each; ``kv.check()`` and
+               ``dkv.check()`` after every tick; both paged kernels
+               launched; one verify call per tick with decode grants;
+               the doctored run's accept rate above 0.5; request 0's
+               verify logits at its first decode position within 8 bf16
+               ulps of the serve phase's decode step.  Token identity
+               with serve is reported (bf16 verify takes its argmax over
+               prefill-kernel logits).  Both phases print tokens/s and
+               the host split beside serve's.
      share   — the same model and weights through ``PagedEngine`` with
                the default ServeConfig (prefix sharing and retention on),
                max_batch 4, page 16, prefill chunks of 32: a 200-token
@@ -95,7 +117,11 @@ Phases, each failing loudly (non-zero exit, no result line):
                sharing counters; then tests/test_overload_props.py's two
                regression schedules and a ``FaultPlan.random(28)`` fuzz
                run, where every finished or resumed request gives the
-               tokens of its uninterrupted run on both paths) and through
+               tokens of its uninterrupted run on both paths; then
+               speculation at spec_k 1 and 3, and at 3 under preemption
+               at a pool of five pages, and ``prefill_lane=False``, each
+               identical on both paths and to plain greedy decode) and
+               through
                ``ServingEngine`` (prompts of multiples of 32 tokens, so
                the plain side takes the chunked flash reference, among
                them a (608, 64) batch, which 512 does not divide).
@@ -566,6 +592,26 @@ def timing_phase(torch, serve_lens, serve_base, max_blocks, n_layers):
             n = paged.splits(max_blocks, 4, g["KV"])
             log(f"[timing] decode grid at NB={max_blocks}: {n} splits, "
                 f"{n * g['KV'] * 4} blocks (+ the combine's {g['KV'] * 4})")
+    # the prefill kernel at the speculative verify's shape: T = spec_k + 1
+    # rows a slot from a base the serve lengths put mid-page
+    T = SPEC_K + 1
+    c = make_case(gen, B=4, T=T, NB=max_blocks, L=n_layers, page=16,
+                  q_dtype=torch.bfloat16, pool="bf16", lens=serve_lens,
+                  base=[n - T for n in serve_lens], **g)
+    err = check_close(f"prefill at the verify shape (T={T})",
+                      run_kernel("prefill", c), run_plain("prefill", c),
+                      TOL["bfloat16"][0])
+    ms = time_ms(lambda i: run_kernel("prefill", c, layer=i % n_layers))
+    dms = device_ms(lambda i: run_kernel("prefill", c, layer=i % n_layers))
+    plain_ms = time_ms(lambda i: run_plain("prefill", c,
+                                           layer=i % n_layers))
+    bms, bound_by = bound_ms(*work("prefill", c), BF16_FLOPS_PER_S)
+    log(f"[timing] prefill at the verify shape (B=4, T={T}, bases "
+        f"{[n - T for n in serve_lens]}): kernel_ms={ms:.4f} device_ms="
+        f"{dms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} (by "
+        f"{bound_by}); max|err| {err:.3e}")
+    rows["verify"] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
+                          bound_ms=bms, err=err)
     return rows
 
 
@@ -607,9 +653,10 @@ def serve_phase(torch, decode_kernel, prefill_kernel):
     decode_kernel.launches = 0                   # counts of the main path
     prefill_kernel.launches = 0
     t0 = time.perf_counter()
-    results = engine.run()
+    first, _, _ = drive_recorded(engine)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    results = engine.results
     launches = {"decode": decode_kernel.launches,
                 "prefill": prefill_kernel.launches}
     done = [r for r in rids if len(results.get(r, [])) == new_tokens
@@ -638,9 +685,277 @@ def serve_phase(torch, decode_kernel, prefill_kernel):
     sv = {"lens": [int(n) + new_tokens // 2 for n in prompt_lens[:4]],
           "base": [int(n) - int(n) % 32 for n in prompt_lens[:4]],
           "max_blocks": engine.kv.max_blocks, "n_layers": cfg.n_layers,
-          "host": split}
+          "host": split, "prompts": prompts, "scfg": scfg, "first": first,
+          "tokens": [results[r] for r in rids], "tok_s": n_out / dt}
     del engine
     return launches, n_out / dt, sv, cfg, params
+
+
+def drive_recorded(engine, on_tick=None):
+    """Steps ``engine`` until it drains.  Records each request's logits
+    behind its first output token (the prefill chunk that drained its
+    prompt, or the decode step that fed its last prompt token) as (rid,
+    0), and behind its second (the decode step, or the verify's position
+    0, that fed its first output) as (rid, 1).  ``on_tick(engine)`` runs
+    after every tick.  Returns (logits, seconds in step(), ticks whose
+    plan granted decode steps)."""
+    from repro_torch.models import transformer
+    model, rec, at = engine.model, {}, {}
+    prefill_step, decode_step = (model.prefill_step_paged,
+                                 model.decode_step_paged)
+    lm_prefill = transformer.lm_prefill_paged
+
+    def prefill_rec(*args):
+        out, cache = prefill_step(*args)
+        rec["prefill"] = out
+        return out, cache
+
+    def decode_rec(*args):
+        out, cache = decode_step(*args)
+        rec["decode"].append(out)
+        return out, cache
+
+    def verify_rec(*args, **kwargs):             # every position's logits
+        out, cache = lm_prefill(*args, **kwargs)
+        if kwargs.get("unembed_all"):
+            rec["verify"] = out
+        return out, cache
+
+    plan = engine.scheduler.plan
+
+    def plan_rec(slots, kv, *args, **kwargs):
+        p = plan(slots, kv, *args, **kwargs)
+        at["plan"] = p
+        at["slots"] = [(s.rid, len(s.out), len(s.forced), s.prompt_left)
+                       if s.active else None for s in slots]
+        return p
+
+    model.prefill_step_paged, model.decode_step_paged = (prefill_rec,
+                                                         decode_rec)
+    engine.scheduler.plan = plan_rec
+    transformer.lm_prefill_paged = verify_rec
+    logits, step_s, decode_ticks = {}, 0.0, 0
+    try:
+        while engine.busy:
+            rec.clear()
+            rec["decode"] = []
+            at.clear()
+            t0 = time.perf_counter()
+            engine.step()
+            step_s += time.perf_counter() - t0
+            if on_tick is not None:
+                on_tick(engine)
+            if "plan" not in at:
+                continue                         # no device work
+            p = at["plan"]
+            decode_ticks += bool(p.steps.any())
+            for i, st in enumerate(at["slots"]):
+                if st is None:
+                    continue
+                rid, n_out, n_forced, left = st
+                g, si = int(p.prefill[i]), int(p.steps[i])
+                if n_out == 0 and g and left - g <= 0:
+                    logits[(rid, 0)] = rec["prefill"][i].float().clone()
+                elif n_out == 0 and si > n_forced:
+                    logits[(rid, 0)] = \
+                        rec["decode"][n_forced][i].float().clone()
+                elif n_out == 1 and si:
+                    src = rec["verify"][i, 0] if "verify" in rec \
+                        else rec["decode"][0][i]
+                    logits[(rid, 1)] = src.float().clone()
+    finally:
+        transformer.lm_prefill_paged = lm_prefill
+    return logits, step_s, decode_ticks
+
+
+def ulp_check(phase, what, got, want):
+    """``got`` within LOGIT_ULPS bf16 ulps of ``want``'s scale; logs and
+    returns (max|diff|, bound), raises past the bound."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    lim = LOGIT_ULPS * 2.0 ** -8 * scale
+    log(f"[{phase}] {what}: max|diff|={err:.4e}, bound {lim:.4e} "
+        f"({LOGIT_ULPS} bf16 ulps of the logit scale {scale:.3f}); argmax "
+        f"{'agrees' if got.argmax() == want.argmax() else 'differs'}")
+    if not err <= lim:
+        raise AssertionError(f"{phase}: {what} drift {err:.4e} > {lim:.4e}")
+    return err, lim
+
+
+def by_decode_phase(torch, cfg, params, sv, decode_kernel, prefill_kernel):
+    """The serve phase's requests with ``prefill_lane=False``: every
+    prompt token rides the decode loop as a forced token.  Hard checks:
+    in-vocab tokens, the decode kernel launched and the prefill kernel
+    not, forced bytes uploaded and no lane bytes, and each request's
+    first-token logits within 8 bf16 ulps of the lane's."""
+    import dataclasses
+
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine
+    new_tokens = sv["scfg"].max_new_tokens
+    engine = PagedEngine(get_model(cfg), params,
+                         dataclasses.replace(sv["scfg"], prefill_lane=False))
+    rids = [engine.submit(p) for p in sv["prompts"]]
+    decode_kernel.launches = 0                   # counts of this path
+    prefill_kernel.launches = 0
+    first, step_s, _ = drive_recorded(engine)
+    torch.cuda.synchronize()
+    launches = {"decode": decode_kernel.launches,
+                "prefill": prefill_kernel.launches}
+    tokens = [engine.results[r] for r in rids]
+    n_out = sum(len(t) for t in tokens)
+    tok_s = n_out / step_s
+    split = host_split(engine, step_s)
+    same = sum(a == b for a, b in zip(tokens, sv["tokens"]))
+    log(f"[by-decode] granite-8b, the serve phase's 8 requests with "
+        f"prefill_lane=False (prompts fed through the decode loop, "
+        f"{engine._chunk} steps a tick): {n_out} tokens in {step_s:.2f} s "
+        f"of step() = {tok_s:.1f} tokens/s against serve's "
+        f"{sv['tok_s']:.1f}; {engine.ticks} ticks; forced_upload_bytes="
+        f"{engine.forced_upload_bytes}, prefill_upload_bytes="
+        f"{engine.prefill_upload_bytes}; {same}/8 requests give the lane's "
+        f"tokens (bf16: reported, not required); on {gpu_line()}")
+    log(f"[by-decode] launches on this path: paged_decode_attention="
+        f"{launches['decode']} ({launches['decode'] / cfg.n_layers:.0f} "
+        f"steps of {cfg.n_layers} layers), paged_prefill_attention="
+        f"{launches['prefill']}")
+    log_host("by-decode", split)
+    if not all(len(t) == new_tokens and all(0 <= x < cfg.vocab_size
+                                            for x in t) for t in tokens):
+        raise AssertionError(f"by-decode: a request lacks {new_tokens} "
+                             f"in-vocab tokens")
+    if not (launches["decode"] > 0 and launches["prefill"] == 0):
+        raise AssertionError(f"by-decode: the decode kernel must run and "
+                             f"the prefill kernel must not: {launches}")
+    if not (engine.forced_upload_bytes > 0
+            and engine.prefill_upload_bytes == 0):
+        raise AssertionError("by-decode: prompts did not go up as forced "
+                             "tokens only")
+    worst = 0.0
+    for r in rids:
+        err, lim = ulp_check("by-decode", f"request {r} first-token logits "
+                             f"against the lane's", first[(r, 0)],
+                             sv["first"][(r, 0)])
+        worst = max(worst, err / lim)
+    return dict(tok_s=tok_s, host=split, launches=launches, same=same,
+                worst=worst, ticks=engine.ticks)
+
+
+SPEC_K = 4
+
+
+def first_layers(blocks, n):
+    """Views of the first ``n`` layers of a stacked block tree."""
+    if isinstance(blocks, dict):
+        return {k: first_layers(v, n) for k, v in blocks.items()}
+    return blocks[:n]
+
+
+def spec_phase(torch, cfg, params, sv, decode_kernel, prefill_kernel):
+    """The serve phase's requests with ``spec_k=4`` and two drafts: the
+    target's first 4 layers (views), and, as a ceiling for the machinery,
+    layer 1 of a doctored target whose layers 2-36 have zeroed ``wo`` and
+    ``w_down`` (so they add nothing and the draft predicts the target).
+    Hard checks: 32 in-vocab tokens each; ``kv.check()`` and
+    ``dkv.check()`` every tick; both paged kernels launched; one verify
+    call per tick with decode grants; the doctored run's accept rate
+    above 0.5; one request's verify logits at its first decode position
+    within 8 bf16 ulps of the serve phase's plain decode step's."""
+    import dataclasses
+
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine
+    new_tokens = sv["scfg"].max_new_tokens
+    scfg = dataclasses.replace(sv["scfg"], spec_k=SPEC_K)
+    blocks = params["blocks"]
+
+    def zeroed_past_layer_1(t):
+        z = torch.zeros_like(t)
+        z[0] = t[0]
+        return z
+
+    def doctored():
+        return dict(params, blocks=dict(
+            blocks,
+            attn=dict(blocks["attn"],
+                      wo=zeroed_past_layer_1(blocks["attn"]["wo"])),
+            ffn=dict(blocks["ffn"],
+                     w_down=zeroed_past_layer_1(blocks["ffn"]["w_down"]))))
+
+    def on_tick(e):
+        e.kv.check()
+        e.dkv.check()
+        for i, slot in enumerate(e.slots):
+            if slot.active and len(slot.history) != int(e.kv.length[i]):
+                raise AssertionError(f"spec: slot {i} history/length drift")
+
+    out = {}
+    for name, n_draft in (("slice", 4), ("doctored", 1)):
+        target = params if name == "slice" else doctored()
+        engine = PagedEngine(
+            get_model(cfg), target, scfg,
+            draft_model=get_model(dataclasses.replace(cfg,
+                                                      n_layers=n_draft)),
+            draft_params=dict(params, blocks=first_layers(blocks, n_draft)))
+        rids = [engine.submit(p) for p in sv["prompts"]]
+        decode_kernel.launches = 0               # counts of this path
+        prefill_kernel.launches = 0
+        logits, step_s, decode_ticks = drive_recorded(engine, on_tick)
+        torch.cuda.synchronize()
+        launches = {"decode": decode_kernel.launches,
+                    "prefill": prefill_kernel.launches}
+        tokens = [engine.results[r] for r in rids]
+        n_out = sum(len(t) for t in tokens)
+        split = host_split(engine, step_s)
+        ticks = len(engine.draft_dispatch_trace)
+        same = sum(a == b for a, b in zip(tokens, sv["tokens"]))
+        log(f"[spec] {name} draft ({n_draft} layer{'s' * (n_draft > 1)}"
+            + (", target layers 2-36 with zeroed wo and w_down" if
+               name == "doctored" else "")
+            + f"), spec_k {SPEC_K}: accept rate {engine.accept_rate:.4f} "
+            f"({engine.spec_accepted}/{engine.spec_proposed}), "
+            f"{engine.spec_trunc_tokens} rows truncated; {n_out} tokens in "
+            f"{step_s:.2f} s of step() = {n_out / step_s:.1f} tokens/s "
+            f"against serve's {sv['tok_s']:.1f}; {engine.ticks} ticks, "
+            f"{decode_ticks} with decode grants; draft dispatches per busy "
+            f"tick {engine.draft_dispatches / ticks:.2f}, verify "
+            f"{engine.verify_dispatches / ticks:.2f}; {same}/8 requests "
+            + ("give serve's tokens (bf16: reported, not required)"
+               if name == "slice" else "give serve's tokens (another "
+               "target)") + f"; on {gpu_line()}")
+        log(f"[spec] {name} launches: paged_decode_attention="
+            f"{launches['decode']} (the draft's propose steps), "
+            f"paged_prefill_attention={launches['prefill']} (lane chunks, "
+            f"draft catch-up, verifies)")
+        log_host(f"spec {name}", split)
+        if not all(len(t) == new_tokens and all(0 <= x < cfg.vocab_size
+                                                for x in t) for t in tokens):
+            raise AssertionError(f"spec {name}: a request lacks "
+                                 f"{new_tokens} in-vocab tokens")
+        if not (launches["decode"] > 0 and launches["prefill"] > 0):
+            raise AssertionError(f"spec {name}: a kernel was not launched: "
+                                 f"{launches}")
+        if not (engine.verify_dispatches == decode_ticks
+                and set(engine.verify_dispatch_trace) <= {0, 1}):
+            raise AssertionError(f"spec {name}: {engine.verify_dispatches} "
+                                 f"verify calls over {decode_ticks} decode "
+                                 f"ticks")
+        if name == "doctored" and not engine.accept_rate > 0.5:
+            raise AssertionError(f"spec doctored: accept rate "
+                                 f"{engine.accept_rate:.4f} <= 0.5")
+        if name == "slice":
+            r = rids[0]
+            ulp_check("spec", f"request {r}'s verify logits at its first "
+                      f"decode position (prefill kernel, T={SPEC_K + 1}) "
+                      f"against serve's decode step", logits[(r, 1)],
+                      sv["first"][(r, 1)])
+        out[name] = dict(accept=engine.accept_rate, tok_s=n_out / step_s,
+                         host=split, launches=launches, same=same,
+                         draft_per_tick=engine.draft_dispatches / ticks,
+                         verify_per_tick=engine.verify_dispatches / ticks)
+        del engine, target
+        torch.cuda.empty_cache()
+    return out
 
 
 SHARE_PAGE, SHARE_CHUNK = 16, 32
@@ -801,20 +1116,11 @@ def share_phase(torch, cfg, params, decode_kernel, prefill_kernel):
         w, j = rid_of[rid]
         alone = serve_waves(torch, cfg, params, [[waves[w][j]]], new_tokens,
                             sharing=False)
-        want = alone["first"][alone["rids"][0][0]]
-        got = run["first"][rid]
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        lim = LOGIT_ULPS * 2.0 ** -8 * scale
         kind, n = run["kinds"][rid]
-        log(f"[share] {name} (request {rid}, {n} tokens {kind}) first-token "
-            f"logits against its prompt served alone with sharing off: "
-            f"max|diff|={err:.4e}, bound {lim:.4e} ({LOGIT_ULPS} bf16 ulps "
-            f"of the logit scale {scale:.3f}); argmax "
-            f"{'agrees' if got.argmax() == want.argmax() else 'differs'}")
-        if not err <= lim:
-            raise AssertionError(f"share: {name} logits drift {err:.4e} > "
-                                 f"{lim:.4e}")
+        ulp_check("share", f"{name} (request {rid}, {n} tokens {kind}) "
+                  f"first-token logits against its prompt served alone with "
+                  f"sharing off", run["first"][rid],
+                  alone["first"][alone["rids"][0][0]])
         del alone
 
     mid = eng.ticks // 3
@@ -1122,19 +1428,11 @@ def overload_phase(torch, cfg, params, decode_kernel, prefill_kernel):
                              f"uninterrupted run's tokens up to its resume "
                              f"({resumed})")
     r, k = match[0]
-    got, want = run["logits"][(r, k)], base["logits"][(r, k)]
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    lim = LOGIT_ULPS * 2.0 ** -8 * scale
-    log(f"[overload] resumed request {r}: logits of its first token after "
+    err, lim = ulp_check(
+        "overload", f"resumed request {r}: logits of its first token after "
         f"the resume (output {k}, through the prefill kernel) against the "
-        f"uninterrupted run's at the same position (a decode step): "
-        f"max|diff|={err:.4e}, bound {lim:.4e} ({LOGIT_ULPS} bf16 ulps of "
-        f"the logit scale {scale:.3f}); argmax "
-        f"{'agrees' if got.argmax() == want.argmax() else 'differs'}")
-    if not err <= lim:
-        raise AssertionError(f"overload: resumed logits drift {err:.4e} > "
-                             f"{lim:.4e}")
+        f"uninterrupted run's at the same position (a decode step)",
+        run["logits"][(r, k)], base["logits"][(r, k)])
 
     # int8 pools: the first four requests, the same oversold pool
     q = drive_overload(torch, cfg, params, prompts[:4],
@@ -1279,6 +1577,75 @@ def parity_phase(torch):
         raise AssertionError(f"parity: sharing counters {stats} differ or "
                              f"are zero")
     overload_parity(torch, cfg, params)
+    spec_parity(torch, cfg, params)
+
+
+def spec_parity(torch, cfg, params):
+    """tests/test_torch_speculative.py's drives in f32 on the kernel path
+    and on the plain path (max_batch 2, page 8, 18 new tokens, the
+    1-layer draft slice): greedy tokens identical between the paths, and
+    equal to plain greedy decode on the kernel path with the lane, for
+    spec_k 1 and 3, for spec_k 3 under preemption at the CPU test's pool
+    of five pages (also equal to the uninterrupted speculative run), and
+    for prefill_lane=False."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine, ServeConfig
+    drive = dict(max_batch=2, max_seq=96, max_new_tokens=18,
+                 prefill_chunk=4, page_size=8)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = dict(params, blocks=first_layers(params["blocks"], 1))
+
+    def prompts(seed):
+        rng = np.random.RandomState(seed)
+        return [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+                for n in rng.randint(4, 14, size=4)]
+
+    def run(work, plain=False, **serve):
+        spec = serve.get("spec_k", 0) > 0
+        engine = PagedEngine(
+            get_model(cfg, plain_attention=plain), params,
+            ServeConfig(**dict(drive, **serve)),
+            draft_model=get_model(dcfg, plain_attention=plain) if spec
+            else None, draft_params=dparams if spec else None)
+        rids = [engine.submit(p) for p in work]
+        engine.run()
+        engine.kv.check()
+        if engine.dkv is not None:
+            engine.dkv.check()
+        return [engine.results[r] for r in rids], engine
+
+    for name, seed, serve in (
+            ("spec_k=1", 3, dict(spec_k=1)),
+            ("spec_k=3", 3, dict(spec_k=3)),
+            ("spec_k=3 at 5 pages", 13, dict(spec_k=3, num_pages=5)),
+            ("prefill_lane=False", 3, dict(prefill_lane=False))):
+        work = prompts(seed)
+        (kt, ke), (pt, pe) = run(work, **serve), run(work, True, **serve)
+        greedy, _ = run(work, num_pages=serve.get("num_pages", 0))
+        extra = ""
+        if "num_pages" in serve:
+            oracle, _ = run(work, spec_k=3)
+            extra = (f", {ke.preemptions}/{pe.preemptions} preemptions "
+                     f"(kernel/plain), the uninterrupted speculative run "
+                     f"{'agrees' if oracle == kt else 'DIFFERS'}")
+            if not (ke.preemptions and pe.preemptions and oracle == kt):
+                raise AssertionError(f"parity: {name} did not preempt on "
+                                     f"both paths or left the "
+                                     f"uninterrupted tokens")
+        counts = (f" (accept {ke.spec_accepted}/{ke.spec_proposed} kernel, "
+                  f"{pe.spec_accepted}/{pe.spec_proposed} plain)"
+                  if ke.dkv is not None else
+                  f" (forced bytes {ke.forced_upload_bytes})")
+        log(f"[parity] {name}, qwen2-0.5b-reduced f32: kernel vs plain path "
+            f"{sum(a == b for a, b in zip(kt, pt))}/4 token-identical, "
+            f"against plain greedy with the lane "
+            f"{sum(a == b for a, b in zip(kt, greedy))}/4{counts}{extra}")
+        if not kt == pt == greedy:
+            raise AssertionError(f"parity: {name} diverges in f32")
 
 
 def overload_schedules(engine_for, vocab):
@@ -2464,6 +2831,10 @@ def main() -> int:
     d_errs = dense_checks(torch)
     launches, tok_s, sv, cfg, params = serve_phase(torch, paged.KERNEL,
                                                    prefill_paged.KERNEL)
+    by_decode = by_decode_phase(torch, cfg, params, sv, paged.KERNEL,
+                                prefill_paged.KERNEL)
+    spec = spec_phase(torch, cfg, params, sv, paged.KERNEL,
+                      prefill_paged.KERNEL)
     share = share_phase(torch, cfg, params, paged.KERNEL,
                         prefill_paged.KERNEL)
     over = overload_phase(torch, cfg, params, paged.KERNEL,
@@ -2526,11 +2897,23 @@ def main() -> int:
         + ", ".join(f"{name} {h['med']:.3f}/{h['p90']:.3f} ms "
                     f"({100 * h['share']:.1f}% of step())"
                     for name, h in (("serve", sv["host"]),
+                                    ("by-decode", by_decode["host"]),
+                                    ("spec slice", spec["slice"]["host"]),
+                                    ("spec doctored",
+                                     spec["doctored"]["host"]),
                                     ("share", share["host"]),
                                     ("overload", over["split"])))
         + f"; overload tokens/s {over['tok_s']:.1f}, recompute overhead "
         f"{over['overhead']:.3f}, {over['preemptions']} preemptions "
         f"({over['capacity']} for capacity); on {gpu}")
+    log(f"[summary] serve tokens/s {tok_s:.1f}; by-decode "
+        f"{by_decode['tok_s']:.1f}; spec_k {SPEC_K} with the 4-layer slice "
+        f"{spec['slice']['tok_s']:.1f} (accept "
+        f"{spec['slice']['accept']:.4f}), with the doctored target "
+        f"{spec['doctored']['tok_s']:.1f} (accept "
+        f"{spec['doctored']['accept']:.4f}); the same 8 requests, sharing "
+        f"off, tokens/s over step(), serve's over its whole drive loop; on "
+        f"{gpu}")
     log(f"[summary] serve tokens/s {tok_s:.1f} (sharing off); share tokens/s "
         f"{share['tok_s']:.1f} ({share['shared']} shared tokens, logical/"
         f"physical x{share['ratio']:.3f}, {share['hits']} retained "

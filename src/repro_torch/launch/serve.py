@@ -10,6 +10,10 @@ whole-batch lockstep generation, on one card.
         --no-prefix-sharing
     python -m repro_torch.launch.serve --local-smoke --device cpu \
         --kv-dtype int8 --max-queue 4 --deadline-ticks 40
+    python -m repro_torch.launch.serve --local-smoke --device cpu \
+        --no-prefill-lane
+    python -m repro_torch.launch.serve --local-smoke --device cpu \
+        --spec-k 3 --draft-arch qwen2-0.5b
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device
 (nothing is downloaded).  The demo workloads are the JAX launcher's: for
@@ -24,14 +28,23 @@ overload flags (``--no-preempt``, ``--preempt-policy``, ``--max-queue``,
 ``--deadline-ticks``, ``--wedge-ticks``) and ``--kv-dtype int8``.  The
 overload line gives the preemptions, the recomputed tokens and the
 requests' terminal statuses; the host line the median and p90 of the
-engine's per-tick host time.  Speculation, snapshots and the
-prefill-by-decode lane are not ported yet, so their flags are absent.
+engine's per-tick host time.  ``--no-prefill-lane`` feeds prompts through
+the decode loop as forced tokens (prefill-by-decode); ``--spec-k`` with
+``--draft-arch`` serves speculatively (greedy only), the draft's weights
+drawn from seed 1, and prints the accept rate and the draft and verify
+calls.  Snapshots are not ported yet, so their flags are absent.
 """
 import argparse
 import sys
 import time
 
 import numpy as np
+
+
+class SpecCapacityError(ValueError):
+    """``--spec-k`` asks the draft pool for more rows than its block
+    tables hold: the draft cache must fit a request's whole span plus k
+    proposals in flight (the JAX launcher's startup check)."""
 
 
 def main() -> int:
@@ -88,6 +101,19 @@ def main() -> int:
     ap.add_argument("--wedge-ticks", type=int, default=10_000,
                     help="consecutive idle-but-busy ticks before the "
                          "engine declares itself wedged and raises")
+    ap.add_argument("--no-prefill-lane", action="store_true",
+                    help="route prompts through the decode loop one token "
+                         "per step as forced tokens (prefill-by-decode)")
+    ap.add_argument("--draft-arch", default="",
+                    help="speculative decoding: registry id of the draft "
+                         "model (it must share the target's vocabulary); "
+                         "it proposes --spec-k tokens per decode tick from "
+                         "its own page pool, and the target verifies them "
+                         "in one ragged prefill-lane call")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="draft proposals per decode tick (0 = off); a "
+                         "tick keeps the accepted ones plus one bonus "
+                         "token, and greedy output equals plain decode's")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=4,
                     help="decode steps per engine tick")
@@ -116,6 +142,23 @@ def main() -> int:
     if args.wedge_ticks < 1:
         ap.error("--wedge-ticks must be >= 1 (idle ticks before the "
                  "wedge tripwire fires)")
+    if args.spec_k < 0:
+        ap.error("--spec-k must be >= 0 (draft proposals per decode tick)")
+    if args.spec_k and not args.draft_arch:
+        ap.error("--spec-k needs --draft-arch (a draft model proposes the "
+                 "tokens the target verifies)")
+    if args.draft_arch and not args.spec_k:
+        ap.error("--draft-arch without --spec-k does nothing; pass "
+                 "--spec-k >= 1 to enable speculative decoding")
+    if args.spec_k and args.whole_batch:
+        ap.error("speculative decoding is a paged-engine mode (draft pages "
+                 "+ ragged verify); drop --whole-batch")
+    if args.spec_k and args.no_prefill_lane:
+        ap.error("speculative verify rides the ragged prefill lane; drop "
+                 "--no-prefill-lane")
+    if args.spec_k and args.temperature != 0.0:
+        ap.error("speculative decoding is greedy-only (acceptance compares "
+                 "argmax tokens); use --temperature 0")
     if args.kv_dtype == "int8" and args.whole_batch:
         ap.error("--kv-dtype int8 quantizes the paged engine's page pools; "
                  "the whole-batch cache has none")
@@ -149,19 +192,46 @@ def main() -> int:
     if args.local_smoke:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, pages_per_step=args.pages_per_step,
-                              kv_dtype=args.kv_dtype)
+                              kv_dtype=args.kv_dtype,
+                              draft_arch=args.draft_arch)
     model = get_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = model.init(gen, device)
+    draft_model = draft_params = None
+    if args.spec_k:
+        dcfg = configs.get(args.draft_arch)
+        if args.local_smoke:
+            dcfg = dcfg.reduced()
+        if dcfg.vocab_size != cfg.vocab_size:
+            ap.error(f"--draft-arch {args.draft_arch!r} has vocab "
+                     f"{dcfg.vocab_size}, target has {cfg.vocab_size} — "
+                     f"speculation needs a shared tokenizer")
+        draft_model = get_model(dcfg)
+        gen.manual_seed(1)
+        draft_params = draft_model.init(gen, device)
     max_seq = max(64, args.sys_prompt_tokens + 8 + args.new_tokens
                   + 2 * (args.batch - 1) + 16)
+    if args.spec_k:
+        # the draft pool's capacity, checked before anything is served:
+        # its block tables hold max_seq rows, which must fit the longest
+        # request's span plus k proposals in flight
+        span_max = (args.sys_prompt_tokens + 8 + args.new_tokens
+                    + 2 * (args.batch - 1))
+        if span_max + args.spec_k > max_seq:
+            raise SpecCapacityError(
+                f"--spec-k {args.spec_k} overflows the draft pool: the "
+                f"worst-case request span is {span_max} tokens and the "
+                f"draft block tables hold max_seq={max_seq} rows, so up "
+                f"to {max_seq - span_max} proposals fit in flight; "
+                f"lower --spec-k or --new-tokens/--sys-prompt-tokens")
     scfg = ServeConfig(max_batch=args.batch, max_seq=max_seq,
                        max_new_tokens=args.new_tokens,
                        temperature=args.temperature,
                        fused=not args.legacy_loop,
                        page_size=args.page_size,
                        prefill_chunk=args.prefill_chunk,
+                       prefill_lane=not args.no_prefill_lane,
                        prefill_chunk_tokens=args.prefill_chunk_tokens,
                        prefix_sharing=not args.no_prefix_sharing,
                        retain_prefixes=not args.no_retain_prefixes,
@@ -171,12 +241,14 @@ def main() -> int:
                        preempt_policy=args.preempt_policy,
                        max_queue=args.max_queue,
                        deadline_ticks=args.deadline_ticks,
-                       wedge_ticks=args.wedge_ticks)
+                       wedge_ticks=args.wedge_ticks,
+                       spec_k=args.spec_k)
     rng = np.random.RandomState(0)
     if args.whole_batch:
         return whole_batch(ServingEngine(model, params, scfg), rng, cfg,
                            args, device)
-    engine = PagedEngine(model, params, scfg)
+    engine = PagedEngine(model, params, scfg, draft_model=draft_model,
+                         draft_params=draft_params)
     sys_prompt = rng.randint(0, cfg.vocab_size,
                              size=args.sys_prompt_tokens).astype(np.int32)
     rids = [engine.submit(
@@ -219,6 +291,17 @@ def main() -> int:
           f"{engine.deadline_exceeded} deadline-exceeded, "
           f"{engine.no_progress_ticks} no-progress ticks; statuses "
           + ", ".join(f"{k}={v}" for k, v in n_status.items() if v))
+    if args.no_prefill_lane:
+        print(f"[launch.serve] prefill-by-decode: "
+              f"{engine.forced_upload_bytes} forced-token bytes uploaded, "
+              f"{engine.prefill_upload_bytes} prefill-lane bytes")
+    if args.spec_k:
+        print(f"[launch.serve] speculative: draft={args.draft_arch} "
+              f"k={args.spec_k}, accept rate {engine.accept_rate:.2f} "
+              f"({engine.spec_accepted}/{engine.spec_proposed} proposals), "
+              f"{engine.draft_dispatches} draft + "
+              f"{engine.verify_dispatches} verify dispatches, "
+              f"{engine.spec_trunc_tokens} rejected K/V rows truncated")
     host = engine.host_ms_trace
     if host:
         print(f"[launch.serve] host: {len(host)} busy ticks, host ms per "

@@ -141,22 +141,43 @@ class Model:
                                                 grants)
         return sample_token(logits, generator, temperature), cache
 
-    def decode_many_paged(self, params, tokens, cache, generator, steps,
-                          *, num_steps: int, temperature: float = 0.0):
+    def verify_many_paged(self, params, tokens, cache, grants):
+        """The engine's speculative verify cell (greedy only, no
+        randomness): tokens (B, T) = [feed, p_1 .. p_{g-1}] per slot,
+        grants (B,) int32 = 1 + proposals (0 = idle).  Returns (greedy
+        (B, T) int32, accept (B,) int32, cache with "length" advanced by
+        the whole grant)."""
+        return T.lm_verify_paged(params, self.cfg, tokens, cache, grants,
+                                 self.plain_attention)
+
+    def decode_many_paged(self, params, tokens, cache, generator, active,
+                          forced_tok=None, forced_mask=None, *,
+                          num_steps: int, temperature: float = 0.0):
         """``num_steps`` decode steps with sampling on the device: tokens
-        (B, 1) — each slot's last token; steps (B,) int — slot i is active
-        for its first steps[i] steps (the per-step mask is built on the
-        device).  An inactive slot writes the null page, does not advance,
-        and re-emits its last token.  Returns (tokens (num_steps, B) int32,
-        cache)."""
-        steps = steps.to(tokens.device)
+        (B, 1) — each slot's last token.  ``active`` takes the JAX cell's
+        three forms: (num_steps, B) bool, a per-step mask; (B,) bool, the
+        same mask every step; or (B,) int grants, slot i active for its
+        first ``active[i]`` steps (the mask built step by step on the
+        device, the engine's form).  ``forced_tok`` / ``forced_mask``
+        (num_steps, B): where the mask is set the step's token is
+        overridden by the forced one (prompts fed through the decode
+        loop); None forces nothing and builds nothing.  Within a step:
+        sample, then the override, then an inactive slot keeps its last
+        token.  An inactive slot writes the null page and does not
+        advance.  Returns (tokens (num_steps, B) int32, cache)."""
+        active = active.to(tokens.device)
+        grants = None if active.dtype == torch.bool else active
+        if grants is None and active.dim() == 1:
+            active = active[None].expand(num_steps, -1)
         tok = tokens[:, 0].to(torch.int32)
         out = []
         for s in range(num_steps):
-            act = steps > s
+            act = grants > s if grants is not None else active[s]
             logits, cache = self.decode_step_paged(params, tok[:, None],
                                                    cache, act)
             nxt = sample_token(logits, generator, temperature)
+            if forced_tok is not None:
+                nxt = torch.where(forced_mask[s], forced_tok[s], nxt)
             tok = torch.where(act, nxt, tok)
             out.append(tok)
         return torch.stack(out), cache

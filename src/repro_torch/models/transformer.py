@@ -495,12 +495,14 @@ def lm_decode_paged(params, cfg: ArchConfig, tokens, cache, active,
 
 
 def lm_prefill_paged(params, cfg: ArchConfig, tokens, cache, grants,
-                     plain: bool = False):
+                     plain: bool = False, unembed_all: bool = False):
     """Ragged multi-token paged prefill: tokens (B, T) int — each slot's
     next prompt chunk (row i's first ``grants[i]`` entries are real);
     grants (B,) int32 (0 = slot idle).  Returns (logits (B, V) f32 at each
     slot's last granted position, cache) — the pools updated in place,
-    "length" advanced by ``grants``."""
+    "length" advanced by ``grants``.  With ``unembed_all`` every chunk
+    position is unembedded instead: logits (B, T, V) f32, what a
+    speculative verify decides its tokens from."""
     check_supported(cfg, paged=True)
     lengths = cache["length"]
     B, T = tokens.shape
@@ -516,7 +518,36 @@ def lm_prefill_paged(params, cfg: ArchConfig, tokens, cache, grants,
                                    new_len, plain)
         h = decode_ffn(h, p, cfg)
     cache["length"] = new_len
+    if unembed_all:
+        return _logits_exact(params, cfg, h), cache          # (B, T, V)
     # last granted position per slot (grants == 0 -> row 0; caller ignores)
     last = torch.clamp(grants - 1, min=0).long()
     h_last = h[torch.arange(B, device=h.device), last][:, None]
     return _logits_exact(params, cfg, h_last)[:, 0], cache
+
+
+def lm_verify_paged(params, cfg: ArchConfig, tokens, cache, grants,
+                    plain: bool = False):
+    """Speculative verify on the prefill lane: tokens (B, T) — row i holds
+    [feed, p_1 .. p_{g-1}, pad], the slot's next input token and the
+    draft's proposals (``grants[i]`` = g rows real, 0 = slot idle).  The
+    ragged chunk of ``lm_prefill_paged`` with every position unembedded
+    at f32; ``greedy[b, t]`` is position t's argmax, and proposal
+    ``tokens[b, t + 1]`` is accepted iff every earlier one was and it
+    equals ``greedy[b, t]``.  All on the device.  Returns (greedy (B, T)
+    int32, accept (B,) int32 in [0, g - 1], cache with "length" advanced
+    by the whole grant: the caller truncates the rejected rows)."""
+    T = tokens.shape[1]
+    grants = grants.to(torch.int32)
+    logits, cache = lm_prefill_paged(params, cfg, tokens, cache, grants,
+                                     plain, unembed_all=True)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    # leading run of matching proposals, masked to the g - 1 proposals
+    prop_ok = greedy[:, :T - 1] == tokens[:, 1:].to(torch.int32)
+    in_grant = torch.arange(T - 1, dtype=torch.int32,
+                            device=tokens.device)[None, :] \
+        < (grants - 1)[:, None]
+    run = torch.cumprod((prop_ok & in_grant).to(torch.int32), dim=1)
+    accept = torch.minimum(run.sum(dim=1, dtype=torch.int32),
+                           torch.clamp(grants - 1, min=0))
+    return greedy, accept, cache

@@ -1,6 +1,7 @@
 """Serving engines — port of ``repro/serve/engine.py``: ``ServingEngine``
 (whole-batch lockstep generation) and ``PagedEngine`` (paged continuous
-batching: the prefill lane plus the plain decode twin).
+batching: the prefill lane, prefill-by-decode and speculative
+draft-and-verify).
 
 ``ServingEngine`` prefills every prompt at once (right-aligned, pad 0,
 and — as in the JAX package — no pad mask) and decodes all sequences in
@@ -23,6 +24,20 @@ torch calls on the engine's device (the device of the parameters).  It
 serves decoder-only attention LMs only, and refuses the SSM family as the
 JAX package's ``PagedEngine`` does.
 
+With ``prefill_lane=False`` there is no lane: prompts ride the decode
+loop as forced tokens, one step per prompt token (prefill-by-decode); a
+tick without a prompt in flight builds and uploads no forced arrays.
+
+With ``spec_k > 0`` (greedy only) a draft model with its own page pool
+proposes up to k tokens per granted slot in one forced-token decode call
+(a slot the draft has not caught up with first replays its history
+through the draft's prefill lane), and the target verifies the ragged
+[feed, p_1 .. p_k] block in one prefill-lane call that unembeds every
+position; a proposal is kept iff it equals the target's argmax there,
+so the output is plain greedy decode's while a tick emits up to k + 1
+tokens a slot.  Rejected rows roll back by truncating the lengths of
+both pools.
+
 A request whose prompt starts with tokens already resident in a live
 slot's pages shares those pages on admission (found through a rolling-hash
 prefix index), and with retention on, a finished slot's page-aligned
@@ -41,12 +56,12 @@ injects pool squeezes, forced evictions, dropped grants and poisoned
 tokens; an always-on guard quarantines a slot that samples a token outside
 the vocabulary.  int8 pools ride the tick with their scale pools.  Under
 ``trace_ticks`` each tick that runs device work records its host time
-(``host_ms_trace``: wall time less the wait for the device), its device
-calls (``dispatch_trace``) and its upload bytes (``upload_trace``).
+(``host_ms_trace``: wall time less the waits for the device), its device
+calls (``dispatch_trace``) and its upload bytes (``upload_trace``), and
+in speculative mode its draft and verify calls.
 
 Not ported yet, and refused with ``NotImplementedError`` where a config
-asks for them: speculation, snapshots (and so recovery from a ``kill``
-fault) and the prefill-by-decode lane.
+asks for them: snapshots (and so recovery from a ``kill`` fault).
 """
 from __future__ import annotations
 
@@ -385,16 +400,10 @@ class _PrefixIndex:
 
 
 def _refuse_unported(cfg: ServeConfig) -> None:
-    asks = {
-        "spec_k": cfg.spec_k > 0,
-        "snapshot_every_ticks": cfg.snapshot_every_ticks > 0,
-        "prefill_lane=False": not cfg.prefill_lane,
-    }
-    missing = [name for name, on in asks.items() if on]
-    if missing:
+    if cfg.snapshot_every_ticks > 0:
         raise NotImplementedError(
-            f"PagedEngine (PyTorch port) does not implement "
-            f"{', '.join(missing)} yet")
+            "PagedEngine (PyTorch port) does not implement "
+            "snapshot_every_ticks yet")
 
 
 class PagedEngine:
@@ -406,20 +415,56 @@ class PagedEngine:
     and a preempted request replays its prompt and emitted output through
     the prefill lane, so neither sharing nor preemption changes the
     tokens in f32 (in bf16 the recomputed rows round as a prefill chunk
-    rounds, not as the decode steps that first wrote them)."""
+    rounds, not as the decode steps that first wrote them).  Without the
+    lane the prompts, and a resumed request's replay, go through the
+    decode loop as forced tokens.  With ``spec_k > 0`` the decode ticks
+    are speculative (``_spec_decode``, ``_spec_bookkeep``): the output
+    is greedy decode's, a tick emits up to spec_k + 1 tokens a slot, and
+    deadlines still count ticks."""
 
-    def __init__(self, model: Model, params, cfg: ServeConfig):
+    def __init__(self, model: Model, params, cfg: ServeConfig,
+                 draft_model: Optional[Model] = None, draft_params=None):
         self.model = model
         self.params = params
         self.cfg = cfg
         B = cfg.max_batch
         check_supported(model.cfg, paged=True)
+        self._spec = cfg.spec_k > 0
+        if self._spec:                   # the JAX engine's contract
+            if draft_model is None:
+                raise ValueError(
+                    "spec_k > 0 needs a draft model: "
+                    "PagedEngine(model, params, cfg, draft_model=, "
+                    "draft_params=)")
+            if cfg.temperature != 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only: a proposal is "
+                    "accepted iff it equals the target argmax "
+                    "(set temperature=0)")
+            if not cfg.prefill_lane:
+                raise ValueError(
+                    "speculative decoding verifies through the ragged "
+                    "prefill lane (set prefill_lane=True)")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    "draft and target must share a tokenizer: vocab "
+                    f"{draft_model.cfg.vocab_size} != "
+                    f"{model.cfg.vocab_size}")
         _refuse_unported(cfg)
+        self.draft_model = draft_model
+        self.draft_params = draft_params
         self.device = params["embed"].device
-        self._chunk = max(1, cfg.prefill_chunk)
-        self._chunk_tokens = (cfg.prefill_chunk_tokens
-                              or model.cfg.prefill_chunk_tokens
-                              or 2 * cfg.page_size)
+        # decode steps per tick; a speculative tick verifies the feed
+        # token and up to spec_k proposals in one ragged call
+        self._chunk = cfg.spec_k + 1 if self._spec \
+            else max(1, cfg.prefill_chunk)
+        # prompt tokens per prefill-lane chunk; 0: no lane, prompts go
+        # through the decode loop as forced tokens
+        self._chunk_tokens = 0
+        if cfg.prefill_lane:
+            self._chunk_tokens = (cfg.prefill_chunk_tokens
+                                  or model.cfg.prefill_chunk_tokens
+                                  or 2 * cfg.page_size)
         # retention rides the sharing machinery: without prefix_sharing
         # nothing could ever adopt a retained page
         self._retain = bool(cfg.prefix_sharing and cfg.retain_prefixes)
@@ -439,6 +484,24 @@ class PagedEngine:
         self._length_dev = torch.zeros((B,), dtype=torch.int32,
                                        device=self.device)
         self.kv.dirty.clear()            # mirrors start in sync (all zero)
+        # the draft's own page pool (speculation): no sharing and no
+        # retention; rejected rows roll back by length, a preempted slot
+        # rebuilds by catch-up
+        self.dkv: Optional[PagedKVCache] = None
+        if self._spec:
+            self.dkv = PagedKVCache(draft_model, B, cfg.max_seq,
+                                    page_size=cfg.page_size,
+                                    max_blocks=cfg.max_blocks,
+                                    num_pages=cfg.num_pages,
+                                    device=self.device)
+            self._dtable_dev = torch.zeros((B, self.dkv.max_blocks),
+                                           dtype=torch.int32,
+                                           device=self.device)
+            self._dlength_dev = torch.zeros((B,), dtype=torch.int32,
+                                            device=self.device)
+            self.dkv.dirty.clear()
+            self._dgen = torch.Generator(device=self.device)
+            self._dgen.manual_seed(cfg.seed + 1)
         self._pindex = _PrefixIndex()
         self.scheduler = TickScheduler(fairness=cfg.fairness,
                                        tick_budget=cfg.tick_budget,
@@ -476,11 +539,20 @@ class PagedEngine:
         self.tokens_out = 0               # kept output tokens
         self.shared_tokens = 0            # prompt tokens served by reference
         self.tokens_appended = 0          # fresh K/V rows written
+        self.spec_proposed = 0            # draft tokens offered to verify
+        self.spec_accepted = 0            # proposals the target accepted
+        self.spec_trunc_tokens = 0        # target K/V rows rolled back
+        self.draft_dispatches = 0         # draft catch-up + propose calls
+        self.verify_dispatches = 0        # target verify calls
+        self.draft_dispatch_trace: List[int] = []   # per busy tick
+        self.verify_dispatch_trace: List[int] = []
         self.util_trace: List[float] = []        # per-tick page utilization
         self.occupancy_trace: List[float] = []   # per-tick row occupancy
-        # host-to-device bytes: dirty table/length rows, prefill-lane token
-        # blocks and grants, and all of a tick's uploads
+        # host-to-device bytes: dirty table/length rows, forced-token
+        # arrays (prefill-by-decode only), prefill-lane token blocks and
+        # grants, and all of a tick's uploads
         self.table_upload_bytes = 0
+        self.forced_upload_bytes = 0
         self.prefill_upload_bytes = 0
         self.upload_bytes = 0
         self.host_ms_trace: List[float] = []     # host work per busy tick
@@ -693,6 +765,8 @@ class PagedEngine:
         self._feed[i] = self.cfg.pad_id
         self._pindex.drop(i)
         self.kv.free_slot(i, retain_tokens=history if self._retain else None)
+        if self.dkv is not None:          # draft pages never retain
+            self.dkv.free_slot(i)
 
     def _preempt(self, i: int, quarantine: bool = False) -> None:
         """Evict slot ``i`` and requeue its request at the front with its
@@ -762,23 +836,210 @@ class PagedEngine:
         re-uploads every table row."""
         self.kv.defrag()
 
-    def _sync_dirty(self) -> int:
-        """Patch the device table/length copies at the cache's dirty rows;
-        returns the bytes uploaded, counted as the JAX engine counts them,
-        rows x (max_blocks + 1) x 4, but over the rows really uploaded (the
-        JAX engine pads the row batch to a power of two so that its
-        patcher compiles once per size; an indexed torch copy needs no
-        padding)."""
-        if not self.kv.dirty:
+    def _sync_dirty(self, kv: PagedKVCache, table_dev, length_dev) -> int:
+        """Patch a device table/length pair in place at ``kv``'s dirty
+        rows (the target's or the draft's); returns the bytes uploaded,
+        counted as the JAX engine counts them, rows x (max_blocks + 1) x
+        4, but over the rows really uploaded (the JAX engine pads the row
+        batch to a power of two so that its patcher compiles once per
+        size; an indexed torch copy needs no padding)."""
+        if not kv.dirty:
             return 0
-        rows = sorted(self.kv.dirty)
-        self.kv.dirty.clear()
+        rows = sorted(kv.dirty)
+        kv.dirty.clear()
         idx = torch.tensor(rows, dtype=torch.long, device=self.device)
-        self._table_dev[idx] = torch.from_numpy(
-            self.kv.table[rows]).to(self.device)
-        self._length_dev[idx] = torch.from_numpy(
-            self.kv.length[rows]).to(self.device)
-        return len(rows) * (self.kv.max_blocks + 1) * 4
+        table_dev[idx] = torch.from_numpy(kv.table[rows]).to(self.device)
+        length_dev[idx] = torch.from_numpy(kv.length[rows]).to(self.device)
+        return len(rows) * (kv.max_blocks + 1) * 4
+
+    # -- speculative decoding -------------------------------------------
+
+    @property
+    def accept_rate(self) -> float:
+        """Share of the draft's proposals the target accepted (0.0 before
+        the first proposal, as the JAX engine computes it)."""
+        return self.spec_accepted / max(1, self.spec_proposed)
+
+    def _draft_cache(self) -> dict:
+        dkv = self.dkv
+        c = {"k": dkv.k, "v": dkv.v, "table": self._dtable_dev,
+             "length": self._dlength_dev}
+        if dkv.quantized:
+            c["k_scale"] = dkv.k_scale
+            c["v_scale"] = dkv.v_scale
+        return c
+
+    def _draft_writeback(self, c: dict) -> None:
+        dkv = self.dkv
+        dkv.k, dkv.v = c["k"], c["v"]
+        if dkv.quantized:
+            dkv.k_scale, dkv.v_scale = c["k_scale"], c["v_scale"]
+        self._dlength_dev = c["length"]      # the device advanced it
+
+    def _spec_decode(self, steps, cache):
+        """One speculative decode tick over the granted slots, as the JAX
+        engine's ``_spec_decode``:
+
+          1. catch-up — a slot whose draft pool lacks more than one
+             history token (a fresh admission, a shared prefix, a resume:
+             the draft shares nothing, it recomputes) replays the gap
+             through the draft's prefill lane in chunks of
+             ``max(chunk tokens, chunk)`` until at most one token trails;
+             a dry draft pool catches up as far as its pages reach;
+          2. propose — one forced-token decode call on the draft: a slot
+             one token behind feeds that history token and forces the
+             target's feed token in as its step-0 output, so the deficit
+             costs no extra call;
+          3. one ``.cpu()`` of the proposals: a wait for the device;
+          4. verify — one ragged prefill-lane call on the target over
+             [feed, p_1 .. p_k] per slot, draft tokens clamped into the
+             vocabulary.
+
+        Returns (greedy, accept, vgr, cache, upload bytes, draft calls,
+        wait seconds): ``greedy`` and ``accept`` on the device; ``vgr``
+        (B,) the target rows the verify appended, 1 + proposals, which is
+        below the planned grant only where the draft pool capped the
+        slot."""
+        cfg = self.cfg
+        B = len(self.slots)
+        dkv = self.dkv
+        chunk = self._chunk
+        dev = self.device
+        upload = draft_disp = 0
+        rows = [i for i in range(B) if self.slots[i].active and steps[i] > 0]
+
+        # catch-up: stream the missing history through the draft's lane
+        Tc = max(self._chunk_tokens, chunk)
+        while True:
+            cg = np.zeros((B,), np.int32)
+            tok_c = np.full((B, Tc), cfg.pad_id, np.int32)
+            for i in rows:
+                hist = self.slots[i].history
+                dlen = int(dkv.length[i])
+                miss = len(hist) - dlen
+                if miss <= 1:
+                    continue
+                take = min(miss, Tc)
+                if not dkv.ensure(i, dlen + take):
+                    # draft pool dry: partial catch-up; the slot verifies
+                    # at grant 1 until draft pages free up
+                    take = min(take, len(dkv.owned[i]) * dkv.page - dlen)
+                if take <= 0:
+                    continue
+                cg[i] = take
+                tok_c[i, :take] = hist[dlen:dlen + take]
+            if not cg.any():
+                break
+            b = self._sync_dirty(dkv, self._dtable_dev, self._dlength_dev)
+            upload += b + B * (Tc + 1) * 4
+            draft_disp += bool(b) + 1
+            _, c = self.draft_model.prefill_many_paged(
+                self.draft_params, torch.from_numpy(tok_c).to(dev),
+                self._draft_cache(), self._dgen,
+                torch.from_numpy(cg).to(dev), temperature=0.0)
+            self._draft_writeback(c)
+            dkv.length += cg
+
+        # propose: grant = deficit (<= 1) + k proposals per slot
+        off = np.zeros((B,), np.int32)
+        dgr = np.zeros((B,), np.int32)
+        k_prop = np.zeros((B,), np.int32)
+        feed_d = np.full((B,), cfg.pad_id, np.int32)
+        forced_tok = np.full((chunk, B), cfg.pad_id, np.int32)
+        forced_mask = np.zeros((chunk, B), bool)
+        for i in rows:
+            hist = self.slots[i].history
+            d = len(hist) - int(dkv.length[i])
+            if d > 1:
+                continue                  # still catching up: no proposals
+            k = int(steps[i]) - 1
+            if k and not dkv.ensure(i, len(hist) + k):
+                k = max(0, len(dkv.owned[i]) * dkv.page - len(hist))
+            if d == 0 and k == 0:
+                continue                  # nothing for the draft to do
+            off[i], k_prop[i], dgr[i] = d, k, d + k
+            if d:                         # replay the missing history
+                feed_d[i] = hist[-1]      # token, force the feed in as
+                forced_tok[0, i] = self._feed[i]   # its step-0 output
+                forced_mask[0, i] = True
+            else:
+                feed_d[i] = self._feed[i]
+        toks_d = None
+        if dgr.any():
+            b = self._sync_dirty(dkv, self._dtable_dev, self._dlength_dev)
+            # feed, grants, forced tokens and mask: draft-side traffic
+            # (forced_upload_bytes counts prompt traffic only)
+            upload += b + 2 * B * 4 + chunk * B * (4 + 1)
+            draft_disp += bool(b) + 1
+            # steps past the largest grant would idle every slot
+            toks_d, c = self.draft_model.decode_many_paged(
+                self.draft_params, torch.from_numpy(feed_d).to(dev)[:, None],
+                self._draft_cache(), self._dgen, torch.from_numpy(dgr).to(dev),
+                torch.from_numpy(forced_tok).to(dev),
+                torch.from_numpy(forced_mask).to(dev),
+                num_steps=int(dgr.max()), temperature=0.0)
+            self._draft_writeback(c)
+            dkv.length += dgr
+
+        w0 = time.perf_counter()          # the device wait
+        toks_d_np = toks_d.cpu().numpy() if toks_d is not None else None
+        wait = time.perf_counter() - w0
+
+        # verify: one ragged prefill-lane call on the target
+        vocab = self.model.cfg.vocab_size
+        vgr = np.zeros((B,), np.int32)
+        tok_v = np.full((B, chunk), cfg.pad_id, np.int32)
+        for i in rows:
+            tok_v[i, 0] = self._feed[i]
+            k = int(k_prop[i])
+            for s in range(k):
+                t = int(toks_d_np[int(off[i]) + s, i])
+                # clamp: an out-of-range draft token must not index past
+                # the target's embedding (it is rejected anyway)
+                tok_v[i, 1 + s] = min(max(t, 0), vocab - 1)
+            vgr[i] = 1 + k
+            self.spec_proposed += k
+        upload += B * (chunk + 1) * 4
+        greedy, accept, cache = self.model.verify_many_paged(
+            self.params, torch.from_numpy(tok_v).to(dev), cache,
+            torch.from_numpy(vgr).to(dev))
+        return greedy, accept, vgr, cache, upload, draft_disp, wait
+
+    def _spec_bookkeep(self, vgr, greedy_np, accept_np,
+                       poisoned: Set[int]) -> None:
+        """After a verify: emit each slot's accepted proposals and the
+        bonus token, truncate the target's rejected rows (the pages stay
+        owned; nothing past a length is read or shared), and roll the
+        draft back to the accepted frontier."""
+        cfg = self.cfg
+        for i, slot in enumerate(self.slots):
+            v = int(vgr[i])
+            if not slot.active or v == 0 or i in poisoned:
+                continue
+            a = int(accept_np[i])
+            kept = a + 1                  # accepted proposals + bonus
+            L = len(slot.history)
+            if kept < v:                  # rejected rows roll back
+                self.kv.length[i] -= v - kept
+                self.kv.dirty.add(i)
+                self.spec_trunc_tokens += v - kept
+            fed = [int(self._feed[i])] \
+                + [int(greedy_np[i, s]) for s in range(kept - 1)]
+            slot.history.extend(fed)
+            if cfg.prefix_sharing:
+                self._pindex.add(i, fed)
+            slot.served += kept
+            self.spec_accepted += a
+            # the propose call appended [feed, p_1 .. p_{k-1}] past the
+            # history: keep what the target accepted.  All k accepted
+            # leaves a 1-token deficit (p_k was sampled, never appended)
+            # that the next propose replays as a forced step 0.
+            cur = int(self.dkv.length[i])
+            dvalid = min(cur, L + min(kept, v - 1))
+            if dvalid != cur:
+                self.dkv.length[i] = dvalid
+                self.dkv.dirty.add(i)
+            self._emit(i, [int(greedy_np[i, s]) for s in range(kept)])
 
     # -- stepping -------------------------------------------------------
 
@@ -848,7 +1109,8 @@ class PagedEngine:
         # flushes, the row patch, the prefill chunk, the decode loop
         dispatches = self.kv.cow_dispatches - cow_disp0
         tick_upload = 0
-        row_bytes = self._sync_dirty()
+        row_bytes = self._sync_dirty(self.kv, self._table_dev,
+                                     self._length_dev)
         if row_bytes:
             self.table_upload_bytes += row_bytes
             tick_upload += row_bytes
@@ -876,15 +1138,31 @@ class PagedEngine:
                 torch.from_numpy(pgr).to(self.device),
                 temperature=cfg.temperature)
             dispatches += 1
-        toks = None
-        if steps.any():
+        toks = greedy = accept = None
+        vgr = steps                       # target rows the decode appends
+        d_disp = v_disp = 0
+        spec_wait = 0.0
+        if steps.any() and self._spec:    # draft-propose, target-verify
+            (greedy, accept, vgr, cache, d_up, d_disp,
+             spec_wait) = self._spec_decode(steps, cache)
+            v_disp = 1
+            tick_upload += d_up
+            dispatches += d_disp + v_disp
+            self.draft_dispatches += d_disp
+            self.verify_dispatches += v_disp
+        elif steps.any():
             # decode loop over the grants; steps past the largest grant
             # would be idle for every slot, so the loop stops there
             tick_upload += 2 * B * 4          # feed tokens + step grants
             feed = torch.from_numpy(self._feed).to(self.device)[:, None]
+            forced = self._forced_arrays(steps)
+            if forced:
+                forced_bytes = self._chunk * B * (4 + 1)
+                self.forced_upload_bytes += forced_bytes
+                tick_upload += forced_bytes
             toks, cache = self.model.decode_many_paged(
                 self.params, feed, cache, self.generator,
-                torch.from_numpy(steps).to(self.device),
+                torch.from_numpy(steps).to(self.device), *forced,
                 num_steps=int(steps.max()), temperature=cfg.temperature)
             dispatches += 1
         self.kv.k, self.kv.v = cache["k"], cache["v"]
@@ -892,43 +1170,50 @@ class PagedEngine:
             self.kv.k_scale = cache["k_scale"]
             self.kv.v_scale = cache["v_scale"]
         self._length_dev = cache["length"]     # the device advanced it
-        self.kv.length += steps + pgr          # host mirror of the increment
-        self.tokens_appended += int(steps.sum()) + int(pgr.sum())
+        self.kv.length += vgr + pgr            # host mirror of the increment
+        self.tokens_appended += int(vgr.sum()) + int(pgr.sum())
         self.steps_run += 1
         if cfg.trace_pool:
             self.util_trace.append(self.kv.utilization())
             self.occupancy_trace.append(self.kv.occupancy())
 
         t1 = time.perf_counter()
-        toks_np = toks.cpu().numpy() if toks is not None else None  # the
-        nxt_np = nxt.cpu().numpy() if nxt is not None else None  # device wait
+        # the device waits: the decode loop's tokens, the lane's sampled
+        # token, the verify's argmaxes and accept lengths
+        toks_np, nxt_np, greedy_np, accept_np = (
+            t.cpu().numpy() if t is not None else None
+            for t in (toks, nxt, greedy, accept))
         t2 = time.perf_counter()
         # poison fault: the slot's sampled tokens this tick come back as
-        # an out-of-vocabulary sentinel
+        # an out-of-vocabulary sentinel (a verified window entirely)
         if self._poison_slots:
             for i in self._poison_slots:
                 if 0 <= i < B:
                     if toks_np is not None and steps[i]:
                         toks_np[:, i] = -1
+                    if greedy_np is not None and vgr[i]:
+                        greedy_np[i, :] = -1
                     if nxt_np is not None and pgr[i]:
                         nxt_np[i] = -1
             self._poison_slots.clear()
         # the always-on output guard: a kept token outside the vocabulary
         # means garbage logits; the slot skips this tick's bookkeeping and
         # is quarantined below, its request requeued with its pre-tick
-        # output
+        # output.  A verified window keeps accept + 1 tokens, each checked.
         vocab = self.model.cfg.vocab_size
         poisoned: Set[int] = set()
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue
-            g, si = int(pgr[i]), int(steps[i])
+            g, si = int(pgr[i]), int(vgr[i])
             if g and slot.prompt_left - g <= 0:   # sampled token is kept
                 if not 0 <= int(nxt_np[i]) < vocab:
                     poisoned.add(i)
-            if si and i not in poisoned \
-                    and not all(0 <= int(t) < vocab for t in toks_np[:si, i]):
-                poisoned.add(i)
+            if si and i not in poisoned:
+                kept = (greedy_np[i, :int(accept_np[i]) + 1]
+                        if greedy_np is not None else toks_np[:si, i])
+                if not all(0 <= int(t) < vocab for t in kept):
+                    poisoned.add(i)
 
         # prefill-lane bookkeeping: the chunk's tokens are known on the
         # host; only the ONE sampled token per slot came back, and it
@@ -948,28 +1233,65 @@ class PagedEngine:
                 self._feed[i] = slot.forced.pop(0)
                 continue
             self._emit(i, [int(nxt_np[i])])
-        # decode bookkeeping: the tokens fed this tick are its K/V rows
-        for i, slot in enumerate(self.slots):
-            si = int(steps[i])
-            if not slot.active or si == 0 or i in poisoned:
-                continue
-            fed = [int(self._feed[i])] \
-                + [int(toks_np[s, i]) for s in range(si - 1)]
-            slot.history.extend(fed)
-            if cfg.prefix_sharing:
-                self._pindex.add(i, fed)
-            slot.served += si
-            self._emit(i, [int(toks_np[s, i]) for s in range(si)])
+        if greedy_np is not None:         # a verified window per slot
+            self._spec_bookkeep(vgr, greedy_np, accept_np, poisoned)
+        elif toks_np is not None:
+            self._decode_bookkeep(steps, toks_np, poisoned)
         for i in sorted(poisoned):
             if self.slots[i].active:
                 self._preempt(i, quarantine=True)
         t3 = time.perf_counter()
         if cfg.trace_ticks:
-            # the tick's host time: everything but the wait for the device
-            self.host_ms_trace.append(((t1 - t0) + (t3 - t2)) * 1e3)
+            # the tick's host time: everything but the waits for the
+            # device (the mid-tick read of the proposals is one)
+            self.host_ms_trace.append(
+                ((t1 - t0 - spec_wait) + (t3 - t2)) * 1e3)
             self.dispatch_trace.append(dispatches)
             self.upload_trace.append(tick_upload)
+            if self._spec:
+                self.draft_dispatch_trace.append(d_disp)
+                self.verify_dispatch_trace.append(v_disp)
         self.upload_bytes += tick_upload
+
+    def _forced_arrays(self, steps) -> tuple:
+        """Prefill-by-decode: the (chunk, B) forced tokens and mask that
+        feed the granted slots' next prompt tokens through the decode
+        loop, on the device; () when no granted slot has prompt left (a
+        pure-decode tick builds and uploads nothing)."""
+        if not any(s.active and s.forced and steps[i]
+                   for i, s in enumerate(self.slots)):
+            return ()
+        B = len(self.slots)
+        forced_tok = np.full((self._chunk, B), self.cfg.pad_id, np.int32)
+        forced_mask = np.zeros((self._chunk, B), bool)
+        for i, slot in enumerate(self.slots):
+            n = min(len(slot.forced), int(steps[i]))
+            forced_tok[:n, i] = slot.forced[:n]
+            forced_mask[:n, i] = True
+        return (torch.from_numpy(forced_tok).to(self.device),
+                torch.from_numpy(forced_mask).to(self.device))
+
+    def _decode_bookkeep(self, steps, toks_np, poisoned: Set[int]) -> None:
+        """After the decode loop: the tokens fed this tick are its K/V
+        rows; a slot's first steps may have been forced prompt tokens,
+        and only the steps past them emit output."""
+        for i, slot in enumerate(self.slots):
+            si = int(steps[i])
+            if not slot.active or si == 0 or i in poisoned:
+                continue
+            out = [int(toks_np[s, i]) for s in range(si)]
+            fed = [int(self._feed[i])] + out[:-1]
+            slot.history.extend(fed)
+            if self.cfg.prefix_sharing:
+                self._pindex.add(i, fed)
+            slot.served += si
+            n_forced = min(len(slot.forced), si)
+            del slot.forced[:n_forced]
+            slot.prompt_left = max(0, slot.prompt_left - si)
+            if n_forced < si:
+                self._emit(i, out[n_forced:])
+            else:                         # mid-prompt: feed the last one
+                self._feed[i] = out[-1]
 
     def _emit(self, i: int, toks: List[int]) -> None:
         """Append slot ``i``'s new output tokens up to eos or its budget

@@ -150,9 +150,20 @@ def test_cache_copy_on_write_matches_jax():
 @pytest.mark.parametrize("change", [
     dict(spec_k=2), dict(snapshot_every_ticks=3), dict(prefill_lane=False)])
 def test_engine_refuses_unported_features(change):
+    """Snapshots are the one feature the port refuses.  Speculation
+    without a draft model raises the JAX engine's ``ValueError``, and
+    ``prefill_lane=False`` builds an engine with no lane (the two are
+    ported; their own tests hold them against the JAX engine)."""
     _, _, tm, tp = _models("qwen2-0.5b", "float32")
-    with pytest.raises(NotImplementedError):
-        TPagedEngine(tm, tp, TServeConfig(**dict(SERVE, **change)))
+    cfg = TServeConfig(**dict(SERVE, **change))
+    if "snapshot_every_ticks" in change:
+        with pytest.raises(NotImplementedError, match="snapshot"):
+            TPagedEngine(tm, tp, cfg)
+    elif "spec_k" in change:
+        with pytest.raises(ValueError, match="draft model"):
+            TPagedEngine(tm, tp, cfg)
+    else:
+        assert TPagedEngine(tm, tp, cfg)._chunk_tokens == 0
 
 
 def test_engine_refuses_unknown_preempt_policy():

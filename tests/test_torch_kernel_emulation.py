@@ -501,6 +501,53 @@ def test_emulated_prefill_tiles_across_pages(case, cuda_path_on_cpu):
     assert prefill_paged.KERNEL.launches == n0 + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_emulated_prefill_at_the_verify_shape(dtype, cuda_path_on_cpu):
+    """The speculative verify's call: T = 5 (k = 4 proposals and the feed
+    token), ragged grants 0-5 with one slot idle, every base mid-page.
+    Then a rollback: each slot keeps part of its window, the next window
+    starts at the truncated length and writes different rows over the
+    rejected ones, and the rows past each new length hold stale values
+    large enough to show any read of them.  Against the plain version
+    both times."""
+    B, T, H, KV, D, page, NB, L, layer = 6, 5, 8, 2, 32, 4, 8, 2, 1
+    q, kp, vp, tbl, _, _, _, _, _ = _case(31, B, T, H, KV, D, page, NB, L,
+                                          dtype, False)
+    rng = np.random.RandomState(5)
+
+    def write(pos_lo, pos_hi, value=None):
+        for b in range(B):
+            for pos in range(int(pos_lo[b]), int(pos_hi[b])):
+                blk, off = tbl[b, pos // page], pos % page
+                for pool in (kp, vp):
+                    rows = (torch.full((KV, D), value) if value is not None
+                            else torch.from_numpy(rng.randn(KV, D)
+                                                  .astype(np.float32)))
+                    pool[layer, blk, off] = rows.to(dtype)
+
+    def check(base, new):
+        n0 = prefill_paged.KERNEL.launches
+        got = prefill_paged.paged_prefill_attention(q, kp, vp, tbl, base,
+                                                    new, layer)
+        want = paged_prefill_attention_ref(q, kp, vp, tbl, base, new, layer)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        assert prefill_paged.KERNEL.launches == n0 + 1
+
+    base = torch.tensor([6, 9, 13, 7, 2, 10], dtype=torch.int32)
+    grants = torch.tensor([5, 4, 3, 0, 2, 1], dtype=torch.int32)
+    new = base + grants
+    write(new, new + T, value=1e3)             # never read: past the length
+    check(base, new)
+    kept = torch.tensor([2, 1, 3, 0, 1, 1], dtype=torch.int32)
+    base2 = base + kept                        # truncated to the accepted
+    new2 = base2 + torch.tensor([5, 5, 4, 1, 0, 3], dtype=torch.int32)
+    write(base2, new2)                         # rewritten over the rejected
+    write(new2, torch.maximum(new, new2) + T, value=-1e3)
+    check(base2, new2)
+
+
 def test_emulated_decode_at_page_boundaries(cuda_path_on_cpu):
     """kv_len exactly on a page boundary, one past it and the full table:
     the dead-block skip is on j * page < kv_len, never on the table."""

@@ -101,9 +101,9 @@ def _engines(kv_dtype="bf16", **serve):
     te.synced_rows = []
     sync = te._sync_dirty
 
-    def recording_sync():
-        te.synced_rows.append(len(te.kv.dirty))
-        return sync()
+    def recording_sync(kv, *mirrors):
+        te.synced_rows.append(len(kv.dirty))
+        return sync(kv, *mirrors)
 
     te._sync_dirty = recording_sync
     return je, te
