@@ -72,6 +72,33 @@ Phases, each failing loudly (non-zero exit, no result line):
                Both phases print the engine's per-tick host split
                (median and p90 of ``host_ms_trace``, the means of
                ``dispatch_trace`` and ``upload_trace``).
+     recover — the share phase's model, weights, traffic and ServeConfig
+               with a snapshot every 4 ticks (``serve/snapshot.py``, into
+               a temporary directory; the second wave submitted when the
+               first has drained, ``_next_rid`` the submission cursor).
+               Served once uninterrupted (the snapshots' cost, and the
+               tick trace that places the kills), then with two ``kill``
+               faults: one in the first wave one tick past the last copy
+               on write of a snapshot's interval, with a page shared; one
+               in the repeats three ticks after a snapshot that holds a
+               retained adoption.  Each is recovered as
+               tests/test_snapshot_props.py recovers: the dead engine
+               dropped, a fresh ``PagedEngine`` on the same parameter
+               tensors, ``restore_engine(latest_snapshot(dir))``, the
+               plan re-armed without the fired kill.  Hard checks: both
+               kills fire and each restores from a snapshot;
+               ``kv.check()`` and the prefix index after every tick;
+               both runs' tokens and statuses bit-identical to the share
+               phase's run, and its shared-token, COW and retained-
+               adoption counts equal; both paged kernels launched; a
+               truncated copy of the newest file (cut in the header, in
+               the middle, 3 bytes short) raises
+               ``SnapshotCorruptError`` and ``latest_snapshot`` falls
+               back to the newest whole one.  Prints the bytes of a
+               snapshot, the median and max save ms, each restore's ms,
+               ticks replayed and seconds from the kill to the restored
+               engine's first finished tick, the snapshots written and
+               tokens/s of ``step()`` with snapshots on beside share's.
      overload — the same model and weights through ``PagedEngine`` with
                40 allocatable pages (under half of four slots' full
                tables), max_queue 6: 11 requests of 150-300 prompt and
@@ -120,8 +147,12 @@ Phases, each failing loudly (non-zero exit, no result line):
                tokens of its uninterrupted run on both paths; then
                speculation at spec_k 1 and 3, and at 3 under preemption
                at a pool of five pages, and ``prefill_lane=False``, each
-               identical on both paths and to plain greedy decode) and
-               through
+               identical on both paths and to plain greedy decode; then
+               tests/test_snapshot_props.py's int8 speculative drill,
+               int8 pools, spec_k 2 with a 1-layer draft, a random
+               recoverable plan and kills at ticks 7 and 13 recovered
+               from snapshots, identical to the uninterrupted run on
+               both paths) and through
                ``ServingEngine`` (prompts of multiples of 32 tokens, so
                the plain side takes the chunked flash reference, among
                them a (608, 64) batch, which 512 does not divide).
@@ -1135,7 +1166,281 @@ def share_phase(torch, cfg, params, decode_kernel, prefill_kernel):
     return dict(tok_s=tok_s, shared=eng.shared_tokens,
                 ratio=eng.logical_physical_ratio, cow=eng.kv.cow_copies,
                 hits=eng.kv.retained_hits, peak=peak, chunks=chunks,
-                off_chunks=off_chunks, launches=launches, host=split)
+                off_chunks=off_chunks, launches=launches, host=split,
+                tokens=sum(run["tokens"], []),
+                status=[eng.status[r].value for w in run["rids"] for r in w])
+
+
+# ---------------------------------------------------------------------------
+# recover: snapshots and kill-and-recover
+# ---------------------------------------------------------------------------
+
+RECOVER_EVERY = 4                # ticks between snapshots
+
+
+def run_gated(engine, work, gate, on_tick=None):
+    """Steps ``engine`` until every request of ``work`` ((prompt, budget)
+    pairs, submitted in order) is served, submitting request i once
+    ``gate(engine, i)`` holds.  ``engine._next_rid`` is the submission
+    cursor, so an engine restored from a snapshot resubmits exactly the
+    requests its snapshot does not hold.  Returns the seconds in
+    ``step()``."""
+    step_s = 0.0
+    while True:
+        while engine._next_rid < len(work) and gate(engine,
+                                                    engine._next_rid):
+            p, b = work[engine._next_rid]
+            engine.submit(p, b)
+        if not engine.busy and engine._next_rid >= len(work) \
+                and not engine._squeezed:
+            return step_s
+        t0 = time.perf_counter()
+        engine.step()
+        step_s += time.perf_counter() - t0
+        if on_tick is not None:
+            on_tick(engine)
+
+
+def drive_with_recovery(mk, work, gate, plan, snap_dir, on_tick=None,
+                        on_restore=None):
+    """tests/test_snapshot_props.py's recovery protocol: on
+    ``EngineKilled`` the dead engine is dropped (its pools go back to the
+    allocator), a fresh one from ``mk()`` restores the newest intact
+    snapshot (or starts cold) and is armed with the plan less the kills
+    fired so far.  ``on_restore(killed tick, engine, restore s, kill
+    time)`` runs after each restore, the kill time on the host clock.
+    Returns (engine, kills, restores)."""
+    from repro_torch.serve import snapshot
+    from repro_torch.serve.faults import EngineKilled
+    engine = mk()
+    engine.install_faults(plan)
+    kills = restores = 0
+    while True:
+        try:
+            run_gated(engine, work, gate, on_tick)
+            return engine, kills, restores
+        except EngineKilled as e:
+            tick, t_kill = e.tick, time.perf_counter()
+        kills += 1
+        if kills >= 10:
+            raise AssertionError("kill storm: recovery never converged")
+        del engine
+        latest = snapshot.latest_snapshot(snap_dir)
+        engine = mk()
+        t0 = time.perf_counter()
+        if latest is not None:
+            snapshot.restore_engine(engine, latest)
+            restores += 1
+        restore_s = time.perf_counter() - t0
+        plan = plan.without_kills_through(tick)
+        engine.install_faults(plan)
+        if on_restore is not None:
+            on_restore(tick, engine, restore_s, t_kill)
+
+
+def engine_checks(engine) -> None:
+    """The per-tick invariants: the pools, the prefix index, history ==
+    length."""
+    engine.kv.check()
+    if engine.dkv is not None:
+        engine.dkv.check()
+    engine._pindex.check(engine.slots)
+    for i, slot in enumerate(engine.slots):
+        if slot.active and len(slot.history) != int(engine.kv.length[i]):
+            raise AssertionError(f"slot {i}: history/length drift")
+
+
+def pick_kills(trace):
+    """Two kill ticks from an uninterrupted run's per-tick trace (tick ->
+    (a page shared, COW copies, retained adoptions, second wave
+    submitted, busy) at its end).  The first: in the first wave, one
+    tick past the last copy on write of a snapshot's interval, with a
+    page shared: the restored engine replays the live shares and makes
+    the copies again.  The second: three ticks after a snapshot of the
+    repeats that holds a retained adoption."""
+    last = max(trace)
+    first = second = None
+    for s in range(RECOVER_EVERY, last + 1, RECOVER_EVERY):
+        _, _, hits, wave2, busy = trace[s]
+        if first is None and not wave2:
+            cows = [u for u in range(s + 1, min(s + RECOVER_EVERY, last + 1))
+                    if trace[u][1] > trace[u - 1][1] and trace[u][0]
+                    and not trace[u][3]]
+            first = cows[-1] + 1 if cows else None
+        if second is None and wave2 and hits and busy and s + 3 <= last:
+            second = s + 3
+    if first is None or second is None:
+        raise AssertionError(f"recover: no kill ticks found "
+                             f"({first}, {second}) over {last} ticks")
+    return first, second
+
+
+def recover_phase(torch, cfg, params, share, decode_kernel, prefill_kernel):
+    """The share phase's model, weights, traffic and ServeConfig with a
+    snapshot every 4 ticks: served once uninterrupted, then with two
+    kills, each recovered from the newest snapshot into a fresh engine on
+    the same parameters.  Both runs give the share phase's tokens,
+    statuses and sharing counters, bit for bit.  Returns the readings."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.models.model import get_model
+    from repro_torch.serve import snapshot
+    from repro_torch.serve.engine import PagedEngine, ServeConfig
+    from repro_torch.serve.faults import FaultEvent, FaultPlan
+    new_tokens = 32
+    waves = share_traffic(np.random.RandomState(29), cfg.vocab_size)
+    work = [(p, new_tokens) for w in waves for p in w]
+    n_first = len(waves[0])
+
+    def gate(engine, i):                 # the second wave after the drain
+        return i != n_first or not engine.busy
+
+    longest = max(len(p) for p, _ in work)
+    model = get_model(cfg)
+    with tempfile.TemporaryDirectory(prefix="recover-") as tmp:
+        def mk(snap_dir):
+            return lambda: PagedEngine(model, params, ServeConfig(
+                max_batch=4, max_seq=longest + new_tokens + 16,
+                max_new_tokens=new_tokens, page_size=SHARE_PAGE,
+                prefill_chunk_tokens=SHARE_CHUNK,
+                snapshot_every_ticks=RECOVER_EVERY, snapshot_dir=snap_dir))
+
+        # uninterrupted, snapshots on: their cost, and the kill ticks
+        save, save_ms, trace = snapshot.save_snapshot, [], {}
+
+        def timed_save(engine, path):
+            t0 = time.perf_counter()
+            out = save(engine, path)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def record(engine):
+            engine_checks(engine)
+            trace[engine.ticks] = (
+                bool((engine.kv.refcount > 1).any()), engine.kv.cow_copies,
+                engine.kv.retained_hits, engine._next_rid > n_first,
+                engine.busy)
+
+        snapshot.save_snapshot = timed_save
+        try:
+            eng = mk(os.path.join(tmp, "whole"))()
+            trace[0] = (False, 0, 0, False, False)
+            step_s = run_gated(eng, work, gate, record)
+        finally:
+            snapshot.save_snapshot = save
+        torch.cuda.synchronize()
+        newest = snapshot.latest_snapshot(os.path.join(tmp, "whole"))
+        nbytes = os.path.getsize(newest)
+        whole = dict(tokens=[eng.results[r] for r in range(len(work))],
+                     status=[eng.status[r].value for r in range(len(work))],
+                     counts=(eng.shared_tokens, eng.kv.cow_copies,
+                             eng.kv.retained_hits),
+                     written=eng.snapshots_written, ticks=eng.ticks,
+                     page_bytes=eng.kv.page_bytes,
+                     num_pages=eng.kv.num_pages)
+        n_out = sum(len(t) for t in whole["tokens"])
+        tok_s = n_out / step_s
+        del eng
+        kills = pick_kills(trace)
+
+        # the kills: the main path of this phase
+        snap_dir = os.path.join(tmp, "killed")
+        restored, pending = [], {}
+
+        def on_restore(tick, engine, restore_s, t_kill):
+            restored.append(dict(killed=tick, tick=engine.ticks,
+                                 replayed=tick - 1 - engine.ticks,
+                                 restore_ms=restore_s * 1e3))
+            pending["t0"] = t_kill
+
+        def on_tick(engine):
+            engine_checks(engine)
+            if "t0" in pending:          # the restored engine's first tick
+                torch.cuda.synchronize()
+                restored[-1]["recover_s"] = \
+                    time.perf_counter() - pending.pop("t0")
+
+        decode_kernel.launches = 0       # counts of this phase's path
+        prefill_kernel.launches = 0
+        eng, n_kills, n_restores = drive_with_recovery(
+            mk(snap_dir), work, gate,
+            FaultPlan([FaultEvent(t, "kill") for t in kills]), snap_dir,
+            on_tick, on_restore)
+        torch.cuda.synchronize()
+        launches = {"decode": decode_kernel.launches,
+                    "prefill": prefill_kernel.launches}
+        got = dict(tokens=[eng.results[r] for r in range(len(work))],
+                   status=[eng.status[r].value for r in range(len(work))],
+                   counts=(eng.shared_tokens, eng.kv.cow_copies,
+                           eng.kv.retained_hits))
+
+        # a truncated copy of the newest file is refused and skipped
+        newest = snapshot.latest_snapshot(snap_dir)
+        with open(newest, "rb") as f:
+            blob = f.read()
+        cut_path = snapshot.snapshot_path(
+            snap_dir, snapshot.load_header(newest)["tick"] + 1)
+        refused = []
+        for cut in (24, len(blob) // 2, len(blob) - 3):
+            with open(cut_path, "wb") as f:
+                f.write(blob[:cut])
+            try:
+                snapshot.load_snapshot(cut_path)
+            except snapshot.SnapshotCorruptError:
+                refused.append(snapshot.latest_snapshot(snap_dir) == newest)
+        os.remove(cut_path)
+        del blob, eng
+
+    gpu = gpu_line()
+    share_counts = (share["shared"], share["cow"], share["hits"])
+    log(f"[recover] granite-8b, the share phase's traffic and ServeConfig "
+        f"with a snapshot every {RECOVER_EVERY} ticks: {nbytes} B a "
+        f"snapshot ({whole['num_pages']} pages x {whole['page_bytes']} B "
+        f"of K/V and the host state); {whole['written']} snapshots over "
+        f"{whole['ticks']} ticks, save ms median "
+        f"{float(np.median(save_ms)):.1f} max {max(save_ms):.1f} (D2H "
+        f"copy, CRC32, write, fsync); {n_out} tokens in {step_s:.2f} s of "
+        f"step() = {tok_s:.1f} tokens/s with snapshots on against the "
+        f"share phase's {share['tok_s']:.1f}; on {gpu}")
+    for r in restored:
+        log(f"[recover] kill at tick {r['killed']}: restored tick "
+            f"{r['tick']} in {r['restore_ms']:.1f} ms, {r['replayed']} "
+            f"ticks replayed, {r.get('recover_s', float('nan')):.3f} s from "
+            f"the kill to the restored engine's first finished tick; on "
+            f"{gpu}")
+    same = sum(a == b for a, b in zip(got["tokens"], share["tokens"]))
+    log(f"[recover] kills at ticks {list(kills)}: {n_kills} fired, "
+        f"{n_restores} restores; {same}/{len(work)} requests bit-identical "
+        f"to the share phase's run (uninterrupted with snapshots: "
+        f"{sum(a == b for a, b in zip(whole['tokens'], share['tokens']))}"
+        f"/{len(work)}); statuses {sorted(set(got['status']))}; (shared "
+        f"tokens, COW copies, retained adoptions) {got['counts']}, share "
+        f"{share_counts}; launches paged_decode_attention="
+        f"{launches['decode']}, paged_prefill_attention="
+        f"{launches['prefill']}; truncated copies refused and skipped "
+        f"{sum(refused)}/3")
+    if n_kills != 2 or n_restores != 2 or len(restored) != 2:
+        raise AssertionError(f"recover: {n_kills} kills, {n_restores} "
+                             f"restores from a snapshot, not 2 and 2")
+    for run, name in ((whole, "uninterrupted"), (got, "recovered")):
+        if run["tokens"] != share["tokens"] \
+                or run["status"] != share["status"] \
+                or run["counts"] != share_counts:
+            raise AssertionError(f"recover: the {name} run differs from "
+                                 f"the share phase's")
+    if not (launches["decode"] > 0 and launches["prefill"] > 0):
+        raise AssertionError(f"recover: a kernel was not launched: "
+                             f"{launches}")
+    if refused != [True] * 3:
+        raise AssertionError(f"recover: a truncated snapshot was not "
+                             f"refused and skipped: {refused}")
+    return dict(bytes=nbytes, save_med=float(np.median(save_ms)),
+                save_max=max(save_ms), tok_s=tok_s,
+                written=whole["written"], restored=restored,
+                launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1578,6 +1883,88 @@ def parity_phase(torch):
                              f"are zero")
     overload_parity(torch, cfg, params)
     spec_parity(torch, cfg, params)
+    recover_parity(torch, cfg, params)
+
+
+def snapshot_items(seed, vocab, n=8, last_tick=18):
+    """tests/test_snapshot_props.py's schedule (``_make_items``): n
+    (tick, prompt of 3, 5 or 8 tokens, budget 3 or 5), sorted by tick."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ats = sorted(int(t) for t in rng.randint(0, last_tick, size=n))
+    return [(at, rng.randint(0, vocab, size=int(rng.choice((3, 5, 8))))
+             .astype(np.int32), int(rng.choice((3, 5)))) for at in ats]
+
+
+def recover_parity(torch, cfg, params):
+    """tests/test_snapshot_props.py's ``test_kill_restore_int8_speculative``
+    in f32 on the card: int8 target and draft pools, spec_k 2 with the
+    1-layer draft, its recoverable ``FaultPlan.random(5)``, a snapshot
+    every 2 ticks and kills at ticks 7 and 13, each recovered from the
+    newest snapshot.  The recovered run on the kernel path gives the
+    tokens and statuses of the uninterrupted run on the kernel path and
+    on the plain path."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine, ServeConfig
+    from repro_torch.serve.faults import (RECOVERABLE_KINDS, FaultEvent,
+                                          FaultPlan)
+    seed = 5
+    icfg = dataclasses.replace(cfg, kv_dtype="int8")
+    dcfg = dataclasses.replace(icfg, n_layers=1)
+    dparams = dict(params, blocks=first_layers(params["blocks"], 1))
+    items = snapshot_items(seed, cfg.vocab_size)
+    work = [(p, b) for _, p, b in items]
+    recoverable = list(FaultPlan.random(
+        seed, n_events=4, max_tick=20, max_batch=3, max_pages=3,
+        max_duration=3, kinds=RECOVERABLE_KINDS).events)
+
+    def mk(plain, snap_dir):
+        return lambda: PagedEngine(
+            get_model(icfg, plain_attention=plain), params, ServeConfig(
+                max_batch=3, max_seq=48, page_size=4, num_pages=8,
+                prefill_chunk=3, max_new_tokens=5, spec_k=2,
+                snapshot_every_ticks=2 if snap_dir else 0,
+                snapshot_dir=snap_dir),
+            draft_model=get_model(dcfg, plain_attention=plain),
+            draft_params=dparams)
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="recover-parity-") as tmp:
+        for name, plain, kills, snap_dir in (
+                ("uninterrupted", False, (), ""),
+                ("plain path", True, (), ""),
+                ("recovered", False, (7, 13), tmp)):
+            eng, n_kills, n_restores = drive_with_recovery(
+                mk(plain, snap_dir), work,
+                lambda e, i: items[i][0] <= e.ticks,
+                FaultPlan(recoverable + [FaultEvent(t, "kill")
+                                         for t in kills]), tmp,
+                engine_checks)
+            runs[name] = dict(
+                out=[(eng.status[r].value, eng.results[r])
+                     for r in range(len(work))],
+                kills=n_kills, restores=n_restores,
+                int8=eng.kv.quantized and eng.dkv.quantized,
+                faults=dict(eng.fault_counts))
+    rec, ref = runs["recovered"], runs["uninterrupted"]
+    log(f"[parity] kill and recover, int8 pools, spec_k 2, qwen2-0.5b-"
+        f"reduced f32: kills at ticks 7 and 13, {rec['kills']} fired, "
+        f"{rec['restores']} restores, faults {rec['faults']}; recovered "
+        f"vs uninterrupted kernel path "
+        f"{sum(a == b for a, b in zip(rec['out'], ref['out']))}/"
+        f"{len(work)} identical (tokens and status), vs plain path "
+        f"{sum(a == b for a, b in zip(rec['out'], runs['plain path']['out']))}"
+        f"/{len(work)}")
+    if rec["kills"] != 2 or rec["restores"] < 1 or not rec["int8"]:
+        raise AssertionError(f"parity: kill and recover drill ran "
+                             f"{rec['kills']} kills, {rec['restores']} "
+                             f"restores")
+    if not rec["out"] == ref["out"] == runs["plain path"]["out"]:
+        raise AssertionError("parity: the recovered run differs from the "
+                             "uninterrupted kernel or plain path")
 
 
 def spec_parity(torch, cfg, params):
@@ -2837,6 +3224,8 @@ def main() -> int:
                       prefill_paged.KERNEL)
     share = share_phase(torch, cfg, params, paged.KERNEL,
                         prefill_paged.KERNEL)
+    recover = recover_phase(torch, cfg, params, share, paged.KERNEL,
+                            prefill_paged.KERNEL)
     over = overload_phase(torch, cfg, params, paged.KERNEL,
                           prefill_paged.KERNEL)
     wb = whole_batch_phase(torch, cfg, params)
@@ -2921,6 +3310,16 @@ def main() -> int:
         f"{wb['tok_s']:.1f}; falcon-mamba-7b whole-batch tokens/s "
         f"{ssm['tok_s']:.1f}; memory ceiling "
         f"{res.copy_gbs():.3f} GB/s; on {gpu}")
+    log(f"[summary] recover: {recover['bytes']} B a snapshot, save ms "
+        f"median {recover['save_med']:.1f} max {recover['save_max']:.1f}, "
+        f"restore ms "
+        + ", ".join(f"{r['restore_ms']:.1f}" for r in recover['restored'])
+        + ", kill to first restored tick s "
+        + ", ".join(f"{r['recover_s']:.3f}" for r in recover['restored'])
+        + f"; tokens/s with snapshots every {RECOVER_EVERY} ticks "
+        f"{recover['tok_s']:.1f} against share's {share['tok_s']:.1f}; "
+        f"launches decode {recover['launches']['decode']}, prefill "
+        f"{recover['launches']['prefill']}; on {gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

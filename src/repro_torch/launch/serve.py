@@ -14,6 +14,10 @@ whole-batch lockstep generation, on one card.
         --no-prefill-lane
     python -m repro_torch.launch.serve --local-smoke --device cpu \
         --spec-k 3 --draft-arch qwen2-0.5b
+    python -m repro_torch.launch.serve --local-smoke --device cpu \
+        --snapshot-every 4 --snapshot-dir snaps
+    python -m repro_torch.launch.serve --local-smoke --device cpu \
+        --restore-from snaps/snap-00000008.bin
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device
 (nothing is downloaded).  The demo workloads are the JAX launcher's: for
@@ -32,7 +36,12 @@ engine's per-tick host time.  ``--no-prefill-lane`` feeds prompts through
 the decode loop as forced tokens (prefill-by-decode); ``--spec-k`` with
 ``--draft-arch`` serves speculatively (greedy only), the draft's weights
 drawn from seed 1, and prints the accept rate and the draft and verify
-calls.  Snapshots are not ported yet, so their flags are absent.
+calls.  ``--snapshot-every`` with ``--snapshot-dir`` writes the engine's
+whole state every n ticks (``serve/snapshot.py``); ``--restore-from``
+restores one into the engine built from the flags, after checking the
+snapshot's fingerprint against them before the weights and the engine
+are built, and serves its in-flight work instead of the demo workload.
+The pool line gives the bytes of a page and of the pools.
 """
 import argparse
 import sys
@@ -114,6 +123,19 @@ def main() -> int:
                     help="draft proposals per decode tick (0 = off); a "
                          "tick keeps the accepted ones plus one bonus "
                          "token, and greedy output equals plain decode's")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="write the engine's whole state (both page pools "
+                         "verbatim, tables, queue, requests, generator "
+                         "states) every N ticks (0 = off); atomic, "
+                         "checksummed, pruned to the newest two files")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="directory for snap-<tick>.bin files (required "
+                         "with --snapshot-every)")
+    ap.add_argument("--restore-from", default="",
+                    help="restore the engine from a snapshot file and "
+                         "serve its in-flight work instead of the demo "
+                         "workload; the snapshot's fingerprint must match "
+                         "the flags (checked before the engine is built)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=4,
                     help="decode steps per engine tick")
@@ -159,6 +181,15 @@ def main() -> int:
     if args.spec_k and args.temperature != 0.0:
         ap.error("speculative decoding is greedy-only (acceptance compares "
                  "argmax tokens); use --temperature 0")
+    if args.snapshot_every < 0:
+        ap.error("--snapshot-every must be >= 0 (0 = no snapshots)")
+    if args.snapshot_every and not args.snapshot_dir:
+        ap.error("--snapshot-every needs --snapshot-dir (where the "
+                 "snap-<tick>.bin files land)")
+    if args.restore_from and args.whole_batch:
+        ap.error("--restore-from restores the paged engine's state; the "
+                 "whole-batch path has no snapshot format: drop "
+                 "--whole-batch")
     if args.kv_dtype == "int8" and args.whole_batch:
         ap.error("--kv-dtype int8 quantizes the paged engine's page pools; "
                  "the whole-batch cache has none")
@@ -194,6 +225,28 @@ def main() -> int:
     cfg = dataclasses.replace(cfg, pages_per_step=args.pages_per_step,
                               kv_dtype=args.kv_dtype,
                               draft_arch=args.draft_arch)
+    max_seq = max(64, args.sys_prompt_tokens + 8 + args.new_tokens
+                  + 2 * (args.batch - 1) + 16)
+    if args.restore_from:
+        # the fingerprint against the flags before the weights and the
+        # engine are built: a mismatched restore dies naming the knob, not
+        # on a shape mid-way
+        from repro_torch.serve.snapshot import (SnapshotMismatchError,
+                                                load_header)
+        fp = load_header(args.restore_from)["fingerprint"]
+        want = {"arch": cfg.name, "kv_dtype": cfg.kv_dtype,
+                "max_batch": args.batch, "max_seq": max_seq,
+                "page_size": args.page_size, "spec_k": args.spec_k,
+                "temperature": args.temperature,
+                "prefill_lane": not args.no_prefill_lane,
+                "package": "repro_torch"}
+        diff = {k: (fp.get(k), v) for k, v in want.items()
+                if fp.get(k) != v}
+        if diff:
+            raise SnapshotMismatchError(
+                f"{args.restore_from}: snapshot was taken from a "
+                f"different serving config (snapshot vs launch flags): "
+                f"{diff}")
     model = get_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -210,8 +263,6 @@ def main() -> int:
         draft_model = get_model(dcfg)
         gen.manual_seed(1)
         draft_params = draft_model.init(gen, device)
-    max_seq = max(64, args.sys_prompt_tokens + 8 + args.new_tokens
-                  + 2 * (args.batch - 1) + 16)
     if args.spec_k:
         # the draft pool's capacity, checked before anything is served:
         # its block tables hold max_seq rows, which must fit the longest
@@ -242,6 +293,8 @@ def main() -> int:
                        max_queue=args.max_queue,
                        deadline_ticks=args.deadline_ticks,
                        wedge_ticks=args.wedge_ticks,
+                       snapshot_every_ticks=args.snapshot_every,
+                       snapshot_dir=args.snapshot_dir,
                        spec_k=args.spec_k)
     rng = np.random.RandomState(0)
     if args.whole_batch:
@@ -249,14 +302,42 @@ def main() -> int:
                            args, device)
     engine = PagedEngine(model, params, scfg, draft_model=draft_model,
                          draft_params=draft_params)
-    sys_prompt = rng.randint(0, cfg.vocab_size,
-                             size=args.sys_prompt_tokens).astype(np.int32)
-    rids = [engine.submit(
-        np.concatenate([sys_prompt,
-                        rng.randint(0, cfg.vocab_size,
-                                    size=rng.randint(2, 8)).astype(np.int32)]),
-        max_new_tokens=args.new_tokens + (i % args.batch) * 2)
-        for i in range(2 * args.batch)]
+    kv = engine.kv
+    draft_bytes = (engine.dkv.num_pages * engine.dkv.page_bytes
+                   if engine.dkv is not None else 0)
+    print(f"[launch.serve] pool: kv_dtype={args.kv_dtype}, {kv.num_pages} "
+          f"pages x {kv.page} tokens, {kv.page_bytes} B/page "
+          f"({kv.page_bytes / kv.page:.1f} B/token), "
+          f"{kv.num_pages * kv.page_bytes / 1e6:.2f} MB pool"
+          + (f" + {draft_bytes / 1e6:.2f} MB draft pool" if draft_bytes
+             else ""))
+    if args.restore_from:
+        # serve the snapshot's in-flight work: queued requests re-admit
+        # through the lane, running slots decode on from their feed token
+        from repro_torch.serve.snapshot import restore_engine
+        t0 = time.perf_counter()
+        restore_engine(engine, args.restore_from)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        rids = sorted(engine.status)
+        done = sum(engine.status[r] in (RequestStatus.FINISHED,
+                                        RequestStatus.PREEMPTED_RESUMED)
+                   for r in rids)
+        print(f"[launch.serve] restored tick {engine.ticks} from "
+              f"{args.restore_from} in {restore_ms:.1f} ms "
+              f"({len(engine.queue)} queued, "
+              f"{sum(s.active for s in engine.slots)} running, {done} "
+              f"already terminal)")
+    else:
+        sys_prompt = rng.randint(0, cfg.vocab_size,
+                                 size=args.sys_prompt_tokens
+                                 ).astype(np.int32)
+        rids = [engine.submit(
+            np.concatenate([sys_prompt,
+                            rng.randint(0, cfg.vocab_size,
+                                        size=rng.randint(2, 8)
+                                        ).astype(np.int32)]),
+            max_new_tokens=args.new_tokens + (i % args.batch) * 2)
+            for i in range(2 * args.batch)]
     t0 = time.perf_counter()
     results = engine.run()
     if device.type == "cuda":
@@ -291,6 +372,11 @@ def main() -> int:
           f"{engine.deadline_exceeded} deadline-exceeded, "
           f"{engine.no_progress_ticks} no-progress ticks; statuses "
           + ", ".join(f"{k}={v}" for k, v in n_status.items() if v))
+    if args.snapshot_every:
+        print(f"[launch.serve] snapshots: {engine.snapshots_written} "
+              f"written to {args.snapshot_dir} (every "
+              f"{args.snapshot_every} ticks, newest at tick "
+              f"{engine._last_snapshot_tick})")
     if args.no_prefill_lane:
         print(f"[launch.serve] prefill-by-decode: "
               f"{engine.forced_upload_bytes} forced-token bytes uploaded, "

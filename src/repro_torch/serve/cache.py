@@ -115,7 +115,17 @@ class PagedKVCache:
         self.owned: List[List[int]] = [[] for _ in range(max_batch)]
         self.refcount = np.zeros((self.num_pages,), np.int32)
         self.free: List[int] = list(range(self.num_pages - 1, 0, -1))
+        # one page's bytes across both pools (and both scale pools when
+        # quantized), from the pools' own itemsize, as the JAX cache
+        # computes it
+        L = self.k.shape[0]
+        self.page_bytes = 2 * L * self.page * self.k.shape[3] \
+            * self.k.shape[4] * self.k.element_size()
+        if self.quantized:
+            self.page_bytes += 2 * L * self.page * self.k_scale.shape[3] \
+                * self.k_scale.element_size()
         self.cow_copies = 0
+        self.cow_bytes = 0               # cow_copies x page_bytes
         self.cow_dispatches = 0          # flushes that copied (1 per tick)
         self.shared_pages = 0            # page references handed out by
                                          # share() and adopt_retained()
@@ -207,6 +217,7 @@ class PagedKVCache:
         self.owned[i][blk] = q
         self.table[i, blk] = q
         self.cow_copies += 1
+        self.cow_bytes += self.page_bytes
         self.dirty.add(i)
         return True
 
@@ -245,6 +256,7 @@ class PagedKVCache:
                 self.owned[i][b] = pg
                 self.table[i, b] = pg
                 self.cow_copies -= 1
+                self.cow_bytes -= self.page_bytes
                 undone += 1
             else:
                 kept.append((q, pg, s, b))

@@ -60,8 +60,11 @@ the vocabulary.  int8 pools ride the tick with their scale pools.  Under
 calls (``dispatch_trace``) and its upload bytes (``upload_trace``), and
 in speculative mode its draft and verify calls.
 
-Not ported yet, and refused with ``NotImplementedError`` where a config
-asks for them: snapshots (and so recovery from a ``kill`` fault).
+With ``snapshot_every_ticks > 0`` and a ``snapshot_dir`` the engine
+writes its whole state at the end of every n-th tick, idle ticks too
+(``serve/snapshot.py``, pruned to ``snapshot_keep`` files); after a
+``kill`` fault a fresh engine on the same weights restores the newest
+snapshot (``snapshot.restore_engine``) and serves on.
 """
 from __future__ import annotations
 
@@ -84,8 +87,7 @@ from repro_torch.serve.scheduler import TickScheduler
 class ServeConfig:
     """The JAX package's ``ServeConfig``, field for field, with its
     defaults, which ``PagedEngine`` serves as they are (prefix sharing,
-    retention and preemption on).  It refuses the features this port
-    lacks (see the module docstring)."""
+    retention and preemption on)."""
     max_batch: int = 4
     max_seq: int = 128
     max_new_tokens: int = 16
@@ -397,15 +399,6 @@ class _PrefixIndex:
                     f"key {key} names slot {s_id} beyond its indexed length"
 
 
-
-
-def _refuse_unported(cfg: ServeConfig) -> None:
-    if cfg.snapshot_every_ticks > 0:
-        raise NotImplementedError(
-            "PagedEngine (PyTorch port) does not implement "
-            "snapshot_every_ticks yet")
-
-
 class PagedEngine:
     """Non-lockstep continuous batching over the paged KV cache (see the
     module docstring).  Every slot advances at its own position on its
@@ -450,7 +443,6 @@ class PagedEngine:
                     "draft and target must share a tokenizer: vocab "
                     f"{draft_model.cfg.vocab_size} != "
                     f"{model.cfg.vocab_size}")
-        _refuse_unported(cfg)
         self.draft_model = draft_model
         self.draft_params = draft_params
         self.device = params["embed"].device
@@ -558,6 +550,8 @@ class PagedEngine:
         self.host_ms_trace: List[float] = []     # host work per busy tick
         self.dispatch_trace: List[int] = []      # device calls per busy tick
         self.upload_trace: List[int] = []        # bytes uploaded per tick
+        self.snapshots_written = 0
+        self._last_snapshot_tick = -1     # one snapshot per tick at most
 
     # -- request lifecycle ----------------------------------------------
 
@@ -643,8 +637,10 @@ class PagedEngine:
     def install_faults(self, plan) -> None:
         """Arm a ``FaultPlan``; its events fire at the top of their tick.
         Squeezed pages go back when their duration ends (idle ticks
-        included).  A ``kill`` raises ``EngineKilled``; recovering from
-        one needs a snapshot, which the port does not have yet."""
+        included).  A ``kill`` raises ``EngineKilled`` before the tick
+        changes any state; the caller recovers by restoring the newest
+        snapshot into a fresh engine (``snapshot.restore_engine``) and
+        arming ``plan.without_kills_through(tick)`` on it."""
         self._faults = plan
 
     def _apply_faults(self) -> None:
@@ -1101,6 +1097,7 @@ class PagedEngine:
                         f"{sum(s.active for s in self.slots)}, free="
                         f"{len(self.kv.free)}, seized="
                         f"{len(self.kv.seized)})")
+            self._maybe_snapshot()
             return
         self._idle = 0
         B = len(self.slots)
@@ -1252,6 +1249,25 @@ class PagedEngine:
                 self.draft_dispatch_trace.append(d_disp)
                 self.verify_dispatch_trace.append(v_disp)
         self.upload_bytes += tick_upload
+        self._maybe_snapshot()
+
+    def _maybe_snapshot(self) -> None:
+        """Write the whole state at the end of every
+        ``cfg.snapshot_every_ticks``-th tick (idle ticks too: the fault
+        and deadline clock moved), atomically, and prune old files to
+        ``cfg.snapshot_keep``.  No ``snapshot_dir``: nothing is written.
+        The snapshot module is imported here, when a snapshot is due."""
+        cfg = self.cfg
+        if cfg.snapshot_every_ticks <= 0 or not cfg.snapshot_dir \
+                or self.ticks % cfg.snapshot_every_ticks != 0 \
+                or self.ticks == self._last_snapshot_tick:
+            return
+        from repro_torch.serve import snapshot
+        snapshot.save_snapshot(
+            self, snapshot.snapshot_path(cfg.snapshot_dir, self.ticks))
+        snapshot.prune_snapshots(cfg.snapshot_dir, cfg.snapshot_keep)
+        self.snapshots_written += 1
+        self._last_snapshot_tick = self.ticks
 
     def _forced_arrays(self, steps) -> tuple:
         """Prefill-by-decode: the (chunk, B) forced tokens and mask that

@@ -21,8 +21,8 @@ Event kinds (handled in ``PagedEngine._apply_faults`` / ``step``):
     guard quarantines the slot and requeues the request with its
     pre-tick output;
   * ``kill`` — process death: the engine raises ``EngineKilled`` at the
-    top of the tick, before any state changes.  Recovery needs a
-    snapshot to restore from, which the port does not have yet.
+    top of the tick, before any state changes; the caller restores the
+    newest snapshot into a fresh engine (``serve/snapshot.py``).
 
 ``FaultPlan.random`` samples only the recoverable kinds by default.
 """

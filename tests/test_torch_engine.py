@@ -141,7 +141,7 @@ def test_cache_copy_on_write_matches_jax():
         c.free_slot(2)                              # cancels the pending copy
         c.check()
     for name in ("table", "length", "refcount", "owned", "free",
-                 "cow_copies", "shared_pages"):
+                 "cow_copies", "cow_bytes", "page_bytes", "shared_pages"):
         assert np.array_equal(np.asarray(getattr(tc, name), dtype=object),
                               np.asarray(getattr(jc, name), dtype=object)), name
     np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
@@ -149,16 +149,27 @@ def test_cache_copy_on_write_matches_jax():
 
 @pytest.mark.parametrize("change", [
     dict(spec_k=2), dict(snapshot_every_ticks=3), dict(prefill_lane=False)])
-def test_engine_refuses_unported_features(change):
-    """Snapshots are the one feature the port refuses.  Speculation
-    without a draft model raises the JAX engine's ``ValueError``, and
-    ``prefill_lane=False`` builds an engine with no lane (the two are
-    ported; their own tests hold them against the JAX engine)."""
+def test_engine_refuses_unported_features(change, tmp_path, monkeypatch):
+    """The port refuses no feature of the JAX engine any more; each case
+    keeps the JAX engine's behaviour.  ``snapshot_every_ticks`` with no
+    ``snapshot_dir`` builds an engine that serves and writes nothing, as
+    the JAX engine does; speculation without a draft model raises the
+    JAX engine's ``ValueError``; ``prefill_lane=False`` builds an engine
+    with no lane.  Their own tests hold the three against the JAX engine
+    (test_torch_snapshot.py, test_torch_speculative.py,
+    test_torch_prefill_by_decode.py)."""
     _, _, tm, tp = _models("qwen2-0.5b", "float32")
     cfg = TServeConfig(**dict(SERVE, **change))
     if "snapshot_every_ticks" in change:
-        with pytest.raises(NotImplementedError, match="snapshot"):
-            TPagedEngine(tm, tp, cfg)
+        monkeypatch.chdir(tmp_path)
+        engine = TPagedEngine(tm, tp, cfg)
+        engine.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=4)
+        while engine.busy or engine.ticks < 2 * cfg.snapshot_every_ticks:
+            engine.step()
+        assert len(engine.results[0]) == 4
+        assert engine.snapshots_written == 0
+        assert engine._last_snapshot_tick == -1
+        assert os.listdir(tmp_path) == []
     elif "spec_k" in change:
         with pytest.raises(ValueError, match="draft model"):
             TPagedEngine(tm, tp, cfg)

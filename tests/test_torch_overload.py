@@ -59,10 +59,10 @@ COUNTERS = ("ticks", "steps_run", "joins", "rejected", "preemptions",
             "reject_reason", "results", "util_trace", "occupancy_trace",
             "dispatch_trace", "prefill_upload_bytes")
 KV_FIELDS = ("table", "length", "refcount", "retained_refs")
-KV_COUNTERS = ("cow_copies", "cow_dispatches", "shared_pages",
-               "retained_hits", "retained_hit_tokens", "retained_dropped",
-               "retained_reclaimed_pages", "owned", "free", "seized",
-               "allocatable", "live_pages")
+KV_COUNTERS = ("cow_copies", "cow_bytes", "page_bytes", "cow_dispatches",
+               "shared_pages", "retained_hits", "retained_hit_tokens",
+               "retained_dropped", "retained_reclaimed_pages", "owned",
+               "free", "seized", "allocatable", "live_pages")
 SLOT_FIELDS = ("rid", "forced", "out", "history", "budget", "served",
                "prompt_left", "active")
 _MODELS = {}
@@ -723,6 +723,11 @@ def test_int8_cow_preserves_rows_and_scales():
               for p in shared}
     _step_both(je, te)
     assert te.kv.cow_copies > 0
+    # a page's bytes: int8 K and V rows and their f32 scales, every layer
+    L, _, page, KV, hd = te.kv.k.shape
+    assert te.kv.page_bytes == je.kv.page_bytes == 2 * L * page * KV \
+        * (hd + 4)
+    assert te.kv.cow_bytes == te.kv.cow_copies * te.kv.page_bytes
     for p, (rows, scales) in before.items():
         assert torch.equal(rows, te.kv.k[:, p, :n])
         assert torch.equal(scales, te.kv.k_scale[:, p, :n])

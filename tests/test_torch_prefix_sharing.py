@@ -40,8 +40,8 @@ from repro_torch.serve.engine import ServeConfig as TServeConfig
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(max_batch=3, max_seq=48, max_new_tokens=5, page_size=4,
              prefill_chunk=3)
-COUNTERS = ("cow_copies", "shared_pages", "retained_hits",
-            "retained_hit_tokens", "retained_dropped",
+COUNTERS = ("cow_copies", "cow_bytes", "page_bytes", "shared_pages",
+            "retained_hits", "retained_hit_tokens", "retained_dropped",
             "retained_reclaimed_pages")
 _MODELS = {}
 
