@@ -200,10 +200,27 @@ Phases, each failing loudly (non-zero exit, no result line):
                tensor-core products (``HMMA.16816.F32.BF16``) and cp.async
                copies (``LDGSTS``); the H100
                ``HardwareSpec`` read from the card with the measured
-               ceiling; and the instruction roofline of the five kernels
-               (``launch/irm.py``), with the SM clock read right after the
-               BabelStream loop.  A point above its roof is printed, not
-               clamped.
+               ceiling; and the instruction roofline (``launch/irm.py``),
+               with the SM clock read right after the BabelStream loop:
+               the five stream points, then the looped kernels' points
+               at PERF.md's shapes — paged decode and its combine, paged
+               prefill, dense decode and its combine, flash and the scan
+               — each counted by the loop census (``nvdisasm -g`` lines:
+               every SASS loop of every instantiation a point uses tied
+               to a loop marked ``REPRO_TRIP``, its unroll factor read
+               from the listing, no ``LoopError``; their int8 and f32
+               instantiations are counted too) times its trip model,
+               with bytes from the byte model and runtime from the
+               kernel's device time in a ``torch.profiler`` trace (taken
+               right after the build, before any large trace); then
+               the two paged kernels summed over the ``serve`` phase's
+               traffic (a recording pass logs every call's lengths, a
+               traced pass gives the device time; their launch counts
+               must match).  Prints [lo, hi], both intensities and
+               achieved/roof for every point (none fails on its roof:
+               L2 can lift a memory-side point past it); fails if any
+               point's achieved GIPS passes the Eq. 3 peak by 5%.  A
+               stream point above its roof is printed, not clamped.
 
 The line before the last is the kernels summary (JSON), every kernel's
 bound taken against the data sheet's 3.35 TB/s (``bound_ms``), and
@@ -214,6 +231,7 @@ other kernels may beat, so it is no lower bound.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -239,7 +257,7 @@ DENSE_KERNELS = {                # name: (source, the TPU kernel it replaces)
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash.py:83"),
 }
-# kernels with loops, which the SASS census must refuse (matched by name)
+# kernels with loops, which the loop census counts (matched by name)
 LOOPED = ("paged_", "decode_attention_kernel",
           "decode_attention_combine_kernel", "flash_attention_kernel",
           "flash_attention_tc_kernel", "selective_scan_kernel")
@@ -434,29 +452,32 @@ def bound_ms(nbytes, flops, flops_per_s, bytes_per_s=HBM_BYTES_PER_S):
 
 
 def work(kind, c):
-    """The bytes a paged call must move (q read, out written, the live
-    K/V rows and their scales, the live table entries and lengths) and
-    its flops (QK and PV over the attended positions)."""
+    """The bytes a paged call must move and its flops (QK and PV over the
+    attended positions).  The bytes are the I/O of the trip models' byte
+    model (``trip_model``: q read, out written, the live K/V rows and
+    their scales, the live table entries and lengths; the split decode's
+    partials are scratch between its two launches, not I/O), the count
+    the irm phase places the kernels' points by."""
     import torch
+
+    from repro_torch.kernels.decode_attention import paged, prefill_paged
     B, T, H, D = c["q"].shape
     _, _, page, KV, _ = c["k"].shape
+    NB = c["table"].shape[1]
     lens = c["lens"].long()
-    rows = int(lens.sum())                       # live K/V rows per kv-head
-    qbytes = c["q"].numel() * c["q"].element_size()
-    kv_bytes = 2 * rows * KV * D * c["k"].element_size()
-    if c["ks"] is not None:
-        kv_bytes += 2 * rows * KV * 4
-    blocks = int(((lens + page - 1) // page).sum())
-    nbytes = 2 * qbytes + kv_bytes + 4 * blocks + 4 * B * (1 if kind ==
-                                                           "decode" else 2)
     if kind == "decode":
-        attended = rows * T                      # T == 1
+        las = paged.trip_model(B, H, KV, D, page, NB, lens.tolist(),
+                               c["q"].dtype, c["k"].dtype)
+        attended = int(lens.sum())               # T == 1
     else:
+        las = prefill_paged.trip_model(B, T, H, KV, D, page, NB,
+                                       c["base"].tolist(), lens.tolist(),
+                                       c["k"].dtype)
         t = torch.arange(T, device=lens.device)
         qpos = c["base"].long()[:, None] + t[None, :]
         attended = int(torch.minimum(qpos + 1, lens[:, None]).clamp(
             min=0).sum())
-    return nbytes, 4 * attended * H * D
+    return sum(la.io_bytes for la in las), 4 * attended * H * D
 
 
 # the paged kernels' geometries: the dense archs the port serves
@@ -650,7 +671,7 @@ def timing_phase(torch, serve_lens, serve_base, max_blocks, n_layers):
 # 3./4. engine phases
 # ---------------------------------------------------------------------------
 
-def serve_phase(torch, decode_kernel, prefill_kernel):
+def serve_phase(torch, decode_kernel, prefill_kernel, counter):
     import numpy as np
 
     from repro_torch import configs
@@ -713,13 +734,71 @@ def serve_phase(torch, decode_kernel, prefill_kernel):
     split = host_split(engine, dt)
     log_host("serve", split)
     compare_logits(torch, cfg, params)
+    max_blocks = engine.kv.max_blocks
+    del engine
+    census = serve_census_passes(torch, model, params, prompts, scfg,
+                                 launches, counter)
     sv = {"lens": [int(n) + new_tokens // 2 for n in prompt_lens[:4]],
           "base": [int(n) - int(n) % 32 for n in prompt_lens[:4]],
-          "max_blocks": engine.kv.max_blocks, "n_layers": cfg.n_layers,
+          "max_blocks": max_blocks, "n_layers": cfg.n_layers,
           "host": split, "prompts": prompts, "scfg": scfg, "first": first,
-          "tokens": [results[r] for r in rids], "tok_s": n_out / dt}
-    del engine
+          "tokens": [results[r] for r in rids], "tok_s": n_out / dt,
+          "census": census}
     return launches, n_out / dt, sv, cfg, params
+
+
+def serve_census_passes(torch, model, params, prompts, scfg, launches,
+                        counter):
+    """The ``serve`` traffic twice more, untimed, for the instruction
+    census of the two paged kernels: once with the wrappers recording
+    every call's lengths (``Kernel.record``: reads that wait for the
+    card), once under ``torch.profiler`` for their device time.  The
+    schedule does not depend on the weights or the timing, so both passes
+    launch what the timed run launched.  Returns the kernels' summed
+    points (``launch/irm.py``: ``serve_points``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention import paged, prefill_paged
+    from repro_torch.launch import irm
+    from repro_torch.serve.engine import PagedEngine
+    kernels = {"decode": paged.KERNEL, "prefill": prefill_paged.KERNEL}
+
+    def drive():
+        engine = PagedEngine(model, params, scfg)
+        for p in prompts:
+            engine.submit(p)
+        while engine.busy:
+            engine.step()
+        torch.cuda.synchronize()
+
+    for k in kernels.values():
+        k.record = []
+    try:
+        drive()
+        records = {kind: k.record for kind, k in kernels.items()}
+    finally:
+        for k in kernels.values():
+            k.record = None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        drive()
+    times = {e.key: (e.device_time_total, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.device_time_total > 0}
+    got = {kind: len(r) for kind, r in records.items()}
+    log(f"[serve] census passes: {got['decode']} decode and "
+        f"{got['prefill']} prefill calls recorded (the timed run: "
+        f"{launches['decode']}, {launches['prefill']}); a traced pass of "
+        f"the same traffic for their device time")
+    if got != launches:
+        raise AssertionError(f"the recording pass made {got} calls, the "
+                             f"timed run {launches}")
+    points = irm.serve_points(counter, records, times)
+    for p in points:
+        log(f"[serve] census {p.kernel}: [{p.lo}, {p.hi}] warp "
+            f"instructions, {p.bytes} bytes, {p.seconds * 1e3:.4f} ms of "
+            f"device time in the traced pass")
+    return points
 
 
 def drive_recorded(engine, on_tick=None):
@@ -2332,7 +2411,8 @@ def dense_timing(torch, S):
         lambda i: F.scaled_dot_product_attention(
             q.transpose(1, 2), kc[i % L].transpose(1, 2),
             vc[i % L].transpose(1, 2), enable_gqa=True))
-    nbytes = 2 * q.numel() * 2 + 2 * B * T * KV * D * 2 + 4 + 4 * B
+    nbytes = sum(la.io_bytes for la in decode.trip_model(
+        B, T, H, KV, D, T, [0] * B, bf))
     rows["decode_attention"] = dict(
         zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
         shape=f"B={B} T={T} kv_len={T} H={H} KV={KV} D={D}", bytes=nbytes,
@@ -2362,7 +2442,7 @@ def dense_timing(torch, S):
     rows["flash_attention"] = dict(
         zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
         shape=f"B={B} S=T={Sf} causal H={H} KV={KV} D={D}",
-        bytes=2 * B * Sf * H * D * 2 + 2 * B * Sf * KV * D * 2,
+        bytes=flash.trip_model(B, Sf, Sf, H, KV, D, True)[0].io_bytes,
         flops=4 * D * B * H * Sf * (Sf + 1) // 2)
     rows["flash_attention"]["device_ms"] = device_ms(calls[0])
     log(f"[timing] flash_attention device_ms (queued ahead of the card): "
@@ -2895,8 +2975,7 @@ def scan_timing(torch, S):
     plain_ms = time_ms(lambda i: mamba1_scan(*sets[i % n_sets]), iters=8,
                        warmup=1)
     elems = B * S * d_in
-    nbytes = 3 * elems * 2 + 2 * B * S * N * 2 + d_in * N * 4 + \
-        B * d_in * N * 4
+    nbytes = scan.hbm_bytes(B, S, d_in, N, torch.bfloat16)
     exps, flops = elems * N, 6 * elems * N + elems
     times = {"bytes": nbytes / HBM_BYTES_PER_S,
              "exps": exps / SFU_EXP_PER_S,
@@ -3126,7 +3205,6 @@ def tensor_core_check(fns):
     issues bf16 m16n8k16 products (``HMMA.16816.F32.BF16``) and cp.async
     copies (``LDGSTS``); prints their counts (and ``LDSM``, the ldmatrix
     loads) per instantiation."""
-    import re
     for kernel, n in TENSOR_CORE.items():
         names = sorted(name for name in fns if kernel in name)
         if len(names) != n:
@@ -3147,12 +3225,35 @@ def tensor_core_check(fns):
                                      f"SASS")
 
 
-def irm_phase(res, clocks, gpu):
-    """The SASS census, then the roofline as ``launch/irm.py`` builds it."""
+def irm_points_phase(torch):
+    """The loop census of the built library (its SASS and every
+    instruction's line), and the looped kernels' points at PERF.md's
+    shapes (``launch/irm.py``: device time from ``torch.profiler``),
+    measured first, on a card that no large trace has run on yet."""
     from repro_torch.core import sass_counters as sc
     from repro_torch.kernels import build
     from repro_torch.launch import irm
-    listing = sc.sass_listing(build.build())
+    t0 = time.perf_counter()
+    lib = build.build()
+    listing = sc.sass_listing(lib)
+    counter = irm.LoopCounter(listing, sc.line_info(lib))
+    points = irm.app_points(torch, counter, irm.app_cases(torch))
+    torch.cuda.empty_cache()
+    for p in points:
+        log(f"[irm] point {p.kernel}: [{p.lo}, {p.hi}] warp instructions, "
+            f"{p.bytes} bytes, {p.seconds * 1e3:.5f} ms of device time")
+    log(f"[irm] application points measured and counted in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return listing, counter, points
+
+
+def irm_phase(torch, res, clocks, gpu, listing, counter, points):
+    """The SASS census, then the roofline as ``launch/irm.py`` builds it:
+    the stream kernels' points, the looped kernels' at PERF.md's shapes,
+    and the paged kernels over the ``serve`` traffic (``points``)."""
+    from repro_torch.core import sass_counters as sc
+    from repro_torch.core.hardware import h100_from_device
+    from repro_torch.launch import irm
     census = sc.census_text(listing, select="^stream_")
     fns = sc.split_functions(listing)
     looped = [name for name in fns if any(k in name for k in LOOPED)]
@@ -3160,12 +3261,6 @@ def irm_phase(res, clocks, gpu):
     if missing:
         raise AssertionError(f"no SASS function found for {missing}")
     tensor_core_check(fns)
-    for name in looped:                 # the census must see their loops
-        try:
-            sc.count_function(name, fns[name])
-        except sc.LoopError:
-            continue
-        raise AssertionError(f"census found no loop in {name}")
     for name, k in sorted(census.items()):
         log(f"[irm] census {name}: {k.warp_insts_per_warp} instructions "
             f"per warp, loop-free, {k.forward_branches} forward branches; "
@@ -3183,13 +3278,34 @@ def irm_phase(res, clocks, gpu):
                              f"predicated store)")
     log(f"[irm] {', '.join(VECTOR_KERNELS)}: no branch, so every warp "
         f"issues the whole listing at 2^25 (all vector guards hold)")
-    log(f"[irm] census: {len(census)} stream kernels loop-free; all "
-        f"{len(looped)} instantiations of the looped kernels (paged, dense "
-        f"decode, flash, selective scan) refused (their trip counts are not "
-        f"in the listing)")
+    model, _ = irm.h100_irm(h100_from_device(res.copy_gbs()), census, res)
+    for (name, _), c in sorted(counter._cache.items()):
+        short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_\d+_", "", name)[:90]
+        log(f"[irm] loop census {short}: straight-line part "
+            f"[{sum(c.top_lo.values())}, {sum(c.top_hi.values())}] a warp; "
+            + "; ".join(f"{lp.header:#x} REPRO_TRIP({lp.source}) at "
+                        f"{lp.where} unrolled x{lp.unroll}, "
+                        f"[{sum(lp.lo.values())}, {sum(lp.hi.values())}] an "
+                        f"iteration" for lp in c.loops))
+    for la in irm.variant_launches():    # the other dtypes: census only
+        lo, hi = counter.count(la)
+        log(f"[irm] loop census {irm.kernel_name(la)} ({la.function}): "
+            f"[{lo / la.warps:.1f}, {hi / la.warps:.1f}] warp instructions "
+            f"a warp over {la.warps} warps, {la.bytes} bytes")
+    log(f"[irm] loop census: {len(counter._cache)} instantiations counted "
+        f"(behind the points, then the int8 and f32 variants), every back "
+        f"edge tied to a loop marked REPRO_TRIP, no LoopError")
     log(f"[irm] card: {gpu}")
     for line in irm.h100_report(census, res, clocks):
         log(f"[irm] {line}")
+    for line in irm.app_report(model, points):
+        log(f"[irm] {line}")
+    faults = irm.over_peak(model.hw, irm.app_rows(model, points))
+    if faults:
+        raise AssertionError(f"points above the Eq. 3 peak (a census "
+                             f"fault): {faults}")
+    log(f"[irm] every point at or below {irm.PEAK_SLACK} x the Eq. 3 peak "
+        f"{model.hw.peak_gips():.2f} GIPS; on {gpu}")
 
 
 def main() -> int:
@@ -3214,10 +3330,12 @@ def main() -> int:
     log(f"[build] card: {gpu}; python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    listing, counter, points = irm_points_phase(torch)
     errs = kernel_phase(torch)
     d_errs = dense_checks(torch)
     launches, tok_s, sv, cfg, params = serve_phase(torch, paged.KERNEL,
-                                                   prefill_paged.KERNEL)
+                                                   prefill_paged.KERNEL,
+                                                   counter)
     by_decode = by_decode_phase(torch, cfg, params, sv, paged.KERNEL,
                                 prefill_paged.KERNEL)
     spec = spec_phase(torch, cfg, params, sv, paged.KERNEL,
@@ -3239,7 +3357,8 @@ def main() -> int:
     ssm = ssm_phase(torch)
     torch.cuda.empty_cache()
     res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
-    irm_phase(res, clocks, gpu)
+    irm_phase(torch, res, clocks, gpu, listing, counter,
+              points + sv["census"])
     ceiling = res.copy_gbs() * 1e9
 
     kernels = []

@@ -10,6 +10,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// REPRO_TRIP(name) heads the body of every loop that the instruction
+// census scales by its trip count (core/sass_counters.py, count_looped;
+// the trip models beside the wrappers name the loops).  It expands to
+// nothing here; the CPU emulation of these sources defines it to count
+// each thread's iterations.
+#ifndef REPRO_TRIP
+#define REPRO_TRIP(name)
+#endif
+
 namespace attn {
 
 // The TPU kernels' finite NEG_INF: a row whose first tile is fully masked

@@ -154,6 +154,7 @@ __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
       int8_t* kr = raw + 2 * s * kTile * D;
       int8_t* vr = kr + kTile * D;
       for (int e = tid; e < kTile * C8; e += kThreads) {
+        REPRO_TRIP(tc_kv_copy_i8);
         const int t = e / C8, ch = e % C8, p = k0 + t;
         const bool live = p < t_end;
         const size_t off = live ? kv_row(p) + 16 * ch : 0;
@@ -163,6 +164,7 @@ __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
       float* ksc = scl + 2 * s * kTile;
       float* vsc = ksc + kTile;
       for (int t = tid; t < kTile; t += kThreads) {
+        REPRO_TRIP(tc_scale_copy);
         const int p = k0 + t;
         const bool live = p < t_end;
         const size_t off = live ? kv_row(p) / D : 0;
@@ -173,6 +175,7 @@ __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
       __nv_bfloat16* kt = kvs + 2 * s * kTile * DS;
       __nv_bfloat16* vt = kt + kTile * DS;
       for (int e = tid; e < kTile * CH; e += kThreads) {
+        REPRO_TRIP(tc_kv_copy);
         const int t = e / CH, ch = e % CH, p = k0 + t;
         const bool live = p < t_end;
         const size_t off = live ? kv_row(p) + 8 * ch : 0;
@@ -183,6 +186,7 @@ __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
   };
 
   for (int e = tid; e < R * CH; e += kThreads) {
+    REPRO_TRIP(tc_q_copy);
     const int r = e / CH, ch = e % CH, row = a.r0 + r;
     const bool live = row < a.nrows;         // pad rows: zeros, never stored
     const size_t off = live ? (size_t)(row / a.G) * a.tok_stride
@@ -222,6 +226,7 @@ __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
   }
 
   for (int i = 0; i < n_tiles; ++i) {
+    REPRO_TRIP(tc_tiles);
     const int s = i & 1;
     if (i + 1 < n_tiles) load_tile(i + 1, s ^ 1);
     cp_async_commit();
@@ -237,6 +242,7 @@ __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
       __nv_bfloat16* kw = kvs + 2 * s * kTile * DS;
       __nv_bfloat16* vw = kw + kTile * DS;
       for (int e = tid; e < kTile * D; e += kThreads) {
+        REPRO_TRIP(tc_dequant);
         const int t = e / D, d = e % D;
         kw[t * DS + d] = __float2bfloat16_rn(to_f32(kr[e]) * ksc[t]);
         vw[t * DS + d] = __float2bfloat16_rn(to_f32(vr[e]) * vsc[t]);
@@ -349,6 +355,7 @@ __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
   }
   __syncwarp();
   for (int e = lane; e < 16 * MT * CH; e += 32) {
+    REPRO_TRIP(tc_out);
     const int r = e / CH, ch = e % CH, row = a.r0 + w0 + r;
     if (row < a.nrows)
       *reinterpret_cast<uint4*>(a.out + (size_t)(row / a.G) * a.tok_stride

@@ -112,12 +112,14 @@ __global__ void __launch_bounds__(kThreads)
   T* out = static_cast<T*>(p.out);
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
+    REPRO_TRIP(flash_q_load);
     const int r = e / D, d = e % D, s = q0 + r;
     qs[r * DP + d] =
         s < p.S ? to_f32(q[(((size_t)b * p.S + s) * p.H + h) * D + d])
                 : 0.f;                       // pad rows: never stored
   }
   for (int r = tid; r < kBQ; r += kThreads) {
+    REPRO_TRIP(flash_ml_init);
     ms[r] = kNegInf;
     ls[r] = 0.f;
   }
@@ -131,7 +133,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   for (int k0 = 0; k0 < t_end; k0 += kBK) {
+    REPRO_TRIP(flash_tiles);
     for (int e = tid; e < kBK * D; e += kThreads) {
+      REPRO_TRIP(flash_kv_load);
       const int t = e / D, d = e % D, pos = k0 + t;
       float kx = 0.f, vx = 0.f;
       if (pos < p.T) {
@@ -149,6 +153,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
+      REPRO_TRIP(flash_qk);
       float qv[4], kv[2];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * DP + d];
@@ -171,13 +176,18 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     for (int r = tid; r < kBQ; r += kThreads) {
+      REPRO_TRIP(flash_rows);
       float* pr = ps + r * SP;
       float mx = kNegInf;
-      for (int t = 0; t < kBK; ++t) mx = fmaxf(mx, pr[t]);
+      for (int t = 0; t < kBK; ++t) {
+        REPRO_TRIP(flash_row_max);
+        mx = fmaxf(mx, pr[t]);
+      }
       const float m_prev = ms[r];
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
       for (int t = 0; t < kBK; ++t) {
+        REPRO_TRIP(flash_row_exp);
         const float pt = expf(pr[t] - m_new);
         pr[t] = pt;
         sum += pt;
@@ -196,6 +206,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < NJ; ++j) acc[i][j] *= c;
     }
     for (int t = 0; t < kBK; ++t) {
+      REPRO_TRIP(flash_pv);
       float pv[4], vv[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * SP + t];

@@ -94,7 +94,9 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
       new_len > 0 ? imin(p.NB, (new_len + page - 1) / page) : 0;
 
   for (int r0 = 0; r0 < TG; r0 += ROWS) {
+    REPRO_TRIP(paged_row_tiles);
     for (int e = tid; e < ROWS * D; e += kThreads) {
+      REPRO_TRIP(paged_q_load);
       const int row = r0 + e / D;
       float x = 0.f;                         // pad rows: zeros, never stored
       if (row < TG) {
@@ -105,6 +107,7 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
       qs[e] = x;
     }
     for (int r = tid; r < ROWS; r += kThreads) {
+      REPRO_TRIP(paged_ml_init);
       ms[r] = kNegInf;
       ls[r] = 0.f;
     }
@@ -117,10 +120,12 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
     __syncthreads();
 
     for (int j = 0; j < n_blocks; ++j) {
+      REPRO_TRIP(paged_pages);
       const size_t row0 =
           ((size_t)p.layer * p.num_pages + p.table[(size_t)b * p.NB + j])
           * page;                            // pool row of (layer, phys, 0)
       for (int e = tid; e < page * D; e += kThreads) {
+        REPRO_TRIP(paged_kv_load);
         const int t = e / D, d = e % D;
         const size_t idx = ((row0 + t) * p.KV + h) * D + d;
         float kx = to_f32(kp[idx]);
@@ -136,6 +141,7 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
       __syncthreads();
 
       for (int e = tid; e < ROWS * page; e += kThreads) {
+        REPRO_TRIP(paged_scores);
         const int r = e / page, t = e % page;
         const float* qr = qs + r * D;
         const float* kr = ks + t * (D + 1);
@@ -154,13 +160,18 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
       __syncthreads();
 
       for (int r = tid; r < ROWS; r += kThreads) {
+        REPRO_TRIP(paged_rows);
         float* sr = ss + r * page;
         float mx = kNegInf;
-        for (int t = 0; t < page; ++t) mx = fmaxf(mx, sr[t]);
+        for (int t = 0; t < page; ++t) {
+          REPRO_TRIP(paged_row_max);
+          mx = fmaxf(mx, sr[t]);
+        }
         const float m_prev = ms[r];
         const float m_new = fmaxf(m_prev, mx);
         float sum = 0.f;
         for (int t = 0; t < page; ++t) {
+          REPRO_TRIP(paged_row_exp);
           const float pt = expf(sr[t] - m_new);
           sr[t] = pt;
           sum += pt;
@@ -177,6 +188,7 @@ __device__ void attend(const Params& p, int b, int h, int base, int new_len,
 #pragma unroll
       for (int k = 0; k < E; ++k) acc[k] *= cs[(tid + k * kThreads) / D];
       for (int t = 0; t < page; ++t) {
+        REPRO_TRIP(paged_pv);
 #pragma unroll
         for (int k = 0; k < E; ++k) {
           const int e = tid + k * kThreads;

@@ -170,6 +170,7 @@ __device__ __forceinline__ void attend(const QT* q, const KVT* k,
     KVT* vt = kt + kTile * kStride;
     const int t0 = s0 + i * kTile;
     for (int e = tid; e < kTile * kChunks; e += kThreads) {
+      REPRO_TRIP(split_kv_copy);
       const int t = e / kChunks, ch = e % kChunks;
       const bool live = t0 + t < s1;         // past the piece: zeros
       const size_t off = live ? (size_t)row_of(t0 + t) * D + (size_t)ch * E
@@ -180,6 +181,7 @@ __device__ __forceinline__ void attend(const QT* q, const KVT* k,
     if (kInt8) {
       float* st = scales + s * 2 * kTile;
       for (int t = tid; t < kTile; t += kThreads) {
+        REPRO_TRIP(split_scale_copy);
         const bool live = t0 + t < s1;
         const size_t r = live ? (size_t)row_of(t0 + t) : 0;
         cp_async4(st + t, k_scale + r, live);
@@ -189,6 +191,7 @@ __device__ __forceinline__ void attend(const QT* q, const KVT* k,
   };
 
   for (int r0 = 0; r0 < G; r0 += kMaxRows) {
+    REPRO_TRIP(split_row_tiles);
     const int R = imin(kMaxRows, G - r0);    // query rows of this tile
     float* ps = qs + R * D;                  // R x kTile probabilities
     float* cs = ps + R * kTile;              // R corrections
@@ -200,7 +203,10 @@ __device__ __forceinline__ void attend(const QT* q, const KVT* k,
     }
     // the query rows, while the first tiles are in flight
     const QT* qb = q + (size_t)r0 * D;
-    for (int e = tid; e < R * D; e += kThreads) qs[e] = to_f32(qb[e]);
+    for (int e = tid; e < R * D; e += kThreads) {
+      REPRO_TRIP(split_q_load);
+      qs[e] = to_f32(qb[e]);
+    }
 
     float m[kRowsPerWarp], l[kRowsPerWarp];
 #pragma unroll
@@ -215,6 +221,7 @@ __device__ __forceinline__ void attend(const QT* q, const KVT* k,
       for (int c = 0; c < 4; ++c) acc[u][c] = 0.f;
 
     for (int i = 0; i < n_tiles; ++i) {
+      REPRO_TRIP(split_kv_tiles);
       cp_async_wait<kStages - 2>();          // tile i has landed
       __syncthreads();                       // ... for every thread, q is
                                              // in; tile i - 1's stage free
@@ -260,6 +267,7 @@ __device__ __forceinline__ void attend(const QT* q, const KVT* k,
           for (int c = 0; c < 4; ++c) acc[u][c] *= corr;
 #pragma unroll 2
           for (int t0 = 0; t0 < kTile; t0 += 4) {
+            REPRO_TRIP(split_pv);
             const Quad<float> pq =
                 *reinterpret_cast<const Quad<float>*>(ps + g * kTile + t0);
 #pragma unroll
@@ -314,31 +322,42 @@ __global__ void __launch_bounds__(kCombineThreads)
   T* out = static_cast<T*>(c.out);
   const size_t row0 = ((size_t)b * c.KV + h) * c.splits * c.G;
   for (int e = tid; e < c.splits * c.G; e += kCombineThreads) {
+    REPRO_TRIP(combine_ml_load);
     ms[e] = c.m[row0 + e];                   // e = s * G + g
     ls[e] = c.l[row0 + e];
   }
   __syncthreads();
   for (int g = tid; g < c.G; g += kCombineThreads) {
+    REPRO_TRIP(combine_rows);
     float M = -INFINITY;
-    for (int s = 0; s < c.splits; ++s)
+    for (int s = 0; s < c.splits; ++s) {
+      REPRO_TRIP(combine_max);
       if (ls[s * c.G + g] > 0.f) M = fmaxf(M, ms[s * c.G + g]);
+    }
     float L = 0.f;
     for (int s = 0; s < c.splits; ++s) {
+      REPRO_TRIP(combine_weights);
       const int r = s * c.G + g;
       const float w = ls[r] > 0.f ? expf(ms[r] - M) : 0.f;
       L = fmaf(w, ls[r], L);
       ms[r] = w;                             // m_s is read no more
     }
     const float inv = 1.f / fmaxf(L, 1e-30f);
-    for (int s = 0; s < c.splits; ++s) ms[s * c.G + g] *= inv;
+    for (int s = 0; s < c.splits; ++s) {
+      REPRO_TRIP(combine_norm);
+      ms[s * c.G + g] *= inv;
+    }
   }
   __syncthreads();
   for (int e = tid; e < c.G * c.D; e += kCombineThreads) {
+    REPRO_TRIP(combine_out);
     const int g = e / c.D, d = e % c.D;
     float o = 0.f;
 #pragma unroll 8
-    for (int s = 0; s < c.splits; ++s)
+    for (int s = 0; s < c.splits; ++s) {
+      REPRO_TRIP(combine_sum);
       o = fmaf(ms[s * c.G + g], c.acc[(row0 + s * c.G + g) * c.D + d], o);
+    }
     store_f32(out, ((size_t)b * c.H + (size_t)h * c.G + g) * c.D + d, o);
   }
 }

@@ -19,14 +19,16 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# -lineinfo: the SASS keeps each instruction's source line (read by the
+# instruction census to tie loops to their source; no change to the code)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C interface (csrc/paged_attention.cuh: paged::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -112,12 +114,16 @@ class Kernel:
     ``launches`` goes up by one for each launch the C function reports as
     made (its return value, the launch's ``cudaGetLastError()``, is 0);
     any other return value raises.  Pointers and the stream travel as
-    ``c_void_p``, the rest as ``c_int``."""
+    ``c_void_p``, the rest as ``c_int``.  ``record``: None (the default),
+    or a list to which the paged wrappers append each call's shapes and
+    the host's copy of its lengths — reads that wait for the card, for an
+    untimed pass that the instruction census sums over."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.record: Optional[List[dict]] = None
         self._fn = None
 
     def __call__(self, *args) -> None:

@@ -18,13 +18,16 @@ plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
 from repro_torch.kernels.decode_attention.paged import (
-    HEAD_DIMS, SPLIT_TILE, TARGET_BLOCKS, on_cpu)
+    HEAD_DIMS, SPLIT_THREADS, SPLIT_TILE, TARGET_BLOCKS, combine_launch,
+    on_cpu, split_attend_trips)
+from repro_torch.kernels.trips import Launch, mangled
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -117,3 +120,31 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                KV, D, n, DTYPE_CODES[q.dtype],
                torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+def trip_model(B: int, T: int, H: int, KV: int, D: int, kv_len: int,
+               kv_start, dtype) -> List[Launch]:
+    """The launches of one ``decode_attention`` call (split kernel and
+    combine) with their per-warp trips and bytes: slot b attends over
+    [max(kv_start[b], 0), min(kv_len, T)), cut into ``splits`` pieces of
+    whole tiles.  The split kernel's bytes: q, the window's K/V rows and
+    the lengths read, the partials written; the combine's: the partials
+    read, out written."""
+    sp = splits(T, B, KV)
+    lo = np.maximum(np.asarray(kv_start, dtype=np.int64), 0)
+    hi = min(int(kv_len), T)
+    n = np.maximum(hi - lo, 0)
+    per = -(-(-(-n // sp)) // SPLIT_TILE) * SPLIT_TILE          # (B,)
+    s0 = lo[:, None] + np.arange(sp)[None, :] * per[:, None]
+    s1 = np.minimum(s0 + per[:, None], hi)
+    tiles = np.where(s1 > s0, -(-(s1 - s0) // SPLIT_TILE), 0)
+    n_tiles = np.broadcast_to(tiles[:, None, :], (B, KV, sp)).ravel()
+    e = torch.empty((), dtype=dtype).element_size()
+    split = Launch(
+        function=rf"decode_attention_kernelI{mangled(dtype)}Li{D}E",
+        grid=(sp, KV, B), threads=SPLIT_THREADS,
+        io_bytes=B * H * D * e + 2 * int(n.sum()) * KV * D * e + 4 + 4 * B,
+        scratch_bytes=4 * B * H * sp * (D + 2))
+    split_attend_trips(split, n_tiles, H // KV, D, dtype)
+    return [split, combine_launch("decode_attention_cu", dtype, B, H, KV, D,
+                                  sp)]

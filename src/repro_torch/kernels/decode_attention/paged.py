@@ -17,11 +17,14 @@ from the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.trips import (
+    Launch, cdiv, mangled, strided, warps_of)
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref)
 
@@ -197,6 +200,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged decode: q and the pools must be 16-byte "
                          "aligned (the kernel copies 16 bytes at a time)")
     n = splits(NB, B, KV)
+    if KERNEL.record is not None:        # the trip model's arguments
+        KERNEL.record.append(dict(
+            B=B, H=H, KV=KV, D=D, page=page, NB=NB, layer=int(layer),
+            splits=n, kv_len=kv_len.cpu().numpy(), q_dtype=q.dtype,
+            kv_dtype=k_pool.dtype))
     out = torch.empty_like(q)
     part = torch.empty(B * H * n * (D + 2), dtype=torch.float32,
                        device=q.device)
@@ -208,3 +216,111 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                DTYPE_CODES[q.dtype], DTYPE_CODES[k_pool.dtype],
                torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+# --- trip and byte models (core/sass_counters.py counts by them) ----------
+
+SPLIT_THREADS, COMBINE_THREADS = 128, 512    # splitkv::kThreads, kCombine...
+
+
+def split_attend_trips(launch: Launch, n_tiles: np.ndarray, G: int, D: int,
+                       kv_dtype) -> None:
+    """The marked loops of ``splitkv::attend`` (csrc/split_decode.cuh) in
+    every block of ``launch``, block b attending over ``n_tiles[b]``
+    tiles of 32 positions."""
+    e = torch.empty((), dtype=kv_dtype).element_size()
+    int8 = kv_dtype == torch.int8
+    nb = len(n_tiles)
+    wpb = launch.warps_per_block
+    all_w, w_in = warps_of(np.arange(nb), wpb)
+    tiles = np.repeat(n_tiles, wpb)
+    copy = strided(SPLIT_TILE * D * e // 16, SPLIT_THREADS, SPLIT_THREADS)
+    scale = strided(SPLIT_TILE, SPLIT_THREADS, SPLIT_THREADS)
+    units = cdiv(SPLIT_ROWS * D // 4, SPLIT_THREADS)
+    launch.add("split_row_tiles", all_w, cdiv(G, SPLIT_ROWS))
+    for r0 in range(0, G, SPLIT_ROWS):
+        R = min(SPLIT_ROWS, G - r0)
+        # one load a tile: the ring's first kStages - 1 ahead of the loop,
+        # the rest inside it, kStages - 1 tiles ahead
+        loads = tiles
+        launch.add("split_kv_copy", all_w, copy[w_in], loads)
+        if int8:
+            launch.add("split_scale_copy", all_w, scale[w_in], loads)
+        launch.add("split_q_load", all_w,
+                   strided(R * D, SPLIT_THREADS, SPLIT_THREADS)[w_in])
+        launch.add("split_kv_tiles", all_w, tiles)
+        # p @ v: a warp takes unit u while one of its lanes has an
+        # output, e = tid + u kThreads < R D / 4
+        u_live = np.array([sum(32 * w + SPLIT_THREADS * u < R * D // 4
+                               for u in range(units)) for w in range(wpb)])
+        launch.add("split_pv", all_w, SPLIT_TILE // 4, tiles * u_live[w_in])
+
+
+def combine_launch(tu: str, q_dtype, B: int, H: int, KV: int, D: int,
+                   splits: int) -> Launch:
+    """The combine (split_decode.cuh) of a split decode call: grid (KV, B)
+    of 512 threads, reading the pieces' partials and writing out."""
+    G = H // KV
+    qsize = torch.empty((), dtype=q_dtype).element_size()
+    la = Launch(function=rf"_{tu}_.*decode_attention_combine_kernelI"
+                         rf"{mangled(q_dtype)}E",
+                grid=(KV, B, 1), threads=COMBINE_THREADS,
+                io_bytes=B * H * D * qsize,
+                scratch_bytes=4 * B * H * splits * (D + 2))
+    all_w, w_in = warps_of(np.arange(KV * B), la.warps_per_block)
+    rows = strided(G, COMBINE_THREADS, COMBINE_THREADS)[w_in]
+    outs = strided(G * D, COMBINE_THREADS, COMBINE_THREADS)[w_in]
+    la.add("combine_ml_load", all_w,
+           strided(splits * G, COMBINE_THREADS, COMBINE_THREADS)[w_in])
+    la.add("combine_rows", all_w, rows)
+    for m in ("combine_max", "combine_weights", "combine_norm"):
+        la.add(m, all_w, splits, rows)
+    la.add("combine_out", all_w, outs)
+    la.add("combine_sum", all_w, splits, outs)
+    return la
+
+
+def pieces(NB: int, B: int, KV: int, page: int, kv_len
+           ) -> Tuple[np.ndarray, np.ndarray]:
+    """(s0, s1), each (B, splits): the positions [s0, s1) block (s, h, b)
+    of the split kernel attends over, whole pages of [0, kv_len[b])
+    (csrc/paged_decode.cu); the same for every kv head."""
+    n = np.clip(np.asarray(kv_len, dtype=np.int64), 0, NB * page)
+    sp = splits(NB, B, KV)
+    per = -(-(-(-n // page)) // sp) * page               # (B,)
+    s0 = np.arange(sp)[None, :] * per[:, None]
+    return s0, np.minimum(s0 + per[:, None], n[:, None])
+
+
+def trip_model(B: int, H: int, KV: int, D: int, page: int, NB: int,
+               kv_len, q_dtype, kv_dtype) -> List[Launch]:
+    """The launches of one ``paged_decode_attention`` call (split kernel
+    and combine) with their per-warp trips and bytes, from the host's
+    lengths ``kv_len`` (B,).  The split kernel's bytes: q, the live K/V
+    rows of each kv head (and their int8 scales), the live block-table
+    entries and the lengths read, the partials written; the combine's:
+    the partials read, out written."""
+    n = np.clip(np.asarray(kv_len, dtype=np.int64), 0, NB * page)
+    sp = splits(NB, B, KV)
+    G = H // KV
+    live_pages = -(-n // page)
+    s0, s1 = pieces(NB, B, KV, page, kv_len)
+    tiles = np.where(s1 > s0, -(-(s1 - s0) // SPLIT_TILE), 0)
+    n_tiles = np.broadcast_to(tiles[:, None, :], (B, KV, sp)).ravel()
+    qsize = torch.empty((), dtype=q_dtype).element_size()
+    kvsize = torch.empty((), dtype=kv_dtype).element_size()
+    rows = int(n.sum()) * KV
+    kv_bytes = 2 * rows * D * kvsize + (8 * rows if kv_dtype == torch.int8
+                                        else 0)
+    kv = mangled(kv_dtype)
+    if q_dtype == kv_dtype == torch.bfloat16:
+        kv = "S1_"                                      # the repeated type
+    split = Launch(
+        function=rf"paged_decode_kernelI{mangled(q_dtype)}{kv}Li{D}E",
+        grid=(sp, KV, B), threads=SPLIT_THREADS,
+        io_bytes=B * H * D * qsize + kv_bytes + 4 * int(live_pages.sum())
+        + 4 * B,
+        scratch_bytes=4 * B * H * sp * (D + 2))
+    split_attend_trips(split, n_tiles, G, D, kv_dtype)
+    return [split, combine_launch("paged_decode_cu", q_dtype, B, H, KV, D,
+                                  sp)]

@@ -18,13 +18,16 @@ one block per (kv head, slot).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
 from repro_torch.kernels.decode_attention.paged import (
-    TC_ROWS, check_args, on_cpu, promote, ptr)
+    KV_TILE, PREFILL_ROWS, TC_ROWS, check_args, on_cpu, promote, ptr)
+from repro_torch.kernels.trips import (
+    Launch, cdiv, mangled, strided, warps_of)
 from repro_torch.kernels.decode_attention.ref import (
     paged_prefill_attention_ref)
 
@@ -67,6 +70,11 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     B, T, H, KV, D, num_pages, page, NB = check_args(
         "prefill", q, k_pool, v_pool, block_table, (base_len, new_len),
         layer, k_scale, v_scale)
+    if KERNEL.record is not None:        # the trip model's arguments
+        KERNEL.record.append(dict(
+            B=B, T=T, H=H, KV=KV, D=D, page=page, NB=NB, layer=int(layer),
+            base_len=base_len.cpu().numpy(), new_len=new_len.cpu().numpy(),
+            q_dtype=q.dtype, kv_dtype=k_pool.dtype))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         KERNEL(out.data_ptr(), q.data_ptr(), k_pool.data_ptr(),
@@ -76,3 +84,123 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                int(layer), DTYPE_CODES[q.dtype], DTYPE_CODES[k_pool.dtype],
                torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+# --- trip and byte models (core/sass_counters.py counts by them) ----------
+
+TC_MARKED = ("tc_q_copy", "tc_kv_copy", "tc_kv_copy_i8", "tc_scale_copy",
+             "tc_dequant")                # strided over the block's threads
+
+
+def tc_attend_trips(launch: Launch, n_tiles: np.ndarray, D: int, MT: int,
+                    int8: bool) -> None:
+    """The marked loops of ``tc::attend`` (csrc/attention_tc.cuh) in every
+    block of ``launch`` (WARPS warps of 16 MT rows), block b visiting
+    ``n_tiles[b]`` tiles of 64 positions."""
+    threads = launch.threads
+    R, CH = 16 * MT * (threads // 32), D // 8
+    all_w, w_in = warps_of(np.arange(len(n_tiles)), launch.warps_per_block)
+    tiles = np.repeat(n_tiles, launch.warps_per_block)
+    launch.steps.update({m: threads for m in TC_MARKED})
+    launch.add("tc_q_copy", all_w, strided(R * CH, threads, threads)[w_in])
+    # one load a tile: tile 0 ahead of the loop, tile i + 1 inside it
+    if int8:
+        launch.add("tc_kv_copy_i8", all_w,
+                   strided(KV_TILE * D // 16, threads, threads)[w_in], tiles)
+        launch.add("tc_scale_copy", all_w,
+                   strided(KV_TILE, threads, threads)[w_in], tiles)
+        launch.add("tc_dequant", all_w,
+                   strided(KV_TILE * D, threads, threads)[w_in], tiles)
+    else:
+        launch.add("tc_kv_copy", all_w,
+                   strided(KV_TILE * CH, threads, threads)[w_in], tiles)
+    launch.add("tc_tiles", all_w, tiles)
+    launch.add("tc_out", all_w, cdiv(16 * MT * CH, 32))
+
+
+def tc_tiles(r0: np.ndarray, nrows: int, G: int, base: np.ndarray,
+             kv_end: np.ndarray, causal: bool, rows: int) -> np.ndarray:
+    """Tiles a tensor-core block visits: up to its last row's causal
+    limit (csrc/attention_tc.cuh, t_end)."""
+    last = np.minimum(r0 + rows, nrows) - 1
+    t_end = np.minimum(kv_end, base + last // G + 1) if causal else kv_end
+    return np.where(t_end > 0, -(-t_end // KV_TILE), 0)
+
+
+def trip_model(B: int, T: int, H: int, KV: int, D: int, page: int, NB: int,
+               base_len, new_len, kv_dtype, q_dtype=torch.bfloat16
+               ) -> List[Launch]:
+    """The launch of one ``paged_prefill_attention`` call with its
+    per-warp trips and bytes: q read and out written, the K/V rows below
+    each slot's last causal limit (and their int8 scales), their
+    block-table entries and the two lengths.  bf16 q: the tensor-core
+    kernel; f32 q: ``cuda_core_trip_model``."""
+    if q_dtype == torch.float32:
+        return cuda_core_trip_model(B, T, H, KV, D, page, NB, base_len,
+                                    new_len, kv_dtype)
+    G = H // KV
+    gx = -(-T * G // TC_ROWS)
+    base = np.asarray(base_len, dtype=np.int64)
+    end = np.minimum(np.asarray(new_len, dtype=np.int64), NB * page)
+    r0 = (gx - 1 - np.arange(gx)) * TC_ROWS
+    tiles = tc_tiles(r0[None, :], T * G, G, base[:, None], end[:, None],
+                     True, TC_ROWS)                      # (B, gx)
+    n_tiles = np.broadcast_to(tiles[:, None, :], (B, KV, gx)).ravel()
+    kvsize = torch.empty((), dtype=kv_dtype).element_size()
+    pos = np.maximum(np.minimum(end, base + T), 0)       # positions read
+    rows = int(pos.sum()) * KV
+    la = Launch(
+        function=rf"paged_prefill_tc_kernelI{mangled(kv_dtype)}Li{D}E",
+        grid=(gx, KV, B), threads=TC_ROWS * 2,
+        io_bytes=2 * 2 * B * T * H * D + 2 * rows * D * kvsize
+        + (8 * rows if kv_dtype == torch.int8 else 0)
+        + 4 * int((-(-pos // page)).sum()) + 8 * B)
+    tc_attend_trips(la, n_tiles, D, 1, kv_dtype == torch.int8)
+    return [la]
+
+
+def cuda_core_trip_model(B: int, T: int, H: int, KV: int, D: int, page: int,
+                         NB: int, base_len, new_len, kv_dtype
+                         ) -> List[Launch]:
+    """The f32 parity kernel (csrc/paged_attention.cuh): one block of 128
+    threads per (kv head, slot), the T G rows in tiles of 64, each tile
+    sweeping whole pages up to its last row's causal limit.  Its bytes
+    count those pages whole, as the kernel reads them."""
+    G, TG, threads = H // KV, T * H // KV, 128
+    base = np.asarray(base_len, dtype=np.int64)
+    new = np.asarray(new_len, dtype=np.int64)
+    live = np.where(new > 0, np.minimum(NB, -(-new // page)), 0)     # (B,)
+    r0 = np.arange(0, TG, PREFILL_ROWS)
+    qmax = base[:, None] + (np.minimum(r0 + PREFILL_ROWS, TG) - 1)[None] \
+        // G
+    pages = np.where(qmax < 0, 0, np.minimum(live[:, None],
+                                             qmax // page + 1))      # (B, rt)
+    kvsize = torch.empty((), dtype=kv_dtype).element_size()
+    rows = int(pages.max(axis=1).sum()) * page * KV
+    la = Launch(
+        function=rf"paged_prefill_kernelIf{mangled(kv_dtype)}Li{D}E",
+        grid=(KV, B, 1), threads=threads,
+        io_bytes=2 * 4 * B * T * H * D + 2 * rows * D * kvsize
+        + (8 * rows if kv_dtype == torch.int8 else 0)
+        + 4 * int(pages.max(axis=1).sum()) + 8 * B,
+        steps={"paged_row_tiles": PREFILL_ROWS})
+    per = la.warps_per_block
+    blocks = np.arange(KV * B).reshape(B, KV)
+    all_w, w_in = warps_of(blocks.ravel(), per)
+    st = {n: strided(n_el, threads, threads) for n, n_el in (
+        ("q", PREFILL_ROWS * D), ("ml", PREFILL_ROWS), ("kv", page * D),
+        ("sc", PREFILL_ROWS * page))}
+    n_pages = np.repeat(np.repeat(pages, KV, axis=0), per, axis=0)  # warps
+    la.add("paged_row_tiles", all_w, len(r0))
+    for k in range(len(r0)):
+        la.add("paged_q_load", all_w, st["q"][w_in])
+        la.add("paged_ml_init", all_w, st["ml"][w_in])
+        np_k = n_pages[:, k]
+        la.add("paged_pages", all_w, np_k)
+        la.add("paged_kv_load", all_w, st["kv"][w_in], np_k)
+        la.add("paged_scores", all_w, st["sc"][w_in], np_k)
+        la.add("paged_rows", all_w, st["ml"][w_in], np_k)
+        for m in ("paged_row_max", "paged_row_exp"):
+            la.add(m, all_w, page, np_k * st["ml"][w_in])
+        la.add("paged_pv", all_w, page, np_k)
+    return [la]

@@ -23,13 +23,18 @@ result.
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
 from repro_torch.kernels.decode_attention.decode import check_dense
 from repro_torch.kernels.decode_attention.paged import on_cpu
+from repro_torch.kernels.decode_attention.prefill_paged import (
+    tc_attend_trips, tc_tiles)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.trips import Launch, strided, warps_of
 from repro_torch.models.attention import repeat_kv
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -75,3 +80,65 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                B, S, T, H, KV, D, int(bool(causal)), DTYPE_CODES[q.dtype],
                torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+TC_WARPS, TC_MT = 4, 2          # csrc/flash_attention.cu: kTcWarps, kTcMT
+TC_ROWS = 16 * TC_MT * TC_WARPS
+
+
+def trip_model(B: int, S: int, T: int, H: int, KV: int, D: int,
+               causal: bool, dtype=torch.bfloat16) -> List[Launch]:
+    """The launch of one ``launch`` call with its per-warp trips and
+    bytes: q read, out written, and the K/V rows some query sees (the
+    first min(S, T) under the causal mask).  bf16: the tensor-core
+    kernel; f32: ``cuda_core_trip_model``."""
+    if dtype == torch.float32:
+        return cuda_core_trip_model(B, S, T, H, KV, D, causal)
+    G = H // KV
+    gy = -(-S * G // TC_ROWS)
+    r0 = (gy - 1 - np.arange(gy)) * TC_ROWS
+    tiles = tc_tiles(r0, S * G, G, np.zeros(1, np.int64),
+                     np.full(1, T, np.int64), causal, TC_ROWS)   # (gy,)
+    n_tiles = np.broadcast_to(tiles[:, None], (gy, B * KV)).ravel()
+    seen = min(S, T) if causal else T
+    la = Launch(function=rf"flash_attention_tc_kernelILi{D}E",
+                grid=(B * KV, gy, 1), threads=32 * TC_WARPS,
+                io_bytes=2 * 2 * B * S * H * D + 2 * 2 * B * seen * KV * D)
+    tc_attend_trips(la, n_tiles, D, TC_MT, False)
+    return [la]
+
+
+CC_THREADS, CC_BQ, CC_BK = 256, 64, 32     # flash_attention_kernel's tiles
+
+
+def cuda_core_trip_model(B: int, S: int, T: int, H: int, KV: int, D: int,
+                         causal: bool) -> List[Launch]:
+    """The f32 parity kernel (csrc/flash_attention.cu,
+    flash_attention_kernel): a block of 256 threads per (sequence, query
+    head) and 64 query rows, walking the key tiles of 32 below the
+    tile's causal limit."""
+    gy = -(-S // CC_BQ)
+    q0 = (gy - 1 - np.arange(gy)) * CC_BQ
+    t_end = np.minimum(T, np.minimum(q0 + CC_BQ, S)) if causal else \
+        np.full(gy, T)
+    tiles = np.repeat(np.where(t_end > 0, -(-t_end // CC_BK), 0), B * H)
+    seen = min(S, T) if causal else T
+    la = Launch(function=rf"flash_attention_kernelIfLi{D}E",
+                grid=(B * H, gy, 1), threads=CC_THREADS,
+                io_bytes=2 * 4 * B * S * H * D + 2 * 4 * B * seen * KV * D)
+    per = la.warps_per_block
+    all_w, w_in = warps_of(np.arange(B * H * gy), per)
+    warp_tiles = np.repeat(tiles, per)
+    rows = strided(CC_BQ, CC_THREADS, CC_THREADS)[w_in]
+    la.add("flash_q_load", all_w,
+           strided(CC_BQ * D, CC_THREADS, CC_THREADS)[w_in])
+    la.add("flash_ml_init", all_w, rows)
+    la.add("flash_tiles", all_w, warp_tiles)
+    la.add("flash_kv_load", all_w,
+           strided(CC_BK * D, CC_THREADS, CC_THREADS)[w_in], warp_tiles)
+    la.add("flash_qk", all_w, D, warp_tiles)
+    la.add("flash_rows", all_w, rows, warp_tiles)
+    for m in ("flash_row_max", "flash_row_exp"):
+        la.add(m, all_w, CC_BK, warp_tiles * rows)
+    la.add("flash_pv", all_w, CC_BK, warp_tiles)
+    return [la]

@@ -14,13 +14,16 @@ the model passes column slices of the x_proj output.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
 from repro_torch.kernels.decode_attention.paged import on_cpu
 from repro_torch.kernels.ssm_scan.ref import mamba1_scan
+from repro_torch.kernels.trips import (
+    Launch, cdiv, mangled, strided, warps_of)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -105,3 +108,44 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                LANES, int(copies_16_bytes(x, dt)), DTYPE_CODES[x.dtype],
                torch.cuda.current_stream(x.device).cuda_stream)
     return y, h
+
+
+THREADS, STEPS_A_TILE = 128, 32          # csrc/selective_scan.cu: kThreads, kT
+
+
+def hbm_bytes(B: int, S: int, d_in: int, N: int, dtype) -> int:
+    """What one call reads and writes in device memory, each tensor once:
+    x, dt and y (B, S, d_in), B and C (B, S, N) in x's dtype, A (d_in, N)
+    and the final state (B, d_in, N) in f32."""
+    e = torch.empty((), dtype=dtype).element_size()
+    return B * S * (3 * d_in + 2 * N) * e + d_in * N * 4 + B * d_in * N * 4
+
+
+def trip_model(B: int, S: int, d_in: int, N: int, dtype, lanes: int = LANES,
+               vec: bool = True) -> List[Launch]:
+    """The launch of one ``selective_scan`` call with its per-warp trips
+    and bytes (``hbm_bytes``): every warp walks all S steps, tile by
+    tile, the last tile ragged (S = 454: 14 tiles of 32 and one of 6);
+    ``vec``: x's and dt's tiles arrive by 16-byte copies, else by plain
+    loads (``copies_16_bytes``)."""
+    kC = THREADS // lanes
+    e = torch.empty((), dtype=dtype).element_size()
+    gx = cdiv(d_in, kC)
+    la = Launch(function=rf"selective_scan_kernelI{mangled(dtype)}Li{N}ELi"
+                         rf"{lanes}E",
+                grid=(gx, B, 1), threads=THREADS,
+                io_bytes=hbm_bytes(B, S, d_in, N, dtype))
+    all_w, w_in = warps_of(np.arange(gx * B), la.warps_per_block)
+    n_tiles = cdiv(S, STEPS_A_TILE)
+    # one load a tile, by the path ``vec`` takes (the other's loop is
+    # reached no time)
+    la.add("scan_xdt_copy", all_w,
+           strided(STEPS_A_TILE * kC * e // 16, THREADS, THREADS)[w_in],
+           n_tiles if vec else 0)
+    la.add("scan_xdt_load", all_w,
+           strided(STEPS_A_TILE * kC, THREADS, THREADS)[w_in],
+           0 if vec else n_tiles)
+    la.add("scan_tiles", all_w, n_tiles)
+    la.add("scan_steps", all_w, STEPS_A_TILE, n_tiles - 1)
+    la.add("scan_steps", all_w, S - STEPS_A_TILE * (n_tiles - 1))
+    return [la]

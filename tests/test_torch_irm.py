@@ -521,3 +521,61 @@ def test_irm_launcher_cpu():
     assert res.returncode == 0, res.stderr
     assert res.stdout.count("table1_lwfa") == 3
     assert res.stdout.count("table2_tweac") == 3
+
+
+def _model(ms_copy=0.09):
+    n = 2 ** 25
+    res = _result(n, {"copy": ms_copy, "mul": 0.091, "add": 0.13,
+                      "triad": 0.129, "dot": 0.1})
+    hw = hardware.h100_spec("H100", 132, 1980.0, 80 * 2 ** 30,
+                            measured_gbs=res.copy_gbs())
+    census = {k: sc.KernelCensus(k, 20, {}, 0) for k in (
+        "stream_copy_f32", "stream_mul_f32", "stream_add_f32",
+        "stream_triad_f32", "stream_dot_f32", "stream_sum_f32")}
+    return launch_irm.h100_irm(hw, census, res)[0]
+
+
+def test_app_rows_place_points_at_hi():
+    """A looped kernel's point: both intensities, GIPS at lo and hi, the
+    roof and achieved/roof at hi; memory or compute by the knee."""
+    model = _model()
+    pts = [launch_irm.AppPoint("k: a", 1000, 3000, 10000, 1e-6),
+           launch_irm.AppPoint("k: b", 10 ** 9, 2 * 10 ** 9, 10 ** 9, 1e-2)]
+    rows = launch_irm.app_rows(model, pts)
+    a, b = rows
+    assert close(a["inst_per_byte_lo"], 0.1) and close(a["inst_per_byte_hi"],
+                                                       0.3)
+    assert close(a["achieved_gips_lo"], 1.0) and close(a["achieved_gips"],
+                                                       3.0)
+    assert close(a["roof_gips"], model.roof_at(0.3))
+    assert close(a["achieved_over_roof"], 3.0 / model.roof_at(0.3))
+    assert a["bound"] == "memory" and b["bound"] == "compute"
+    assert set(launch_irm.APP_COLUMNS) == set(a)
+    assert launch_irm.over_peak(model.hw, rows) == []
+    fast = launch_irm.AppPoint("k: c", 2 * 10 ** 12, 2 * 10 ** 12, 10 ** 9,
+                               1.0)
+    assert len(launch_irm.over_peak(
+        model.hw, launch_irm.app_rows(model, [fast]))) == 1
+    assert "knee" in launch_irm.app_report(model, pts)[0]
+
+
+def test_kernel_names_and_trace_keys():
+    """A launch's kernel is found in a profiler trace by its C++ name."""
+    from repro_torch.kernels.decode_attention import paged as kpaged
+    split, comb = kpaged.trip_model(1, 32, 8, 128, 16, 4, [9],
+                                    torch.bfloat16, torch.bfloat16)
+    assert launch_irm.kernel_name(split) == "paged_decode_kernel"
+    assert launch_irm.kernel_name(comb) == "decode_attention_combine_kernel"
+    times = {"void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16,"
+             " __nv_bfloat16, 128>((anonymous namespace)::Params)": (9.0, 1),
+             "void (anonymous namespace)::splitkv::decode_attention_combine"
+             "_kernel<__nv_bfloat16>(CombineParams)": (4.0, 1)}
+    assert launch_irm.kernel_us(times, split) == (9.0, 1)
+    assert launch_irm.kernel_us(times, comb) == (4.0, 1)
+    with pytest.raises(KeyError):
+        launch_irm.kernel_us({}, split)
+
+
+def test_serve_shapes_are_the_serve_phase_lengths():
+    assert launch_irm.serve_shapes() == ([255, 276, 105, 147],
+                                         [224, 256, 64, 128], 21)

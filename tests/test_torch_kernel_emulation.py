@@ -64,7 +64,10 @@ CUDA_RUNTIME = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <map>
 #include <memory>
+#include <mutex>
+#include <string>
 #include <thread>
 #include <vector>
 #define __global__
@@ -90,6 +93,15 @@ inline thread_local float* emu_shfl = nullptr;   // one slot per thread
 struct EmuLane { uint32_t w[6]; const void* ptr; float f; };
 inline thread_local EmuLane* emu_warp = nullptr;  // the 32 lanes of a warp
 inline thread_local std::barrier<>* emu_warp_barrier = nullptr;
+// REPRO_TRIP(name): each thread's iterations of a marked loop, logged at
+// the end of its block as (launch, marker, block, thread, count)
+struct EmuTrip { long launch; std::string name; long block; int thread;
+                 long count; };
+inline std::mutex emu_trip_mutex;
+inline std::vector<EmuTrip> emu_trip_log;
+inline long emu_launches = 0;
+inline thread_local std::map<std::string, long>* emu_counts = nullptr;
+#define REPRO_TRIP(name) (++(*emu_counts)[#name])
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_warp_barrier->arrive_and_wait();
@@ -119,6 +131,7 @@ template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
                 const A&... args) {
   const int warps = (threads + 31) / 32;
+  const long launch = emu_launches++;
   for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -142,7 +155,13 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
           emu_shfl = shfl.data();
           emu_warp = lanes.data() + 32 * (t / 32);
           emu_warp_barrier = warp_bars[t / 32].get();
+          std::map<std::string, long> counts;
+          emu_counts = &counts;
           kernel(args...);
+          const long block = bx + grid.x * (by + grid.y * (long)bz);
+          std::lock_guard<std::mutex> lock(emu_trip_mutex);
+          for (const auto& [name, n] : counts)
+            emu_trip_log.push_back({launch, name, block, t, n});
         });
       for (auto& th : pool) th.join();
     }
@@ -310,6 +329,25 @@ extern "C" int emu_mma_probe(const void* a, const void* bt, const void* b,
 """
 
 
+# the trip log's C interface, in a source of its own
+EMU_TRIPS = r"""
+#include "cuda_runtime.h"
+#include <cstring>
+extern "C" long emu_trip_launches() { return emu_launches; }
+extern "C" long emu_trip_entries() { return (long)emu_trip_log.size(); }
+extern "C" void emu_trip_entry(long i, long* out, char* name) {
+  const EmuTrip& e = emu_trip_log[i];
+  out[0] = e.launch;
+  out[1] = e.block;
+  out[2] = e.thread;
+  out[3] = e.count;
+  std::strncpy(name, e.name.c_str(), 63);
+  name[63] = 0;
+}
+extern "C" void emu_trip_clear() { emu_trip_log.clear(); }
+"""
+
+
 def _rewrite(src: str) -> str:
     src = src.replace("extern __shared__ float smem[];",
                       "float* smem = emu_shared;")
@@ -331,6 +369,7 @@ def emulated(tmp_path_factory):
         (d / out).write_text(_rewrite(f.read_text()))
     (d / "tc_ptx.cuh").write_text(TC_PTX)         # the PTX, emulated
     (d / "mma_probe.cpp").write_text(_rewrite(MMA_PROBE))
+    (d / "emu_trips.cpp").write_text(EMU_TRIPS)
     lib = d / "libemu.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
                     "-shared", "-fPIC", "-pthread", f"-I{d}", "-o", str(lib),
@@ -1237,3 +1276,134 @@ def test_emulated_selective_scan_matches_plain(case, cuda_path_on_cpu):
                                    atol=atol)
         torch.testing.assert_close(h, want_h, rtol=2e-5, atol=2e-5)
     assert scan.KERNEL.launches == n0 + 2
+
+
+# ---------------------------------------------------------------------------
+# The trip models (kernels/trips.py) against the emulated kernels' own
+# counts: every marked loop's REPRO_TRIP, per thread, reduced to each warp
+# by its largest thread count, equals the model's per-warp trips.
+# ---------------------------------------------------------------------------
+
+def _emulated_trips(lib, first):
+    """{(launch - first, marker): {warp key: count}} from the trip log,
+    each warp keyed (block, thread // 32) and counted by its busiest
+    thread."""
+    lib.emu_trip_entry.argtypes = [ctypes.c_long,
+                                   ctypes.POINTER(ctypes.c_long),
+                                   ctypes.c_char_p]
+    lib.emu_trip_entries.restype = ctypes.c_long
+    buf = (ctypes.c_long * 4)()
+    name = ctypes.create_string_buffer(64)
+    out = {}
+    for i in range(lib.emu_trip_entries()):
+        lib.emu_trip_entry(i, buf, name)
+        launch, block, thread, count = list(buf)
+        if launch < first:
+            continue
+        warps = out.setdefault((launch - first, name.value.decode()), {})
+        key = (block, thread // 32)
+        warps[key] = max(warps.get(key, 0), count)
+    return out
+
+
+def _check_trips(lib, launches, call):
+    """Run ``call`` on the emulated kernels and hold every launch's
+    per-warp trips against the model's ``launches``."""
+    lib.emu_trip_launches.restype = ctypes.c_long
+    lib.emu_trip_clear()
+    first = lib.emu_trip_launches()
+    call()
+    assert lib.emu_trip_launches() - first == len(launches)
+    got = _emulated_trips(lib, first)
+    for k, la in enumerate(launches):
+        model = la.per_warp()
+        markers = set(model) | {m for (j, m) in got if j == k}
+        for m in markers:
+            emu = np.zeros(la.warps, dtype=np.int64)
+            for (block, w), n in got.get((k, m), {}).items():
+                emu[block * la.warps_per_block + w] = n
+            want = model.get(m, np.zeros(la.warps, dtype=np.int64))
+            assert (emu == want).all(), (la.function, m, emu.tolist(),
+                                         want.tolist())
+    assert got, "no marked loop ran"
+
+
+@pytest.mark.parametrize("q_dtype,pool", PAGED_POOLS,
+                         ids=lambda x: str(x).replace("torch.", ""))
+@pytest.mark.parametrize("G", [4, 48])
+def test_trip_model_of_paged_decode(G, q_dtype, pool, emulated,
+                                    cuda_path_on_cpu):
+    """22 splits of a 40-page table (page 4): kv_len 0, one token, one
+    page, one page and a token, 100 (pieces ending mid-page, pieces 13-21
+    empty) and the full table; G = 48 walks three row tiles; int8 pools
+    copy their scales."""
+    B, KV, D, page, NB = 6, 2, 32, 4, 40
+    lens = [1, page, page + 1, 100, NB * page, 0]
+    q, kp, vp, tbl, kv_len, ks, vs = _paged_decode_case(
+        G + len(pool), B, G * KV, KV, D, page, NB, q_dtype, pool, lens)
+    model = paged.trip_model(B, G * KV, KV, D, page, NB, lens, q_dtype,
+                             kp.dtype)
+    _check_trips(emulated, model, lambda: paged.paged_decode_attention(
+        q, kp, vp, tbl, kv_len, 1, k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.parametrize("case", [c for c in DECODE_CASES if c[4] >= 32],
+                         ids=lambda c: "-".join(
+                             str(x).replace("torch.", "") for x in c))
+def test_trip_model_of_dense_decode(case, emulated, cuda_path_on_cpu):
+    """kv_len below T, a kv_start in every slot but the first and an empty
+    window in the last (kv_start >= kv_len)."""
+    B, T, H, KV, D, dtype = case
+    q, k, v = _dense(T + H, B, 1, T, H, KV, D, dtype)
+    kv_len = T - 3
+    start = [0] + [kv_len] * (B - 1) if B == 2 else [0, 5, kv_len]
+    model = decode.trip_model(B, T, H, KV, D, kv_len, start, dtype)
+    _check_trips(emulated, model, lambda: decode.decode_attention(
+        q, k, v, kv_len, torch.tensor(start, dtype=torch.int32)))
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_trip_model_of_paged_prefill(case, emulated, cuda_path_on_cpu):
+    """bf16 q on the tensor-core body, f32 q on the CUDA-core one: causal
+    from random, unaligned bases, an empty slot, G up to 48 over several
+    row tiles, single-row pages, int8 pools."""
+    *geom, dtype, int8 = case
+    B, T, H, KV, D, page, NB, L = geom
+    q, kp, vp, tbl, base, new, layer, ks, vs = _case(sum(geom), *geom,
+                                                     dtype, int8, empty=True)
+    model = prefill_paged.trip_model(B, T, H, KV, D, page, NB,
+                                     base.tolist(), new.tolist(), kp.dtype,
+                                     q.dtype)
+    _check_trips(emulated, model, lambda: prefill_paged.
+                 paged_prefill_attention(q, kp, vp, tbl, base, new, layer,
+                                         k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_trip_model_of_flash(case, emulated, cuda_path_on_cpu):
+    """bf16 on the tensor-core body, f32 on the CUDA-core one; causal and
+    not, S != T both ways."""
+    B, S, T, H, KV, D, causal, dtype = case
+    q, k, v = _dense(S + T + D, B, S, T, H, KV, D, dtype)
+    model = flash.trip_model(B, S, T, H, KV, D, causal, dtype)
+    _check_trips(emulated, model, lambda: flash.launch(q, k, v, causal))
+
+
+@pytest.mark.parametrize("case", SCAN_LANE_CASES + [
+    c + (scan.LANES, (c[2] * (2 if c[4] == torch.bfloat16 else 4)) % 16
+         == 0) for c in SCAN_CASES], ids=lambda c: "-".join(
+             str(x).replace("torch.", "") for x in c))
+def test_trip_model_of_the_scan(case, emulated, cuda_path_on_cpu,
+                                monkeypatch):
+    """The ragged last tile (S not a multiple of 32), 1, 2 and 4 lanes,
+    16-byte tiles and plain loads."""
+    B, S, d_in, N, dtype, lanes, vec = case
+    monkeypatch.setattr(scan, "LANES", lanes)
+    x, dt, A, Bc, Cc = _scan_inputs(np.random.default_rng(S + d_in), B, S,
+                                    d_in, N, dtype)
+    assert scan.copies_16_bytes(x, dt) == vec
+    model = scan.trip_model(B, S, d_in, N, dtype, lanes, vec)
+    _check_trips(emulated, model,
+                 lambda: scan.selective_scan(x, dt, A, Bc, Cc))
