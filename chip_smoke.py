@@ -11,7 +11,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                power limit.
   2. kernels — holds each paged-attention kernel against its plain PyTorch
                version on the card (granite-8b, qwen2-0.5b, granite-20b
-               (48 heads over one KV head) and phi4-mini geometry, page
+               (48 heads over one KV head), phi4-mini, llama4-scout (40
+               over 8: G = 5) and grok-1 (48 over 8: G = 6) geometry, page
                16, and page 8 for prefill, ragged lengths up to ~2k
                tokens, bf16/f32/int8 pools, an empty prefill slot, tables
                that alias another slot's pages with a prefill base and a
@@ -131,7 +132,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                is served (512 does not divide 777); the prefill's and one
                decode step's logits on the kernel path are held against
                the plain path.  Before it, both dense kernels are held
-               against their plain versions (GQA, MQA, MHA; f32 and bf16;
+               against their plain versions (GQA, MQA, MHA, and the MoE
+               archs' G = 5 and 6 at D = 128; f32 and bf16;
                decode over caches of 24-2080 rows with random windows, no
                window and an empty one, and at the split kernel's piece
                edges; flash causal and not, S = T from 37 to 2048, S != T,
@@ -176,6 +178,36 @@ Phases, each failing loudly (non-zero exit, no result line):
                timed at the phase's shape beside the bound (no single
                PyTorch call computes a selective scan, so no library
                time).
+     moe     — after the granite-8b and falcon-mamba weights are
+               released (device memory printed at its start):
+               llama4-scout at its published widths (d_model 5120, 40/8
+               heads of 128, 16 experts of d_ff 8192 top-1, vocab
+               202048) and 12 of its 48 layers (54.0 GB of bf16, the
+               depth one card holds), random weights from a seeded
+               generator.  Paged with sharing off (serve's 8 requests)
+               and with the default ServeConfig (share's traffic; no
+               shared = alone logit bound: MoE capacity counts every row
+               of a call, so batching moves tokens).  Hard checks: 32
+               in-vocab tokens a request; ``kv.check()`` (and the prefix
+               index) after every tick; both paged kernels launched
+               exactly once per layer of every call.  Readings: tokens/s,
+               the host split, the weight-read floor of a call, and (a
+               recording pass, ``moe_ffn`` wrapped, whose tokens must
+               equal the timed pass's) the routed (row, layer)
+               assignments and the share capacity dropped, for decode
+               and prefill calls.  Then one prefill chunk of 32
+               rows in all 4 slots and one decode step with all active
+               on the kernel and the plain route: the (row, layer)
+               assignments whose experts or capacity keep differ are
+               printed, and where none differs the logits are held
+               within 8 bf16 ulps (a flipped near-tie is printed, not
+               failed).  Whole-batch ``ServingEngine`` (4 prompts of
+               64-500 tokens): flash once per layer, dense decode once
+               per layer per step, fused = legacy tokens.  Then
+               llama4-scout and grok-1 (ep_shards 8, G = 2E) reduced in
+               f32, kernel against plain route: greedy tokens identical
+               with no row that carries no request (4 x 64 tokens);
+               on ragged traffic the count that differ is reported.
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
                shapes that exercise the bounds guards, ragged last
@@ -230,6 +262,8 @@ the paper's roof, but the rate of the port's own copy kernel, which
 other kernels may beat, so it is no lower bound.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -480,11 +514,14 @@ def work(kind, c):
     return sum(la.io_bytes for la in las), 4 * attended * H * D
 
 
-# the paged kernels' geometries: the dense archs the port serves
+# the paged kernels' geometries: the archs the port serves (the MoE
+# archs' G = 5 and 6 query heads a KV head among them)
 PAGED_GEOMS = {"granite-8b": dict(H=32, KV=8, D=128),
                "qwen2-0.5b": dict(H=14, KV=2, D=64),
                "granite-20b": dict(H=48, KV=1, D=128),
-               "phi4-mini-3.8b": dict(H=24, KV=8, D=128)}
+               "phi4-mini-3.8b": dict(H=24, KV=8, D=128),
+               "llama4-scout": dict(H=40, KV=8, D=128),
+               "grok-1": dict(H=48, KV=8, D=128)}
 
 
 def kernel_phase(torch):
@@ -2238,12 +2275,16 @@ DECODE_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                 "MQA": dict(H=16, KV=1, D=128),
                 "MHA": dict(H=8, KV=8, D=64),
                 "granite-20b": dict(H=48, KV=1, D=128),
-                "phi4-mini": dict(H=24, KV=8, D=128)}
+                "phi4-mini": dict(H=24, KV=8, D=128),
+                "llama4-scout": dict(H=40, KV=8, D=128),
+                "grok-1": dict(H=48, KV=8, D=128)}
 FLASH_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                "MQA": dict(H=8, KV=1, D=64),
                "MHA": dict(H=8, KV=8, D=64),
                "granite-20b": dict(H=48, KV=1, D=128),
-               "phi4-mini": dict(H=24, KV=8, D=128)}
+               "phi4-mini": dict(H=24, KV=8, D=128),
+               "llama4-scout": dict(H=40, KV=8, D=128),
+               "grok-1": dict(H=48, KV=8, D=128)}
 
 
 def dense_inputs(gen, B, S, T, H, KV, D, dtype):
@@ -3007,6 +3048,478 @@ def ssm_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# moe: llama4-scout at full width through the paged engine
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "llama4-scout-17b-a16e"
+# 12 of 48 layers, the depth one card holds: each layer is 2.076 G
+# parameters (4.15 GB in bf16) and the untied embed and unembed 4.14 GB,
+# so 12 layers make 54.0 GB; 16 would leave under 10 GB of the 80
+MOE_LAYERS = 12
+MOE_REDUCED_PARITY = (("llama4-scout-17b-a16e", {}),
+                      ("grok-1-314b", {"ep_shards": 8}))
+
+
+class MoeCalls:
+    """Wraps ``transformer.moe_ffn`` (the name the blocks call) while
+    active: counts its calls by kind (``decode``: one row a slot,
+    ``prefill``: a chunk) and, with ``record``, each call's routing as
+    ``models/moe.py`` takes it — the top-k experts of every row and
+    whether capacity kept each (row, expert) assignment — on the device,
+    with no read back until ``summary``."""
+
+    def __init__(self, torch, record=False):
+        self.torch, self.record = torch, record
+        self.calls = {"decode": 0, "prefill": 0}
+        self.assigned = {"decode": 0, "prefill": 0}
+        self.dropped = {}
+        self.routes = []
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.real = real = transformer.moe_ffn
+
+        def wrapped(x, router_w, w1, w2, w3, cfg):
+            kind = "decode" if x.shape[1] == 1 else "prefill"
+            self.calls[kind] += 1
+            if self.record:
+                experts, kept, gap = routing(self.torch, x, router_w, cfg)
+                self.assigned[kind] += experts.numel()
+                drop = (~kept).sum()
+                self.dropped[kind] = self.dropped.get(kind, 0) + drop
+                self.routes.append((experts, kept, gap))
+            return real(x, router_w, w1, w2, w3, cfg)
+
+        transformer.moe_ffn = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.moe_ffn = self.real
+
+    def summary(self):
+        """{kind: (assignments, dropped)} of the recorded calls."""
+        return {k: (self.assigned[k], int(self.dropped.get(k, 0)))
+                for k in self.assigned}
+
+
+def routing(torch, x, router_w, cfg):
+    """One ``moe_ffn`` call's routing: (experts (n, k), kept (n, k) bool,
+    gap (n,) f32: the k-th probability less the next).  An expert keeps
+    the first C rows that picked it, by row index, C = max(1,
+    int(capacity_factor * n * k / E)) over all n rows of the call."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import route
+    n = x.shape[0] * x.shape[1]
+    _, experts, probs = route(x.reshape(n, -1), router_w, cfg)
+    capacity = max(1, int(cfg.capacity_factor * n * cfg.experts_per_token
+                          / cfg.n_experts))
+    picked = F.one_hot(experts, cfg.n_experts).sum(1) > 0       # (n, E)
+    rank = picked.to(torch.int32).cumsum(0) - 1
+    kept = (picked & (rank < capacity)).gather(1, experts)
+    top = torch.topk(probs, cfg.experts_per_token + 1, dim=-1).values
+    return experts, kept, top[:, -2] - top[:, -1]
+
+
+def drive_moe(torch, model, params, scfg, prompts, decode_kernel,
+              prefill_kernel, record=False):
+    """Serves ``prompts`` through a fresh ``PagedEngine``; ``kv.check()``
+    after every tick; the kernels' counts set to 0 just before and read
+    just after.  Returns the engine, tokens, time in ``step()``, the
+    model calls by kind and the kernels' launches."""
+    from repro_torch.serve.engine import PagedEngine
+    engine = PagedEngine(model, params, scfg)
+    rids = [engine.submit(p) for p in prompts]
+    step_s = 0.0
+    decode_kernel.launches = 0                   # counts of this path
+    prefill_kernel.launches = 0
+    with MoeCalls(torch, record) as calls:
+        while engine.busy:
+            t0 = time.perf_counter()
+            engine.step()
+            step_s += time.perf_counter() - t0
+            engine.kv.check()
+        torch.cuda.synchronize()
+    launches = {"decode": decode_kernel.launches,
+                "prefill": prefill_kernel.launches}
+    return dict(engine=engine, tokens=[engine.results[r] for r in rids],
+                step_s=step_s, calls=calls, launches=launches)
+
+
+def moe_path_checks(phase, cfg, tokens, new_tokens, calls, launches):
+    """Every request's ``new_tokens`` in-vocab tokens; both paged
+    kernels launched, exactly once per layer of every call of their
+    kind."""
+    bad = [t for t in tokens if len(t) != new_tokens
+           or not all(0 <= x < cfg.vocab_size for x in t)]
+    if bad:
+        raise AssertionError(f"{phase}: {len(bad)} requests without "
+                             f"{new_tokens} in-vocab tokens")
+    for kind in ("decode", "prefill"):
+        n = calls.calls[kind] // cfg.n_layers     # model calls of the kind
+        if not (n > 0 and launches[kind] == n * cfg.n_layers
+                == calls.calls[kind]):
+            raise AssertionError(
+                f"{phase}: paged_{kind}_attention launched "
+                f"{launches[kind]} times over {calls.calls[kind]} MoE "
+                f"layers ({n} calls), not {cfg.n_layers} per call")
+
+
+def moe_phase(torch, decode_kernel, prefill_kernel):
+    """llama4-scout at its published widths and 12 of its 48 layers,
+    bf16, random weights: paged serving with sharing off (serve's
+    traffic) and with the default ServeConfig (share's), the two routes
+    at one shot, whole-batch; then the reduced MoE archs' f32 parity."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[moe] device memory at phase start: {free / 2**30:.2f} GiB free "
+        f"of {total / 2**30:.2f} GiB ({held:.2f} GiB allocated by this "
+        f"process); on {gpu_line()}")
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_LAYERS)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    # what a call must read: every weight but the embedding table, whose
+    # rows it gathers (the experts all of them: every block runs)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves) - \
+        params["embed"].numel() * params["embed"].element_size()
+    floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[moe] {MOE_ARCH}: {cfg.n_layers} of 48 layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, {cfg.n_experts} experts of d_ff {cfg.d_ff} top-"
+        f"{cfg.experts_per_token} (capacity factor {cfg.capacity_factor}), "
+        f"vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B params, "
+        f"{n_params * 2 / 1e9:.2f} GB in bf16, init "
+        f"{time.perf_counter() - t0:.1f} s; a call reads >= "
+        f"{nbytes / 1e9:.2f} GB of weights = {floor_ms:.2f} ms at 3.35 TB/s "
+        f"(<= {4 * 1e3 / floor_ms:.0f} tokens/s at batch 4)")
+
+    new_tokens = 32
+    rng = np.random.RandomState(7)               # the serve phase's traffic
+    prompt_lens = rng.randint(64, 301, size=8)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
+               for n in prompt_lens]
+    scfg = ServeConfig(max_batch=4, max_seq=int(prompt_lens.max())
+                       + new_tokens + 16, max_new_tokens=new_tokens,
+                       page_size=16, prefill_chunk_tokens=32,
+                       prefix_sharing=False, retain_prefixes=False)
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_moe(torch, model, params, scfg, prompts, decode_kernel,
+                    prefill_kernel)
+    eng = run["engine"]
+    n_out = sum(len(t) for t in run["tokens"])
+    tok_s = n_out / run["step_s"]
+    calls = {k: v // cfg.n_layers for k, v in run["calls"].calls.items()}
+    log(f"[moe] paged, sharing off, serve's 8 requests (prompts "
+        f"{prompt_lens.tolist()}, {new_tokens} new): {n_out} tokens in "
+        f"{run['step_s']:.2f} s of step() = {tok_s:.1f} tokens/s (host "
+        f"clock), {eng.ticks} ticks, {calls['decode']} decode steps and "
+        f"{calls['prefill']} prefill chunks; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on "
+        f"{gpu_line()}")
+    log(f"[moe] launches on this path: paged_decode_attention="
+        f"{run['launches']['decode']}, paged_prefill_attention="
+        f"{run['launches']['prefill']} ({cfg.n_layers} per call)")
+    moe_path_checks("moe", cfg, run["tokens"], new_tokens, run["calls"],
+                    run["launches"])
+    split = host_split(eng, run["step_s"])
+    log_host("moe", split)
+    launches = run["launches"]
+    del eng, run["engine"]
+    rec = drive_moe(torch, model, params, scfg, prompts, decode_kernel,
+                    prefill_kernel, record=True)
+    drops = rec["calls"].summary()
+    same = rec["tokens"] == run["tokens"]
+    del rec["engine"]
+    log(f"[moe] a recording pass of the same traffic (moe_ffn wrapped: "
+        f"each call's routing, read after the drain): "
+        + "; ".join(f"{k} calls {a} (row, layer) assignments, {d} dropped "
+                    f"by capacity ({100 * d / max(a, 1):.2f}%)"
+                    for k, (a, d) in drops.items())
+        + f"; tokens {'identical to' if same else 'NOT identical to'} the "
+        f"timed pass's")
+    if not same:
+        raise AssertionError("moe: the same traffic served twice gave other "
+                             "tokens (rows without a request read the null "
+                             "page: its writes must settle alike)")
+
+    waves = share_traffic(np.random.RandomState(29), cfg.vocab_size)
+    decode_kernel.launches = prefill_kernel.launches = 0
+    with MoeCalls(torch) as share_calls:
+        share = serve_waves(torch, cfg, params, waves, new_tokens)
+    share_launches = {"decode": decode_kernel.launches,
+                      "prefill": prefill_kernel.launches}
+    seng = share["engine"]
+    s_out = sum(len(t) for w in share["tokens"] for t in w)
+    log(f"[moe] default ServeConfig (sharing and retention on), share's "
+        f"traffic (a 200-token system prompt behind 8 tails, then 4 "
+        f"repeats): {s_out} tokens in {share['step_s']:.2f} s of step() = "
+        f"{s_out / share['step_s']:.1f} tokens/s, {seng.ticks} ticks; "
+        f"shared {seng.shared_tokens} prompt tokens, {seng.kv.cow_copies} "
+        f"COW copies, {seng.kv.retained_hits} retained adoptions; "
+        f"launches paged_decode_attention={share_launches['decode']}, "
+        f"paged_prefill_attention={share_launches['prefill']}; kv.check() "
+        f"and the prefix index clean after every tick; no shared = alone "
+        f"logit bound (MoE capacity counts the batch's rows)")
+    moe_path_checks("moe share", cfg, sum(share["tokens"], []), new_tokens,
+                    share_calls, share_launches)
+    share_split = host_split(seng, share["step_s"])
+    log_host("moe share", share_split)
+    share_tok_s = s_out / share["step_s"]
+    del seng, share
+
+    shot = moe_routes_check(torch, cfg, params)
+    flips = shot["flips"]
+    wb = moe_whole_batch(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    moe_parity(torch)
+    total_drop = sum(d for _, d in drops.values()) / max(
+        1, sum(a for a, _ in drops.values()))
+    return dict(tok_s=tok_s, share_tok_s=share_tok_s, drops=drops,
+                drop_share=total_drop, flips=flips, launches=launches,
+                share_launches=share_launches, wb=wb, host=split,
+                share_host=share_split, free_gib=free / 2**30,
+                floor_ms=floor_ms, device_ms=shot["device_ms"])
+
+
+def moe_routes_check(torch, cfg, params):
+    """The kernel route against the plain route at one shot with no row
+    that carries no request: one prefill chunk granting all 4 slots 32
+    rows, then one decode step with all 4 active, each route run twice
+    from fresh caches.  Each layer's top-k experts and kept rows are
+    recorded; the (row, layer) assignments that differ between the
+    routes are counted and printed (by layer, with the router's top-k /
+    next probability gap of the first layer's flipped rows), as are the
+    differences between a route and its own second run.  Where no
+    assignment differs in a call (and, for the decode step, in the
+    prefill before it), its logits are held within LOGIT_ULPS bf16 ulps;
+    a flipped near-tie is printed, not failed.  The second kernel run is
+    traced (``torch.profiler``) for the calls' device time.  Returns the
+    flip counts and the device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import get_model
+    B, T, page, nb = 4, 32, 16, 4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device="cuda").to(torch.int32)
+    grants = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    out, routes, step_ms, dev_ms = {}, {}, {}, {}
+    for name, plain in (("kernel", False), ("plain", True),
+                        ("kernel again", False), ("plain again", True)):
+        m = get_model(cfg, plain_attention=plain)
+        cache = m.init_paged_cache(B, nb, page, B * nb + 1, "cuda")
+        cache["table"] = torch.arange(1, 1 + B * nb, dtype=torch.int32,
+                                      device="cuda").reshape(B, nb)
+        calls = MoeCalls(torch, record=True)
+        logits = {}
+        for kind in ("prefill", "decode"):
+            traced = name == "kernel again"
+            prof = profile(activities=[ProfilerActivity.CUDA]) if traced \
+                else contextlib.nullcontext()
+            with torch.no_grad(), calls, prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if kind == "prefill":
+                    lg, cache = m.prefill_step_paged(params, toks, cache,
+                                                     grants)
+                else:
+                    lg, cache = m.decode_step_paged(params, nxt, cache)
+                torch.cuda.synchronize()
+                step_ms[f"{name} {kind}"] = (time.perf_counter() - t0) * 1e3
+            if traced:
+                dev_ms[kind] = sum(
+                    e.device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    ) / 1e3
+            if name == "kernel" and kind == "prefill":
+                nxt = lg.argmax(-1).to(torch.int32)[:, None]
+            logits[kind] = lg.float()
+        out[name], routes[name] = logits, calls.routes
+    L = cfg.n_layers
+
+    def differ(a, b, kind):
+        """Per layer: rows whose experts differ, rows whose keep differs."""
+        i = 0 if kind == "prefill" else 1
+        res = []
+        for (ea, ka, _), (eb, kb, _) in zip(a[i * L:(i + 1) * L],
+                                            b[i * L:(i + 1) * L]):
+            e = (ea != eb).any(-1)
+            res.append((int(e.sum()), int(((ka != kb).any(-1) & ~e).sum())))
+        return res
+
+    flips = {}
+    for kind in ("prefill", "decode"):
+        per = differ(routes["kernel"], routes["plain"], kind)
+        flips[kind] = sum(e + k for e, k in per)
+        first = next((li for li, (e, _) in enumerate(per) if e), None)
+        gaps = ""
+        if first is not None:
+            i = first + (0 if kind == "prefill" else L)
+            (ek, _, _), (ep, _, gp) = routes["kernel"][i], routes["plain"][i]
+            moved = (ek != ep).any(-1)
+            k = cfg.experts_per_token
+            gaps = (f"; layer {first}'s flipped rows' top-{k} / next "
+                    f"probability gap on the plain route: max "
+                    f"{gp[moved].max().item():.3e}, median "
+                    f"{gp[moved].median().item():.3e} (all rows' median "
+                    f"{gp.median().item():.3e})")
+        rows = (B * T if kind == "prefill" else B) * L
+        log(f"[moe] kernel vs plain route, {kind}: (row, layer) assignments "
+            f"that differ {flips[kind]} of {rows}; by layer (experts, keep "
+            f"only) {per}{gaps}")
+    for name in ("kernel", "plain"):
+        again = f"{name} again"
+        same = {k: torch.equal(out[name][k], out[again][k])
+                for k in ("prefill", "decode")}
+        moved = {k: sum(e + c for e, c in differ(routes[name],
+                                                 routes[again], k))
+                 for k in ("prefill", "decode")}
+        log(f"[moe] the {name} route run twice from fresh caches: logits "
+            f"bit-identical prefill {same['prefill']}, decode "
+            f"{same['decode']}; assignments that differ prefill "
+            f"{moved['prefill']}, decode {moved['decode']} (reported)")
+    log(f"[moe] one call at one shot ({L} layers, B=4, host clock with a "
+        f"sync either side): " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                          step_ms.items())
+        + f" (the second kernel run under torch.profiler); device time of "
+        f"its CUDA kernels: prefill {dev_ms['prefill']:.2f} ms, decode "
+        f"{dev_ms['decode']:.2f} ms; on {gpu_line()}")
+    for kind in ("prefill", "decode"):
+        if flips["prefill"] == 0 and flips[kind] == 0:
+            ulp_check("moe", f"{kind} logits, kernel vs plain route",
+                      out["kernel"][kind], out["plain"][kind])
+        else:
+            err = (out["kernel"][kind] - out["plain"][kind]).abs().max()
+            log(f"[moe] {kind} logits, kernel vs plain route: routing "
+                f"flipped upstream, max|diff|={err.item():.4e}: printed, "
+                f"not held")
+    return dict(flips=flips, device_ms=dev_ms, step_ms=step_ms)
+
+
+def moe_whole_batch(torch, cfg, params):
+    """``ServingEngine`` on the moe phase's weights: 4 prompts of 64-500
+    tokens (the whole-batch phase's), 32 new.  Flash must launch once per
+    layer for the prefill and dense decode once per layer per step; the
+    fused and legacy loops give identical tokens."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import decode
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    rng = np.random.RandomState(17)
+    prompt_lens = rng.randint(64, 501, size=4)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
+               for n in prompt_lens]
+    new_tokens = 32
+    engine = ServingEngine(get_model(cfg), params,
+                           ServeConfig(max_new_tokens=new_tokens))
+    decode.KERNEL.launches = 0                   # counts of this path
+    flash.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    fused = engine.generate_batch(prompts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"decode_attention": decode.KERNEL.launches,
+                "flash_attention": flash.KERNEL.launches}
+    legacy = engine.generate_batch(prompts, fused=False)
+    torch.cuda.synchronize()
+    n_out = sum(len(o) for o in fused)
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (new_tokens - 1)}
+    log(f"[moe] whole-batch, prompts {prompt_lens.tolist()}, {new_tokens} "
+        f"new tokens each: fused {n_out} tokens in {dt:.2f} s = "
+        f"{n_out / dt:.1f} tokens/s (host clock, prefill included); "
+        f"launches flash_attention={launches['flash_attention']}, "
+        f"decode_attention={launches['decode_attention']} (want {want}); "
+        f"fused and legacy loop "
+        f"{'token-identical' if fused == legacy else 'DIFFER'}")
+    if not all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size
+                                            for t in o) for o in fused):
+        raise AssertionError(f"moe whole-batch: a request did not get "
+                             f"{new_tokens} in-vocab tokens")
+    if launches != want:
+        raise AssertionError(f"moe whole-batch: launches {launches}, not "
+                             f"one per layer per call {want}")
+    if fused != legacy:
+        raise AssertionError("moe whole-batch: fused and legacy loop "
+                             "disagree")
+    return dict(tok_s=n_out / dt, launches=launches)
+
+
+def moe_parity(torch):
+    """llama4-scout and grok-1 reduced in f32 (grok at ep_shards = 2E,
+    the full grok block layout), the paged engine on the kernel route
+    against the plain route.  Hard: identical greedy tokens on traffic
+    with no row that carries no request (4 requests of 64 tokens, chunks
+    of 32, max_batch 4, sharing off, no eos).  Reported: on ragged
+    traffic (5 prompts of 5-40 tokens, staggered slots) how many
+    requests differ: an idle prefill slot is exact zeros on the kernels
+    and a uniform softmax in the plain version, and its rows take
+    capacity (the reference's designed divergence)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine, ServeConfig
+    for arch, change in MOE_REDUCED_PARITY:
+        cfg = dataclasses.replace(configs.get(arch).reduced(),
+                                  dtype="float32", **change)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        params = get_model(cfg).init(gen, "cuda")
+        rng = np.random.RandomState(3)
+        even = [rng.randint(0, cfg.vocab_size, size=64).astype(np.int32)
+                for _ in range(4)]
+        ragged = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+                  for n in rng.randint(5, 41, size=5)]
+        runs = {}
+        for traffic, prompts, scfg in (
+                ("even", even, ServeConfig(
+                    max_batch=4, max_seq=96, max_new_tokens=16,
+                    page_size=16, prefill_chunk_tokens=32,
+                    prefix_sharing=False, retain_prefixes=False)),
+                ("ragged", ragged, ServeConfig(
+                    max_batch=4, max_seq=48, max_new_tokens=6, page_size=8,
+                    prefill_chunk=3))):
+            for plain in (False, True):
+                engine = PagedEngine(get_model(cfg, plain_attention=plain),
+                                     params, scfg)
+                rids = [engine.submit(p) for p in prompts]
+                res = engine.run()
+                runs[traffic, plain] = [res[r] for r in rids]
+        same = {t: sum(a == b for a, b in zip(runs[t, False], runs[t, True]))
+                for t in ("even", "ragged")}
+        log(f"[moe parity] {cfg.name} f32 (G {cfg.ep_shards}, E "
+            f"{cfg.n_experts}, top-{cfg.experts_per_token}, "
+            f"{cfg.ffn_kind}), kernel vs plain route: no empty row (4 x 64 "
+            f"tokens) {same['even']}/4 requests token-identical; ragged "
+            f"traffic {same['ragged']}/5 identical (reported: the designed "
+            f"divergence)")
+        if same["even"] != 4:
+            raise AssertionError(f"moe parity: {cfg.name} kernel and plain "
+                                 f"route disagree with no empty row")
+
+
+# ---------------------------------------------------------------------------
 # 5./6. BabelStream and the instruction roofline
 # ---------------------------------------------------------------------------
 
@@ -3355,6 +3868,13 @@ def main() -> int:
     parity_phase(torch)
     whole_batch_parity(torch)
     ssm = ssm_phase(torch)
+    # the engines' wrapped methods close over their engines (reference
+    # cycles): collect them, and the weights they hold, before the moe
+    # phase's 54 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch, paged.KERNEL, prefill_paged.KERNEL)
+    gc.collect()
     torch.cuda.empty_cache()
     res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
     irm_phase(torch, res, clocks, gpu, listing, counter,
@@ -3377,7 +3897,8 @@ def main() -> int:
             "max_abs_err": errs[kind], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "device_ms": t["device_ms"]})
+            "device_ms": t["device_ms"],
+            "moe_launches": moe["launches"][kind]})
     for name, (src, rep) in DENSE_KERNELS.items():
         t = d_timing[name]
         cms, _ = bound_ms(t["bytes"], t["flops"], BF16_FLOPS_PER_S, ceiling)
@@ -3388,7 +3909,8 @@ def main() -> int:
             "launches": wb["launches"][name], "max_abs_err": d_errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "device_ms": t["device_ms"]})
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "moe_launches": moe["wb"]["launches"][name]})
     kernels.append({
         "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES, "launches": ssm["launches"],
@@ -3439,6 +3961,18 @@ def main() -> int:
         f"{recover['tok_s']:.1f} against share's {share['tok_s']:.1f}; "
         f"launches decode {recover['launches']['decode']}, prefill "
         f"{recover['launches']['prefill']}; on {gpu}")
+    log(f"[summary] moe ({MOE_ARCH}, {MOE_LAYERS} of 48 layers, bf16): "
+        f"{moe['free_gib']:.2f} GiB free at phase start; paged sharing off "
+        f"{moe['tok_s']:.1f} tokens/s (host {100 * moe['host']['share']:.1f}"
+        f"% of step()), default ServeConfig {moe['share_tok_s']:.1f}, "
+        f"whole-batch {moe['wb']['tok_s']:.1f}; weight-read floor "
+        f"{moe['floor_ms']:.2f} ms a call; capacity dropped "
+        f"{100 * moe['drop_share']:.2f}% of routed assignments ("
+        + ", ".join(f"{k} {d}/{a}" for k, (a, d) in moe["drops"].items())
+        + f"); kernel vs plain route flips prefill {moe['flips']['prefill']}"
+        f", decode {moe['flips']['decode']}; launches decode "
+        f"{moe['launches']['decode']}, prefill {moe['launches']['prefill']}"
+        f"; on {gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,17 @@
-"""The dense decoder-only LM and the pure-SSM LM (Mamba1, falcon-mamba):
-schema, the whole-batch forward (``lm_forward``: train / prefill /
-hidden) and decode step (``lm_decode``) over a (L, B, T, KV, hd) cache
-or the SSM family's per-layer (conv, ssm) state, the two paged attention
-paths (decode and ragged prefill), the dense FFN and the paged forward
-passes.
+"""The decoder-only LM (dense or MoE FFN) and the pure-SSM LM (Mamba1,
+falcon-mamba): schema, the whole-batch forward (``lm_forward``: train /
+prefill / hidden) and decode step (``lm_decode``) over a (L, B, T, KV,
+hd) cache or the SSM family's per-layer (conv, ssm) state, the two paged
+attention paths (decode and ragged prefill), the FFN (dense, or routed
+through ``models/moe.py``) and the paged forward passes.
 
-Port of the dense and Mamba1 subset of ``repro/models/transformer.py``.  The
-``lax.scan`` over stacked layers becomes a Python loop over the layer
-index; caches and pools are updated IN PLACE where the JAX functions
-return updated copies, so the returned cache holds the same tensors it
-was given.  The remat grouping of ``lm_forward`` does nothing in a
-forward pass and is dropped, as are the sharding constraints, which have
-no counterpart on one card.
+Port of the dense, MoE and Mamba1 subset of
+``repro/models/transformer.py``.  The ``lax.scan`` over stacked layers
+becomes a Python loop over the layer index; caches and pools are
+updated IN PLACE where the JAX functions return updated copies, so the
+returned cache holds the same tensors it was given.  The remat grouping
+of ``lm_forward`` does nothing in a forward pass and is dropped, as are
+the sharding constraints, which have no counterpart on one card.
 
 Attention: ``plain=False`` (the default, and the serving path) calls the
 kernel wrappers, which launch the CUDA kernels for CUDA tensors and run
@@ -44,13 +44,16 @@ from repro_torch.models.attention import attention, direct_attention
 from repro_torch.models.kv_quant import quantize_rows
 from repro_torch.models.layers import (
     apply_rope, dense, embed, rmsnorm, rope_angles, swiglu, unembed)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import ParamDecl, map_schema, stacked
 
 
 def check_supported(cfg: ArchConfig, paged: bool = False) -> None:
     """Refuses what the port does not run: Mamba2, the hybrid and
     encoder-decoder families and the features below (not ported yet), and
-    an SSM arch on the paged path, which the JAX package refuses too."""
+    an SSM arch on the paged path, which the JAX package refuses too.
+    MoE runs, with swiglu or gelu experts; a dense FFN must be swiglu
+    (the dense gelu MLP is not ported yet)."""
     if cfg.mamba_version == 2 or cfg.family == "hybrid":
         raise NotImplementedError(f"Mamba2 and the hybrid family are not "
                                   f"ported yet ({cfg.name})")
@@ -64,10 +67,10 @@ def check_supported(cfg: ArchConfig, paged: bool = False) -> None:
             f"SSM archs: a slot that joins would inherit the previous "
             f"occupant's state.  Serve {cfg.name} whole-batch "
             f"(ServingEngine, launch.serve --whole-batch)")
-    for what, unsupported in (("MoE", cfg.n_experts),
-                              ("M-RoPE", cfg.mrope_sections),
+    for what, unsupported in (("M-RoPE", cfg.mrope_sections),
                               ("layernorm", cfg.norm_kind != "rmsnorm"),
-                              ("the gelu FFN", cfg.ffn_kind != "swiglu"),
+                              ("the dense gelu FFN", cfg.ffn_kind != "swiglu"
+                               and not cfg.n_experts),
                               ("stub-frontend inputs", not cfg.embed_inputs)):
         if unsupported:
             raise NotImplementedError(f"{what} is not ported yet "
@@ -104,6 +107,19 @@ def _ffn_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
             "w_down": ParamDecl((ff, d))}
 
 
+def _moe_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
+    """The router and the (G, d, ffp) expert blocks (``models/moe.py``);
+    gelu experts have no ``w3``."""
+    d, ff, E, G = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.ep_shards
+    ffp = E * ff // G
+    decls = {"router": ParamDecl((d, E)),
+             "w1": ParamDecl((G, d, ffp)),
+             "w2": ParamDecl((G, ffp, d))}
+    if cfg.ffn_kind == "swiglu":
+        decls["w3"] = ParamDecl((G, d, ffp))
+    return decls
+
+
 def _mamba_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
     """The Mamba1 mixer's parameters."""
     d = cfg.d_model
@@ -124,9 +140,9 @@ def _mamba_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
 
 
 def schema(cfg: ArchConfig) -> Dict[str, Any]:
-    """The parameter tree of a dense decoder-only LM or a Mamba1 LM, leaf
-    for leaf the JAX package's ``schema`` (stacked (L, ...) block
-    parameters)."""
+    """The parameter tree of a decoder-only LM (dense or MoE FFN) or a
+    Mamba1 LM, leaf for leaf the JAX package's ``schema`` (stacked (L,
+    ...) block parameters)."""
     check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     sch: Dict[str, Any] = {"embed": ParamDecl((V, d), "embed")}
@@ -137,7 +153,11 @@ def schema(cfg: ArchConfig) -> Dict[str, Any]:
         block = {"ln1": _norm_decl(d), "mixer": _mamba_decls(cfg)}
     else:
         block = {"ln1": _norm_decl(d), "ln2": _norm_decl(d),
-                 "attn": _attn_decls(cfg), "ffn": _ffn_decls(cfg)}
+                 "attn": _attn_decls(cfg)}
+        if cfg.n_experts:
+            block["moe"] = _moe_decls(cfg)
+        else:
+            block["ffn"] = _ffn_decls(cfg)
     sch["blocks"] = map_schema(lambda x: stacked(x, cfg.n_layers), block)
     return sch
 
@@ -218,10 +238,33 @@ def _qkv(hn, p, cfg: ArchConfig, rope):
     return q, k, v
 
 
-def _write_rows(cache, layer: int, phys, off, k, v) -> None:
+def _last_writer(phys, off, page: int):
+    """For each of n scattered rows, the index of the last row with the
+    same (page, row) address.  Rows that carry no request all land on the
+    null page 0 and collide there; a CUDA ``index_put_`` lands one of the
+    colliding rows unspecified, so each row writes the last colliding
+    row's values instead: the null page then holds what a sequential
+    scatter leaves (the CPU's, and the JAX package's on the CPU), the same
+    in every run.  It matters for MoE: rows without a request read the
+    null page, route, and take capacity from real rows."""
+    key = phys * page + off
+    n = key.shape[0]
+    same = key[:, None] == key[None, :]
+    order = torch.arange(1, n + 1, device=key.device)
+    return torch.argmax(same * order[None, :], dim=1)
+
+
+def _write_rows(cache, layer: int, phys, off, k, v,
+                settle: bool = False) -> None:
     """Scatter K/V rows (n, KV, hd) to (layer, phys[i], off[i]) in place;
     int8 pools store the quantized rows and their scales at the same
-    address."""
+    address.  With ``settle`` (MoE archs, where the null page reaches
+    real rows) colliding rows all write the last one's values
+    (``_last_writer``); a dense arch's real rows never read the null
+    page."""
+    if settle:
+        last = _last_writer(phys, off, cache["k"].shape[2])
+        k, v = k[last], v[last]
     if "k_scale" in cache:
         kq, ks = quantize_rows(k)
         vq, vs = quantize_rows(v)
@@ -289,7 +332,8 @@ def attn_decode_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
     rows = torch.arange(B, device=h.device)
     phys = torch.where(active, table[rows, blk], 0).long()
     off = (lengths % page).long()
-    _write_rows(cache, layer, phys, off, k[:, 0], v[:, 0])
+    _write_rows(cache, layer, phys, off, k[:, 0], v[:, 0],
+                settle=bool(cfg.n_experts))
     kv_len = lengths + 1
     attend = paged_decode_attention_ref if plain else paged_decode_attention
     kw = {} if plain else {"pages_per_step": cfg.pages_per_step}
@@ -320,7 +364,8 @@ def attn_prefill_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
     off = (tok_pos % page).reshape(B * T)
     KV, hd = k.shape[2], k.shape[3]
     _write_rows(cache, layer, phys.long(), off.long(),
-                k.reshape(B * T, KV, hd), v.reshape(B * T, KV, hd))
+                k.reshape(B * T, KV, hd), v.reshape(B * T, KV, hd),
+                settle=bool(cfg.n_experts))
     attend = paged_prefill_attention_ref if plain else paged_prefill_attention
     kw = {} if plain else {"pages_per_step": cfg.pages_per_step}
     out = attend(q, cache["k"], cache["v"], table, base, new_len, layer,
@@ -335,23 +380,33 @@ def ffn_apply(h, p, cfg: ArchConfig):
     return swiglu(hn, f["w_gate"], f["w_up"], f["w_down"])
 
 
+def moe_apply(h, p, cfg: ArchConfig):
+    """The routed FFN of an MoE block: (out, aux)."""
+    hn = rmsnorm(h, p["ln2"]["scale"], cfg.norm_eps)
+    m = p["moe"]
+    return moe_ffn(hn, m["router"], m["w1"], m["w2"], m.get("w3"), cfg)
+
+
 def decode_ffn(h, p, cfg: ArchConfig):
-    """The post-attention residual of a decode or prefill step (dense FFN;
-    MoE is not ported yet)."""
+    """The post-attention residual of a decode or prefill step: the
+    routed MoE FFN (aux dropped: no load-balance loss at inference) or
+    the dense FFN.  Shared by the dense decode, paged decode and paged
+    prefill passes, as in the JAX package."""
     if cfg.n_experts:
-        raise NotImplementedError("MoE decode FFN is not ported yet")
+        return h + moe_apply(h, p, cfg)[0]
     return h + ffn_apply(h, p, cfg)
 
 
 def dense_block(h, p, cfg: ArchConfig, rope, plain: bool = False):
-    """One dense block over the whole sequence.  Returns (h, aux, (k, v));
-    aux is the MoE load-balance loss, 0 for the dense FFN (MoE is refused
-    by ``check_supported``)."""
+    """One attention block over the whole sequence.  Returns (h, aux, (k,
+    v)); aux is the MoE load-balance loss, 0 for the dense FFN."""
     out, kv = attn_apply(h, p, cfg, rope, causal=cfg.causal, plain=plain)
     h = h + out
+    if cfg.n_experts:
+        out, aux = moe_apply(h, p, cfg)
+        return h + out, aux, kv
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    h = h + ffn_apply(h, p, cfg)
-    return h, aux, kv
+    return h + ffn_apply(h, p, cfg), aux, kv
 
 
 def mamba_block_apply(h, p, cfg: ArchConfig, state=None,

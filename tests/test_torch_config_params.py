@@ -95,11 +95,24 @@ def test_registries_hold_the_same_archs():
 
 @pytest.mark.parametrize("arch", ALL_ARCHS[len(ARCHS):])
 def test_unported_families_refused(arch):
-    """The mirrored configs of the families the port does not run (MoE,
-    hybrid Mamba2, encoder-decoder, VLM) are refused, not half-served."""
+    """The mirrored configs of the families the port does not run (hybrid
+    Mamba2, encoder-decoder, VLM) are refused, not half-served.  The MoE
+    archs run; what they would still need beyond their experts, a dense
+    FFN of their ``ffn_kind`` in place of the MoE (for grok-1 the gelu
+    MLP, not ported), is refused for grok-1 and taken for llama4-scout."""
     from repro_torch.models.transformer import check_supported
+    cfg = tconfigs.get(arch)
+    if cfg.n_experts:
+        check_supported(cfg)
+        dense = dataclasses.replace(cfg, n_experts=0, family="dense")
+        if cfg.ffn_kind == "gelu":
+            with pytest.raises(NotImplementedError, match="dense gelu"):
+                check_supported(dense)
+        else:
+            check_supported(dense)
+        return
     with pytest.raises(NotImplementedError):
-        check_supported(tconfigs.get(arch))
+        check_supported(cfg)
 
 
 def test_bridge_rejects_wrong_shape():

@@ -435,7 +435,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (B, T, H, KV, D, page, NB, L, dtype, int8 pools): GQA, MQA, G=7 with
 # T*G = 140 rows (three prefill row tiles), granite's G=4 / D=128, MHA on
 # single-row pages, granite-20b's G=48 over one KV head (three decode row
-# tiles) and phi4-mini's G=3 / D=128
+# tiles), phi4-mini's G=3 / D=128, and the MoE archs' G=5 (llama4-scout,
+# 40 over 8 heads) and G=6 (grok-1, 48 over 8) at D=128, T*G = 15 and 18
+# rows against the prefill's 16-row tiles
 CASES = [
     (2, 6, 4, 2, 16, 8, 3, 2, torch.float32, False),
     (3, 5, 4, 1, 32, 4, 5, 1, torch.float32, True),
@@ -444,6 +446,8 @@ CASES = [
     (2, 4, 4, 4, 16, 1, 9, 1, torch.float32, False),
     (2, 3, 48, 1, 128, 16, 2, 1, torch.bfloat16, False),
     (2, 3, 24, 8, 128, 16, 2, 1, torch.bfloat16, True),
+    (2, 3, 40, 8, 128, 16, 2, 1, torch.bfloat16, False),
+    (2, 3, 48, 8, 128, 16, 2, 1, torch.bfloat16, True),
 ]
 
 
@@ -901,6 +905,76 @@ def test_emulated_attention_route_takes_what_the_reference_serves(
         with pytest.raises(AssertionError):
             attention_mod.attention(q, k, v, True, 32, 32, plain=plain)
     assert flash.KERNEL.launches == n0 + 2
+
+
+def test_emulated_moe_prefill_takes_the_pallas_routes_drops(
+        cuda_path_on_cpu):
+    """The MoE's capacity counts every row of a call, idle slots' among
+    them, and an idle prefill slot's attention is exact zeros on the
+    kernels (Pallas and CUDA) but a uniform softmax over its table's
+    pages in both references.  llama4-scout reduced in f32 (E 4, top-1,
+    capacity int(1.25 * 24 / 4) = 7 of 24 rows): one ``lm_prefill_paged``
+    over pools holding earlier rows, slot 0 idle and first by index,
+    slot 1 granted 8 rows from 0, slot 2 3 rows from 5 (5 pad rows).
+    The port's kernel route (the emulated CUDA kernels) is within 1e-4 of
+    the JAX package's ``attention_impl="pallas"`` route (interpret mode)
+    on the live slots' logits and pools, and both kernel routes differ
+    from both references (the JAX ``"reference"`` route and the port's
+    plain route, within 1e-4 of each other) on a real slot by far more:
+    the idle rows route differently and take other real rows'
+    capacity."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.models import get_model as jget_model
+    from repro_torch import configs as tconfigs
+    from repro_torch.models.model import get_model as tget_model
+    from repro_torch.models.params import params_from_jax
+
+    arch = "llama4-scout-17b-a16e"
+    jcfg = dataclasses.replace(jconfigs.get(arch).reduced(), dtype="float32")
+    tcfg = dataclasses.replace(tconfigs.get(arch).reduced(), dtype="float32")
+    jp = jget_model(jcfg).init(jax.random.key(1))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    B, T, page, NB = 3, 8, 4, 8
+    P = B * NB + 1
+    rng = np.random.RandomState(0)
+    shape = (tcfg.n_layers, P, page, tcfg.n_kv_heads, tcfg.head_dim)
+    pools = {n: rng.randn(*shape).astype(np.float32) for n in ("k", "v")}
+    table = np.arange(B * NB, dtype=np.int32)[::-1].reshape(B, NB) + 1
+    length = np.array([0, 0, 5], np.int32)
+    toks = rng.randint(0, tcfg.vocab_size, (B, T)).astype(np.int32)
+    grants = np.array([0, 8, 3], np.int32)
+    live = grants > 0
+    out = {}
+    for impl in ("pallas", "reference"):
+        jm = jget_model(dataclasses.replace(jcfg, attention_impl=impl))
+        jc = dict(jm.init_paged_cache(B, NB, page, P),
+                  table=jnp.asarray(table), length=jnp.asarray(length),
+                  **{n: jnp.asarray(a) for n, a in pools.items()})
+        logits, jc = jm.prefill_step_paged(jp, jnp.asarray(toks), jc,
+                                           jnp.asarray(grants))
+        out["jax " + impl] = (np.asarray(logits)[live],
+                              np.asarray(jc["k"])[:, 1:])
+    n0 = prefill_paged.KERNEL.launches
+    for name, plain in (("port kernel", False), ("port plain", True)):
+        tc = tget_model(tcfg, plain).init_paged_cache(B, NB, page, P, "cpu")
+        tc.update(table=torch.from_numpy(table.copy()),
+                  length=torch.from_numpy(length.copy()),
+                  **{n: torch.from_numpy(a.copy()) for n, a in pools.items()})
+        logits, tc = tget_model(tcfg, plain).prefill_step_paged(
+            tp, torch.from_numpy(toks), tc, torch.from_numpy(grants))
+        out[name] = (logits.numpy()[live], tc["k"][:, 1:].numpy())
+    assert prefill_paged.KERNEL.launches == n0 + tcfg.n_layers
+    for got, want in (("port kernel", "jax pallas"),
+                      ("port plain", "jax reference")):
+        for a, b in zip(out[got], out[want]):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+    gap = np.abs(out["jax pallas"][0] - out["jax reference"][0]).max(-1)
+    assert gap.max() > 0.05, gap
 
 
 # (rows, cols): one full block of add and triad; a ragged 3-block array

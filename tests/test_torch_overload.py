@@ -81,11 +81,13 @@ def _models(kv_dtype="bf16"):
     return _MODELS[kv_dtype]
 
 
-def _engines(kv_dtype="bf16", **serve):
-    """A JAX and a port engine on the same weights and ServeConfig.  Each
-    records its plans (the objects: the dropped-grant fault rewrites them
-    after planning) and the port the rows of each dirty-row sync."""
-    jm, jp, tm, tp = _models(kv_dtype)
+def _engines(kv_dtype="bf16", models=None, **serve):
+    """A JAX and a port engine on the same weights (``models``: another
+    arch's (jm, jp, tm, tp); by default ``_models(kv_dtype)``) and
+    ServeConfig.  Each records its plans (the objects: the dropped-grant
+    fault rewrites them after planning) and the port the rows of each
+    dirty-row sync."""
+    jm, jp, tm, tp = models or _models(kv_dtype)
     je = JPagedEngine(jm, jp, JServeConfig(**serve))
     te = TPagedEngine(tm, tp, TServeConfig(**serve))
     for e in (je, te):

@@ -276,12 +276,14 @@ def test_spec_composes_with_int8_pages():
 # the engine tick for tick against the JAX speculative engine
 # ---------------------------------------------------------------------------
 
-def _spec_engines(**serve):
+def _spec_engines(models=None, drafts=None, **serve):
     """A JAX and a port speculative engine on the same weights, drafts
-    and ServeConfig, each recording its grant plans; the port also the
-    dirty-row count of each table sync of the tick (``sync_log``)."""
-    jm, jp, tm, tp = _models()
-    (jdm, jdp), (tdm, tdp) = _drafts()
+    and ServeConfig (``models``, ``drafts``: another arch's, as
+    ``_models`` and ``_drafts`` give them; by default those), each
+    recording its grant plans; the port also the dirty-row count of each
+    table sync of the tick (``sync_log``)."""
+    jm, jp, tm, tp = models or _models()
+    (jdm, jdp), (tdm, tdp) = drafts or _drafts()
     je = JPagedEngine(jm, jp, JServeConfig(**serve), draft_model=jdm,
                       draft_params=jdp)
     te = TPagedEngine(tm, tp, TServeConfig(**serve), draft_model=tdm,
@@ -325,15 +327,16 @@ def _same_spec_state(je, te, padded_upload):
     assert padded_upload == je.upload_trace
 
 
-def _lockstep(prompts, budgets=None, deadlines=None, faults=(), **serve):
+def _lockstep(prompts, budgets=None, deadlines=None, faults=(),
+              models=None, drafts=None, **serve):
     """Submits ``prompts`` (with ``budgets`` and, by index, ``deadlines``)
-    to both engines, arms ``faults`` ((tick, kind, slot) each) on both,
-    and steps them in lockstep to the end, holding the state equal after
-    every tick; ``kv.check()``, ``dkv.check()``, the prefix index and
-    history == length on both."""
+    to both engines (``_spec_engines``), arms ``faults`` ((tick, kind,
+    slot) each) on both, and steps them in lockstep to the end, holding
+    the state equal after every tick; ``kv.check()``, ``dkv.check()``,
+    the prefix index and history == length on both."""
     from repro.serve import faults as jfaults
     from repro_torch.serve import faults as tfaults
-    je, te = _spec_engines(**serve)
+    je, te = _spec_engines(models, drafts, **serve)
     if faults:
         for e, mod in ((je, jfaults), (te, tfaults)):
             e.install_faults(mod.FaultPlan([mod.FaultEvent(t, k, slot=i)
