@@ -208,6 +208,43 @@ Phases, each failing loudly (non-zero exit, no result line):
                f32, kernel against plain route: greedy tokens identical
                with no row that carries no request (4 x 64 tokens);
                on ragged traffic the count that differ is reported.
+     vlm     — qwen2-vl-72b at its published widths (d_model 8192, 64/8
+               heads of 128, d_ff 29568, vocab 152064, M-RoPE sections
+               (16, 24, 24), qkv bias) and 24 of its 80 layers (47.1 GB
+               of bf16), random weights from a seeded generator.  Serve's
+               8 requests as text prompts through ``PagedEngine`` (sharing
+               off; ``kv.check()`` every tick; both paged kernels once
+               per layer of their calls, at G = 8), the serve phase's
+               one-shot prefill chunk and decode step within 8 bf16 ulps
+               of the plain route; then one whole-batch ``Model.prefill``
+               of embeddings at B = 2 with Qwen2-VL's position layout (a
+               12 x 16 patch grid at t 0, h the row, w the column, then
+               64 text tokens on all three streams from 16) and 32 greedy
+               decode steps: flash once per layer, dense decode once per
+               layer a step, the prefill's and the first step's logits
+               within 8 bf16 ulps of the plain route, and the same
+               embeddings with three equal ``arange`` streams moving the
+               logits past that bound.  Prints tokens/s and the host
+               split.
+     audio   — whisper-large-v3 at full width and depth (32 + 32
+               layers, 1.53e9 parameters, 3.07 GB of bf16), the reference
+               dispatch's chunks set to 500 (1024 divides no 1500-row
+               encoder; no width moves): 4 requests of 1500 seeded frames
+               and 4 prompt tokens, ``Model.prefill`` into a cache of 1500
+               rows (the cross cache unpadded), 32 greedy tokens through
+               ``decode_many``.  Hard checks: in-vocab tokens; flash once
+               per encoder layer and twice per decoder layer (its
+               self-attention and the cross-attention over the frames),
+               dense decode once per decoder layer a step; the prefill's
+               and the first step's logits within 8 bf16 ulps of the
+               plain route; at 4 + 4 layers in f32, identical greedy
+               tokens on both routes.  Prints tokens/s and the encoder's
+               ms and device ms.  Before both, the kernel phase holds the
+               paged kernels at qwen2-vl's G = 8, dense decode at G = 8
+               and at whisper's G = 1, D = 64, and flash's model route at
+               whisper's shapes (non-causal S = T = 1500, causal 448, the
+               cross-attention's 64 x 1500), and the timing phase times
+               flash at the encoder's shape beside its bound and SDPA.
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
                shapes that exercise the bounds guards, ragged last
@@ -515,13 +552,14 @@ def work(kind, c):
 
 
 # the paged kernels' geometries: the archs the port serves (the MoE
-# archs' G = 5 and 6 query heads a KV head among them)
+# archs' G = 5 and 6 query heads a KV head among them, qwen2-vl's G = 8)
 PAGED_GEOMS = {"granite-8b": dict(H=32, KV=8, D=128),
                "qwen2-0.5b": dict(H=14, KV=2, D=64),
                "granite-20b": dict(H=48, KV=1, D=128),
                "phi4-mini-3.8b": dict(H=24, KV=8, D=128),
                "llama4-scout": dict(H=40, KV=8, D=128),
-               "grok-1": dict(H=48, KV=8, D=128)}
+               "grok-1": dict(H=48, KV=8, D=128),
+               "qwen2-vl": dict(H=64, KV=8, D=128)}
 
 
 def kernel_phase(torch):
@@ -1889,7 +1927,7 @@ def _leaves(tree):
         yield tree
 
 
-def compare_logits(torch, cfg, params):
+def compare_logits(torch, cfg, params, phase="serve"):
     """One prefill chunk and one decode step of the kernel path against
     the plain path, from the same cache (3 chunks of history)."""
     from repro_torch.models.model import get_model
@@ -1929,7 +1967,7 @@ def compare_logits(torch, cfg, params):
                       ck)
         dp, _ = timed("plain decode", plain.decode_step_paged, params, nxt,
                       cp)
-    log(f"[serve] one forward ({cfg.n_layers} layers, B=4, host clock, "
+    log(f"[{phase}] one forward ({cfg.n_layers} layers, B=4, host clock, "
         "single shot): "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in step_ms.items())
         + " (prefill: T=32 tokens per slot after 96 of history)")
@@ -1937,7 +1975,7 @@ def compare_logits(torch, cfg, params):
         err = (a - b).abs().max().item()
         scale = b.abs().max().item()
         lim = LOGIT_ULPS * 2.0 ** -8 * scale
-        log(f"[serve] {name} logits, kernel vs plain path: max|diff|="
+        log(f"[{phase}] {name} logits, kernel vs plain path: max|diff|="
             f"{err:.4e}, bound {lim:.4e} ({LOGIT_ULPS} bf16 ulps of the "
             f"logit scale {scale:.3f}); argmax agree "
             f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{B}")
@@ -2277,14 +2315,25 @@ DECODE_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                 "granite-20b": dict(H=48, KV=1, D=128),
                 "phi4-mini": dict(H=24, KV=8, D=128),
                 "llama4-scout": dict(H=40, KV=8, D=128),
-                "grok-1": dict(H=48, KV=8, D=128)}
+                "grok-1": dict(H=48, KV=8, D=128),
+                "qwen2-vl": dict(H=64, KV=8, D=128),
+                "whisper": dict(H=20, KV=20, D=64)}
 FLASH_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                "MQA": dict(H=8, KV=1, D=64),
                "MHA": dict(H=8, KV=8, D=64),
                "granite-20b": dict(H=48, KV=1, D=128),
                "phi4-mini": dict(H=24, KV=8, D=128),
                "llama4-scout": dict(H=40, KV=8, D=128),
-               "grok-1": dict(H=48, KV=8, D=128)}
+               "grok-1": dict(H=48, KV=8, D=128),
+               "qwen2-vl": dict(H=64, KV=8, D=128)}
+# whisper-large-v3's attention (20 heads of 64, G = 1) at its shapes: the
+# encoder's non-causal S = T = 1500, the decoder's causal self-attention
+# over its 448-token context, the cross-attention of 64 decoder rows over
+# the 1500 encoder rows; (B, S, T, causal).  The plain side is the
+# reference dispatch at the audio phase's chunks of 500.
+WHISPER_FLASH = ((2, 1500, 1500, False), (2, 448, 448, True),
+                 (4, 64, 1500, False))
+WHISPER_CHUNK = 500
 
 
 def dense_inputs(gen, B, S, T, H, KV, D, dtype):
@@ -2365,8 +2414,32 @@ def dense_checks(torch):
                 f"{err:.3e} (tol {tol})")
         errs["flash_attention"] = max(errs["flash_attention"],
                                       route_check(torch, gen, dtype, tol,
-                                                  tname))
+                                                  tname),
+                                      whisper_flash_checks(torch, gen, dtype,
+                                                           tol, tname))
     return errs
+
+
+def whisper_flash_checks(torch, gen, dtype, tol, tname):
+    """The flash kernel's model route (``flash.launch``) at whisper's
+    shapes (``WHISPER_FLASH``) against the reference dispatch on the plain
+    route: the chunked flash reference at S = T = 1500, direct attention
+    at the others.  Returns max |kernel - plain|."""
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.attention import attention
+    err = 0.0
+    for B, S, T, causal in WHISPER_FLASH:
+        q, k, v = dense_inputs(gen, B, S, T, 20, 20, 64, dtype)
+        e = check_close(
+            f"flash whisper {tname} B={B} S={S} T={T} causal={causal}",
+            flash.launch(q, k, v, causal),
+            attention(q, k, v, causal, WHISPER_CHUNK, WHISPER_CHUNK,
+                      plain=True), tol)
+        err = max(err, e)
+        log(f"[dense] flash  whisper     q={tname:8s} B={B} S={S} T={T} "
+            f"causal={causal} (G = 1, D = 64): max|kernel-plain|={e:.3e} "
+            f"(tol {tol})")
+    return err
 
 
 def decode_split_checks(torch, gen, dtype, tol, what, g):
@@ -2489,15 +2562,50 @@ def dense_timing(torch, S):
     log(f"[timing] flash_attention device_ms (queued ahead of the card): "
         f"kernel {rows['flash_attention']['device_ms']:.4f}, SDPA "
         f"{device_ms(calls[2]):.4f}")
+    del qs, ks, vs
+    rows["flash_whisper"] = whisper_flash_timing(torch, gen)
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
                                                 BF16_FLOPS_PER_S)
-        log(f"[timing] {name} granite-8b bf16 {r['shape']}: kernel_ms="
+        arch = "whisper-large-v3" if name == "flash_whisper" else \
+            "granite-8b"
+        log(f"[timing] {name} {arch} bf16 {r['shape']}: kernel_ms="
             f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
             f"{r['library_ms']:.4f} (SDPA) bound_ms={r['bound_ms']:.5f} (by "
             f"{r['bound_by']}: {r['bytes']} bytes over 3.35 TB/s, "
             f"{r['flops']} flops over 989 TFLOP/s)")
     return rows
+
+
+def whisper_flash_timing(torch, gen):
+    """The flash kernel at the whisper encoder's shape (the audio phase's
+    B = 4, S = T = 1500, 20 heads of 64 over 20 KV heads, non-causal,
+    bf16), cycling through 4 inputs (each 46 MB of q, k and v): kernel,
+    the plain chunked reference (chunks of 500) and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.flash import flash_attention_ref
+    B, S, H, D, n = 4, 1500, 20, 64, 4
+    qs, ks, vs = zip(*(dense_inputs(gen, B, S, S, H, H, D, torch.bfloat16)
+                       for _ in range(n)))
+    calls = (
+        lambda i: flash.launch(qs[i % n], ks[i % n], vs[i % n], False),
+        lambda i: flash_attention_ref(qs[i % n], ks[i % n], vs[i % n], False,
+                                      WHISPER_CHUNK, WHISPER_CHUNK),
+        lambda i: F.scaled_dot_product_attention(
+            qs[i % n].transpose(1, 2), ks[i % n].transpose(1, 2),
+            vs[i % n].transpose(1, 2)))
+    row = dict(zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
+               shape=f"B={B} S=T={S} non-causal H={H} KV={H} D={D}",
+               bytes=flash.trip_model(B, S, S, H, H, D, False)[0].io_bytes,
+               flops=4 * D * B * H * S * S)
+    row["device_ms"] = device_ms(calls[0])
+    row["library_device_ms"] = device_ms(calls[2])
+    log(f"[timing] flash_attention at the whisper encoder's shape, "
+        f"device_ms (queued ahead of the card): kernel "
+        f"{row['device_ms']:.4f}, SDPA {row['library_device_ms']:.4f}")
+    return row
 
 
 def whole_batch_phase(torch, cfg, params):
@@ -3520,6 +3628,356 @@ def moe_parity(torch):
 
 
 # ---------------------------------------------------------------------------
+# the stub-frontend families: qwen2-vl (M-RoPE, embeddings) and whisper
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-72b"
+# 24 of 80 layers: a layer is 0.878 G parameters (1.756 GB of bf16), the
+# untied embed and unembed 4.98 GB, so 24 layers make 47.1 GB (80 would
+# be 145.4 GB), with room beside them for the f32 unembed copy of
+# ``_logits_exact`` (4.98 GB) and the plain route's comparisons
+VLM_LAYERS = 24
+VLM_GRID = (12, 16)              # the image's patch grid: rows, columns
+VLM_TEXT = 64                    # text tokens after the image
+AUDIO_ARCH = "whisper-large-v3"
+AUDIO_FRAMES = 1500              # the encoder's published positions
+AUDIO_PARITY_LAYERS = 4          # encoder and decoder, the f32 parity run
+
+
+def vlm_positions(torch, B):
+    """Qwen2-VL's position layout for one image then text: the grid's
+    patches at t = 0, h = their row, w = their column; the text after it
+    on all three streams together, from one past the grid's largest
+    position.  Returns (3, B, S) int32 on the card."""
+    rows, cols = VLM_GRID
+    r = torch.arange(rows * cols, device="cuda") // cols
+    c = torch.arange(rows * cols, device="cuda") % cols
+    text = max(rows, cols) + torch.arange(VLM_TEXT, device="cuda")
+    pos = torch.stack([torch.cat([torch.zeros_like(r), text]),
+                       torch.cat([r, text]), torch.cat([c, text])])
+    return pos[:, None].expand(3, B, pos.shape[1]).to(torch.int32)
+
+
+def vlm_phase(torch, decode_kernel, prefill_kernel):
+    """qwen2-vl-72b at its published widths and 24 of its 80 layers, bf16,
+    random weights: serve's traffic as text prompts through
+    ``PagedEngine`` (sharing off), one prefill chunk and one decode step
+    against the plain route; then one whole-batch ``Model.prefill`` of
+    embeddings with the image-then-text M-RoPE layout and 32 greedy
+    ``decode_step``s, its logits against the plain route and against the
+    same prefill with three equal streams."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import PagedEngine, ServeConfig
+    free, total = torch.cuda.mem_get_info()
+    log(f"[vlm] device memory at phase start: {free / 2**30:.2f} GiB free "
+        f"of {total / 2**30:.2f} GiB; on {gpu_line()}")
+    cfg = dataclasses.replace(configs.get(VLM_ARCH), n_layers=VLM_LAYERS)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[vlm] {VLM_ARCH}: {cfg.n_layers} of 80 layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, M-RoPE "
+        f"sections {cfg.mrope_sections}, qkv bias: {n_params / 1e9:.3f} B "
+        f"params, {n_params * 2 / 1e9:.2f} GB in bf16, init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    new_tokens = 32
+    rng = np.random.RandomState(7)               # the serve phase's traffic
+    prompt_lens = rng.randint(64, 301, size=8)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
+               for n in prompt_lens]
+    scfg = ServeConfig(max_batch=4, max_seq=int(prompt_lens.max())
+                       + new_tokens + 16, max_new_tokens=new_tokens,
+                       page_size=16, prefill_chunk_tokens=32,
+                       prefix_sharing=False, retain_prefixes=False)
+    engine = PagedEngine(model, params, scfg)
+    rids = [engine.submit(p) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    step_s = 0.0
+    decode_kernel.launches = 0                   # counts of this path
+    prefill_kernel.launches = 0
+    while engine.busy:
+        t0 = time.perf_counter()
+        engine.step()
+        step_s += time.perf_counter() - t0
+        engine.kv.check()
+    torch.cuda.synchronize()
+    paged_launches = {"decode": decode_kernel.launches,
+                      "prefill": prefill_kernel.launches}
+    tokens = [engine.results[r] for r in rids]
+    n_out = sum(len(t) for t in tokens)
+    log(f"[vlm] paged, sharing off, serve's 8 requests as text prompts "
+        f"(prompts {prompt_lens.tolist()}, {new_tokens} new): {n_out} "
+        f"tokens in {step_s:.2f} s of step() = {n_out / step_s:.1f} "
+        f"tokens/s (host clock), {engine.ticks} ticks; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"paged_decode_attention={paged_launches['decode']}, "
+        f"paged_prefill_attention={paged_launches['prefill']} "
+        f"({cfg.n_layers} per call); kv.check() clean every tick")
+    if not all(len(t) == new_tokens and all(0 <= x < cfg.vocab_size
+                                            for x in t) for t in tokens):
+        raise AssertionError(f"vlm: a request did not get {new_tokens} "
+                             f"in-vocab tokens")
+    if not all(n > 0 and n % cfg.n_layers == 0
+               for n in paged_launches.values()):
+        raise AssertionError(f"vlm: a paged kernel was not launched once "
+                             f"per layer of its calls: {paged_launches}")
+    split = host_split(engine, step_s)
+    log_host("vlm", split)
+    del engine
+    compare_logits(torch, cfg, params, phase="vlm")
+
+    # the whole-batch embeddings prefill and its decode steps
+    B = 2
+    pos = vlm_positions(torch, B)
+    S = pos.shape[-1]
+    embeds = (torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+              * 0.02).to(cfg.param_dtype)     # the token embeddings' scale
+    flat = torch.arange(S, device="cuda", dtype=torch.int32)[None, None]
+    flat = flat.expand(3, B, S)
+    out, wb_launches, first = {}, {}, None
+    with torch.no_grad():
+        # the plain route first: its argmax is every route's first token,
+        # so that the first decode steps compare on one input
+        for name, plain, p in (("plain", True, pos), ("kernel", False, pos),
+                               ("equal streams", False, flat)):
+            m = get_model(cfg, plain_attention=plain)
+            decode.KERNEL.launches = flash.KERNEL.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, parts = m.prefill(params, {"embeds": embeds,
+                                             "positions": p})
+            cache = m.init_cache(B, S + new_tokens, "cuda")
+            for k, src in parts.items():
+                cache[k][:, :, :S] = src
+            cache["pos"] = torch.tensor(S, dtype=torch.int32, device="cuda")
+            del parts
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            if first is None:
+                first = last.argmax(-1).to(torch.int32)[:, None]
+            t0 = time.perf_counter()
+            step, cache = m.decode_step(params, first, cache)
+            toks, cache, _ = m.decode_many(
+                params, step.argmax(-1).to(torch.int32)[:, None], cache,
+                None, new_tokens - 1)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            out[name] = dict(last=last.float(), step=step.float(),
+                             toks=torch.cat([first.T, toks]).cpu(),
+                             prefill_s=prefill_s, decode_s=decode_s)
+            wb_launches[name] = {"flash_attention": flash.KERNEL.launches,
+                                 "decode_attention": decode.KERNEL.launches}
+            del cache
+    k = out["kernel"]
+    log(f"[vlm] whole-batch Model.prefill of embeddings, B={B}: a "
+        f"{VLM_GRID[0]}x{VLM_GRID[1]} patch grid (t 0, h the row, w the "
+        f"column) then {VLM_TEXT} text positions from {max(VLM_GRID)} on "
+        f"all three streams (S={S}); prefill {k['prefill_s'] * 1e3:.1f} ms, "
+        f"then {new_tokens} greedy decode_steps in {k['decode_s']:.2f} s = "
+        f"{B * new_tokens / k['decode_s']:.1f} tokens/s (host clock); "
+        f"launches {wb_launches['kernel']} (flash once per layer, dense "
+        f"decode once per layer per step); tokens in vocabulary "
+        f"{bool(((k['toks'] >= 0) & (k['toks'] < cfg.vocab_size)).all())}"
+        f"; on {gpu_line()}")
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * new_tokens}
+    if wb_launches["kernel"] != want:
+        raise AssertionError(f"vlm whole-batch: launches "
+                             f"{wb_launches['kernel']}, want {want}")
+    if not bool(((k["toks"] >= 0) & (k["toks"] < cfg.vocab_size)).all()):
+        raise AssertionError("vlm whole-batch: an out-of-vocab token")
+    ulp_check("vlm", "embeddings prefill logits, kernel vs plain route",
+              k["last"], out["plain"]["last"])
+    ulp_check("vlm", "first decode step logits after it, kernel vs plain "
+              "route", k["step"], out["plain"]["step"])
+    same = int((k["toks"] == out["plain"]["toks"]).all(0).sum())
+    log(f"[vlm] greedy tokens, kernel vs plain route: {same}/{B} sequences "
+        f"identical over {new_tokens} (bf16: reported)")
+    moved = (k["last"] - out["equal streams"]["last"]).abs().max().item()
+    lim = LOGIT_ULPS * 2.0 ** -8 * k["last"].abs().max().item()
+    log(f"[vlm] the same embeddings with three equal arange streams: "
+        f"prefill logits move by max|diff|={moved:.4e} against the layout's "
+        f"(the 8-ulp bound is {lim:.4e}): the sections see distinct "
+        f"streams")
+    if not moved > lim:
+        raise AssertionError(f"vlm: distinct M-RoPE streams moved the "
+                             f"logits by {moved:.4e}, within {lim:.4e}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(tok_s=n_out / step_s, host=split, launches=paged_launches,
+                wb_launches=wb_launches["kernel"],
+                wb_tok_s=B * new_tokens / k["decode_s"], free_gib=free / 2**30)
+
+
+def audio_inputs(torch, gen, cfg, B):
+    """B requests of AUDIO_FRAMES seeded random frames (unit normal: the
+    encoder layernorms them) and 4 decoder prompt tokens."""
+    frames = torch.randn(B, AUDIO_FRAMES, cfg.d_model, generator=gen,
+                         device="cuda").to(cfg.param_dtype)
+    toks = torch.randint(0, cfg.vocab_size, (B, 4), generator=gen,
+                         device="cuda").to(torch.int32)
+    return {"frames": frames, "tokens": toks}
+
+
+def audio_generate(torch, m, params, batch, steps, first=None):
+    """``Model.prefill`` of frames and tokens into a cache of
+    AUDIO_FRAMES rows (the cross cache unpadded), then ``steps`` greedy
+    tokens: one ``decode_step`` (fed ``first`` where given, else the
+    prefill's argmax) and ``decode_many`` for the rest.  Returns (prefill
+    logits, first step's logits, tokens (steps, B), prefill s, decode
+    s)."""
+    B, S = batch["tokens"].shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, parts = m.prefill(params, batch)
+    cache = m.init_cache(B, AUDIO_FRAMES, "cuda")
+    for k, src in parts.items():
+        cache[k][:, :, :src.shape[2]] = src
+    cache["pos"] = torch.tensor(S, dtype=torch.int32, device="cuda")
+    del parts
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if first is None:
+        first = last.argmax(-1).to(torch.int32)[:, None]
+    step, cache = m.decode_step(params, first, cache)
+    toks, cache, _ = m.decode_many(
+        params, step.argmax(-1).to(torch.int32)[:, None], cache, None,
+        steps - 1)
+    torch.cuda.synchronize()
+    return (last.float(), step.float(), torch.cat([first.T, toks]).cpu(),
+            prefill_s, time.perf_counter() - t0)
+
+
+def audio_phase(torch):
+    """whisper-large-v3 at full width and depth (32 + 32 layers), bf16,
+    random weights, the reference dispatch's chunks at 500 (the one
+    config change: 1024 divides no 1500-row encoder): 4 requests of 1500
+    frames and 4 prompt tokens, ``Model.prefill`` then 32 greedy tokens
+    through ``decode_many``; the prefill's and the first step's logits
+    against the plain route; the encoder's device time.  Then the same at
+    4 + 4 layers in f32, kernel route against plain: identical greedy
+    tokens."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models import transformer
+    from repro_torch.models.model import get_model
+    cfg = dataclasses.replace(configs.get(AUDIO_ARCH),
+                              attn_chunk_q=WHISPER_CHUNK,
+                              attn_chunk_kv=WHISPER_CHUNK)
+    kern, plain = get_model(cfg), get_model(cfg, plain_attention=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = kern.init(gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[audio] {AUDIO_ARCH}: {cfg.encoder_layers} + {cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads of {cfg.head_dim}, d_ff {cfg.d_ff} (gelu), layernorm, vocab "
+        f"{cfg.vocab_size} tied: {n_params / 1e9:.3f} B params, "
+        f"{n_params * 2 / 1e9:.2f} GB in bf16, init "
+        f"{time.perf_counter() - t0:.1f} s; attn_chunk_q = attn_chunk_kv = "
+        f"{WHISPER_CHUNK} (the published 1024 makes the reference dispatch "
+        f"refuse S = T = {AUDIO_FRAMES}; no width moves)")
+    B, steps = 4, 32
+    batch = audio_inputs(torch, gen, cfg, B)
+    with torch.no_grad():
+        audio_generate(torch, kern, params, batch, 2)          # warm-up
+        flash.KERNEL.launches = decode.KERNEL.launches = 0     # this path
+        k_last, k_step, k_toks, pre_s, dec_s = audio_generate(
+            torch, kern, params, batch, steps)
+        launches = {"flash_attention": flash.KERNEL.launches,
+                    "decode_attention": decode.KERNEL.launches}
+        # the first decode step fed the kernel route's first tokens
+        p_last, p_step, p_toks, _, _ = audio_generate(
+            torch, plain, params, batch, steps, first=k_toks[0][:, None].to(
+                "cuda"))
+        enc_ms = time_ms(lambda i: transformer.whisper_encode(
+            params, cfg, batch["frames"]), iters=5, warmup=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            transformer.whisper_encode(params, cfg, batch["frames"])
+            torch.cuda.synchronize()
+        by_kernel = {e.key: e.device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.device_time_total > 0}
+    enc_dev = sum(by_kernel.values()) / 1e3
+    flash_dev = sum(v for k_, v in by_kernel.items() if "flash" in k_) / 1e3
+    want = {"flash_attention": cfg.encoder_layers + 2 * cfg.n_layers,
+            "decode_attention": cfg.n_layers * steps}
+    ok = bool(((k_toks >= 0) & (k_toks < cfg.vocab_size)).all())
+    log(f"[audio] B={B} x {AUDIO_FRAMES} frames, 4 prompt tokens: prefill "
+        f"{pre_s * 1e3:.1f} ms, {steps} greedy tokens in {dec_s:.2f} s = "
+        f"{B * steps / dec_s:.1f} tokens/s (host clock); launches "
+        f"{launches} (want {want}: flash for the encoder, the decoder and "
+        f"the cross-attention, once per layer; dense decode once per "
+        f"decoder layer per step; a step's cross-attention is one query "
+        f"row, the direct path); tokens in vocabulary {ok}; on {gpu_line()}")
+    log(f"[audio] encoder ({cfg.encoder_layers} layers, B={B}, "
+        f"S={AUDIO_FRAMES}): "
+        f"{enc_ms:.2f} ms a call (CUDA events, back to back); device time "
+        f"of its CUDA kernels {enc_dev:.2f} ms (torch.profiler), of which "
+        f"flash {flash_dev:.2f} ms")
+    if launches != want:
+        raise AssertionError(f"audio: launches {launches}, want {want}")
+    if not ok:
+        raise AssertionError("audio: an out-of-vocab token")
+    ulp_check("audio", "prefill logits, kernel vs plain route", k_last,
+              p_last)
+    ulp_check("audio", "first decode step logits, kernel vs plain route",
+              k_step, p_step)
+    same = int((k_toks == p_toks).all(0).sum())
+    log(f"[audio] greedy tokens, kernel vs plain route: {same}/{B} "
+        f"sequences identical over {steps} (bf16: reported)")
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # f32 at reduced depth: identical greedy tokens on both routes
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=AUDIO_PARITY_LAYERS,
+                                encoder_layers=AUDIO_PARITY_LAYERS)
+    gen.manual_seed(1)
+    params = get_model(cfg32).init(gen, "cuda")
+    batch = audio_inputs(torch, gen, cfg32, 2)
+    with torch.no_grad():
+        runs = [audio_generate(torch, get_model(cfg32, plain_attention=p),
+                               params, batch, 16) for p in (False, True)]
+    same32 = int((runs[0][2] == runs[1][2]).all(0).sum())
+    err = (runs[0][0] - runs[1][0]).abs().max().item()
+    log(f"[audio parity] {AUDIO_ARCH} at published widths, "
+        f"{AUDIO_PARITY_LAYERS} + {AUDIO_PARITY_LAYERS} layers, f32, 2 x "
+        f"{AUDIO_FRAMES} frames: kernel vs plain route {same32}/2 sequences "
+        f"token-identical over 16 greedy tokens; prefill logits max|diff|="
+        f"{err:.3e}")
+    if same32 != 2:
+        raise AssertionError("audio parity: kernel and plain route disagree "
+                             "in f32")
+    del params
+    torch.cuda.empty_cache()
+    return dict(tok_s=B * steps / dec_s, launches=launches, enc_ms=enc_ms,
+                enc_dev_ms=enc_dev, enc_flash_ms=flash_dev,
+                prefill_ms=pre_s * 1e3)
+
+
+# ---------------------------------------------------------------------------
 # 5./6. BabelStream and the instruction roofline
 # ---------------------------------------------------------------------------
 
@@ -3876,6 +4334,12 @@ def main() -> int:
     moe = moe_phase(torch, paged.KERNEL, prefill_paged.KERNEL)
     gc.collect()
     torch.cuda.empty_cache()
+    vlm = vlm_phase(torch, paged.KERNEL, prefill_paged.KERNEL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio = audio_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
     irm_phase(torch, res, clocks, gpu, listing, counter,
               points + sv["census"])
@@ -3898,7 +4362,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
-            "moe_launches": moe["launches"][kind]})
+            "moe_launches": moe["launches"][kind],
+            "vlm_launches": vlm["launches"][kind]})
     for name, (src, rep) in DENSE_KERNELS.items():
         t = d_timing[name]
         cms, _ = bound_ms(t["bytes"], t["flops"], BF16_FLOPS_PER_S, ceiling)
@@ -3910,7 +4375,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-            "moe_launches": moe["wb"]["launches"][name]})
+            "moe_launches": moe["wb"]["launches"][name],
+            "vlm_launches": vlm["wb_launches"][name],
+            "audio_launches": audio["launches"][name]})
+        if name == "flash_attention":
+            w = d_timing["flash_whisper"]
+            kernels[-1]["whisper_encoder"] = {
+                k: w[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                  "library_ms", "library_device_ms",
+                                  "bound_ms", "bound_by")}
     kernels.append({
         "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES, "launches": ssm["launches"],
@@ -3973,6 +4446,18 @@ def main() -> int:
         f", decode {moe['flips']['decode']}; launches decode "
         f"{moe['launches']['decode']}, prefill {moe['launches']['prefill']}"
         f"; on {gpu}")
+    log(f"[summary] vlm ({VLM_ARCH}, {VLM_LAYERS} of 80 layers, bf16): "
+        f"{vlm['free_gib']:.2f} GiB free at phase start; paged text prompts "
+        f"{vlm['tok_s']:.1f} tokens/s (host {100 * vlm['host']['share']:.1f}"
+        f"% of step()), whole-batch embeddings decode "
+        f"{vlm['wb_tok_s']:.1f}; launches decode {vlm['launches']['decode']}"
+        f", prefill {vlm['launches']['prefill']}, whole-batch "
+        f"{vlm['wb_launches']}; audio ({AUDIO_ARCH}, 32 + 32 layers, bf16, "
+        f"{AUDIO_FRAMES} frames): {audio['tok_s']:.1f} tokens/s, prefill "
+        f"{audio['prefill_ms']:.1f} ms, encoder {audio['enc_ms']:.2f} ms a "
+        f"call ({audio['enc_dev_ms']:.2f} ms of device time, flash "
+        f"{audio['enc_flash_ms']:.2f}); launches {audio['launches']}; on "
+        f"{gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

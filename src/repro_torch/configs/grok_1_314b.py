@@ -1,6 +1,6 @@
 """grok-1-314b — MoE, 8 experts top-2.  [hf:xai-org/grok-1; unverified]
 64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072, MoE 8e top-2.
-Config mirror only: ``transformer.check_supported`` refuses MoE.
+Runs in the port (``models/moe.py``), paged and whole-batch.
 """
 from repro_torch.configs.base import ArchConfig, register
 

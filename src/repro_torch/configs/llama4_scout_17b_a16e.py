@@ -1,7 +1,7 @@
 """llama4-scout-17b-a16e — MoE, 16 experts top-1, early fusion.
 [hf:meta-llama/Llama-4-Scout-17B-16E; unverified]
 48L d_model=5120 40H (GQA kv=8) d_ff=8192 vocab=202048, MoE 16e top-1.
-Config mirror only: ``transformer.check_supported`` refuses MoE.
+Runs in the port (``models/moe.py``), paged and whole-batch.
 """
 from repro_torch.configs.base import ArchConfig, register
 

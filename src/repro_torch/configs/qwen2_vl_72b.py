@@ -1,7 +1,8 @@
 """qwen2-vl-72b — VLM backbone with M-RoPE.  [arXiv:2409.12191; hf]
 80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064.
-Config mirror only: ``transformer.check_supported`` refuses M-RoPE and
-the stub frontend's embedding inputs.
+Runs in the port: ``Model.prefill`` takes the stub frontend's (B, S, d)
+embeddings and (3, B, S) M-RoPE position streams; decode and the paged
+engine take text tokens through the embedding table.
 """
 from repro_torch.configs.base import ArchConfig, register
 

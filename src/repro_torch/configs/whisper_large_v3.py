@@ -1,7 +1,10 @@
 """whisper-large-v3 — encoder-decoder audio backbone.  [arXiv:2212.04356]
 32L d_model=1280 20H (kv=20) d_ff=5120 vocab=51866.
-Config mirror only: ``transformer.check_supported`` refuses the
-encoder-decoder family.
+Runs in the port at the Model level (``Model.prefill`` with the stub
+frontend's frames and the decoder's tokens, ``decode_step``,
+``decode_many``); both engines refuse it, as the JAX package's do.
+Encoder and decoder positions are the fixed sinusoidal table
+(``layers.sinusoidal_positions``), as the JAX code computes them.
 """
 from repro_torch.configs.base import ArchConfig, register
 
@@ -19,6 +22,6 @@ CONFIG = register(ArchConfig(
     embed_inputs=False,              # frontend stub feeds embeddings
     ffn_kind="gelu",
     norm_kind="layernorm",
-    rope_theta=0.0,                  # learned absolute positions
+    rope_theta=0.0,                  # no rotary: sinusoidal positions
     tie_embeddings=True,
 ))

@@ -5,6 +5,8 @@ whole-batch lockstep generation, on one card.
     python -m repro_torch.launch.serve --whole-batch      # ServingEngine
     python -m repro_torch.launch.serve --whole-batch --legacy-loop
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --whole-batch
+    python -m repro_torch.launch.serve --arch qwen2-vl-72b --local-smoke \
+        --device cpu                         # text prompts, paged only
     python -m repro_torch.launch.serve --local-smoke --device cpu
     python -m repro_torch.launch.serve --local-smoke --device cpu \
         --no-prefix-sharing
@@ -25,8 +27,13 @@ the paged engine, twice ``--batch`` requests of a shared system prompt
 plus a short random tail, with staggered output budgets; for
 ``--whole-batch``, ``--batch`` random prompts of 4-15 tokens.  The SSM
 arch (falcon-mamba-7b) is served whole-batch only: the paged engine
-refuses it, as the JAX package's does.  Prefix sharing and cross-lifetime
-retention are on by default, as in the JAX launcher, which reports the
+refuses it, as the JAX package's does.  qwen2-vl's demo prompts are
+text tokens, served paged only: the whole-batch engine prefills token
+prompts, and the model's prefill reads a frontend's embeddings.  Whisper
+is refused: the paged engine refuses encoder-decoder archs, as the JAX
+package's does, and its prefill reads a frontend's frames (it runs at
+the Model level, ``Model.prefill`` with frames and tokens).  Prefix
+sharing and cross-lifetime retention are on by default, as in the JAX launcher, which reports the
 same sharing and retention lines; so are preempt-and-recompute and the
 overload flags (``--no-preempt``, ``--preempt-policy``, ``--max-queue``,
 ``--deadline-ticks``, ``--wedge-ticks``) and ``--kv-dtype int8``.  The
@@ -215,6 +222,17 @@ def main() -> int:
         return 2
     device = torch.device(args.device)
     cfg = configs.get(args.arch)
+    if cfg.is_encoder_decoder:
+        ap.error(f"{cfg.name} is an encoder-decoder arch with a stub "
+                 f"frontend: the paged engine refuses it, as the JAX "
+                 f"package's PagedEngine does, and ServingEngine prefills "
+                 f"token prompts, not frames.  Run it through Model.prefill "
+                 f"with frames and tokens, then Model.decode_many")
+    if not cfg.embed_inputs and args.whole_batch:
+        ap.error(f"{cfg.name} is a stub-frontend arch: ServingEngine "
+                 f"prefills token prompts and its prefill reads a "
+                 f"frontend's embeddings.  Drop --whole-batch: the paged "
+                 f"engine serves its text prompts")
     if cfg.mamba_version and not args.whole_batch:
         ap.error(f"{cfg.name} is an SSM arch: pass --whole-batch (the paged "
                  f"engine refuses SSM archs, as the JAX package's "

@@ -1,5 +1,5 @@
-"""Model facade for the serving paths — port of the dense and Mamba1
-subset of ``repro/models/model.py``.
+"""Model facade for the serving paths — port of the dense, MoE, VLM,
+Mamba1 and encoder-decoder subset of ``repro/models/model.py``.
 
 ``Model(cfg)`` exposes init, the whole-batch cache and its steps
 (``prefill``, ``decode_step``, ``decode_many``), and the paged cache and
@@ -11,6 +11,7 @@ sampling on the device.  Randomness comes from an explicit
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -33,6 +34,16 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
     else:
         tok = torch.argmax(logits, dim=-1)
     return tok.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def text_cfg(cfg: ArchConfig) -> ArchConfig:
+    """``cfg`` with ``embed_inputs`` forced on: the decode and paged steps
+    of a stub-frontend arch take token ids through the embedding table,
+    as the JAX ``Model`` forces them."""
+    if cfg.embed_inputs:
+        return cfg
+    return dataclasses.replace(cfg, embed_inputs=True)
 
 
 @dataclasses.dataclass
@@ -60,25 +71,44 @@ class Model:
                                 device, self.cfg.param_dtype)
 
     def prefill(self, params, batch: Dict[str, Any]):
-        """batch {"tokens": (B, S) int, "positions": optional (B, S)}.
-        Returns (last-position logits (B, V) f32, cache parts): {"k", "v"}
-        (L, B, S, KV, hd) for the dense family; for the SSM family {"conv"
-        (L, B, K-1, d_in), "ssm" (L, B, d_in, N) f32}, every layer's state
-        after the prompt (the JAX package returns None)."""
-        inputs = batch["tokens"]
+        """batch {"tokens": (B, S) int, "positions": optional (B, S)}; a
+        stub-frontend arch takes {"embeds": (B, S, d), "positions":
+        optional (3, B, S) for M-RoPE} instead, and the encoder-decoder
+        {"frames": (B, S_enc, d), "tokens": (B, S)}.  Missing positions
+        are ``arange(S)``: one (B, S) stream, or three equal ones for an
+        M-RoPE arch.  Returns (last-position logits (B, V) f32, cache
+        parts): {"k", "v"} (L, B, S, KV, hd) for the attention families
+        (whisper adds {"cross_k", "cross_v"} (L, B, S_enc, KV, hd)); for
+        the SSM family {"conv" (L, B, K-1, d_in), "ssm" (L, B, d_in, N)
+        f32}, every layer's state after the prompt (the JAX package
+        returns None)."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            logits, _, cache = T.whisper_forward(
+                params, cfg, batch["frames"], batch["tokens"],
+                mode="prefill", plain=self.plain_attention)
+            return logits[:, -1], cache
+        inputs = batch["tokens"] if cfg.embed_inputs else batch["embeds"]
         positions = batch.get("positions")
         if positions is None:
-            B, S = inputs.shape
+            B, S = inputs.shape[:2]
             positions = torch.arange(S, device=inputs.device)[None].expand(
                 B, S)
-        logits, _, cache = T.lm_forward(params, self.cfg, inputs, positions,
+            if cfg.mrope_sections:
+                positions = positions[None].expand(3, B, S)
+        logits, _, cache = T.lm_forward(params, cfg, inputs, positions,
                                         mode="prefill",
                                         plain=self.plain_attention)
         return logits[:, -1], cache
 
     def decode_step(self, params, tokens, cache):
-        """tokens (B, 1) int; returns (logits (B, V) f32, cache)."""
-        return T.lm_decode(params, self.cfg, tokens, cache,
+        """tokens (B, 1) int (token ids for every arch: a stub-frontend
+        arch decodes text through its embedding table); returns (logits
+        (B, V) f32, cache)."""
+        if self.cfg.is_encoder_decoder:
+            return T.whisper_decode(params, self.cfg, tokens, cache,
+                                    self.plain_attention)
+        return T.lm_decode(params, text_cfg(self.cfg), tokens, cache,
                            self.plain_attention)
 
     def decode_many(self, params, tokens, cache, generator, num_steps: int,
@@ -121,15 +151,15 @@ class Model:
         if active is None:
             active = torch.ones(tokens.shape[0], dtype=torch.bool,
                                 device=tokens.device)
-        return T.lm_decode_paged(params, self.cfg, tokens, cache, active,
-                                 self.plain_attention)
+        return T.lm_decode_paged(params, text_cfg(self.cfg), tokens, cache,
+                                 active, self.plain_attention)
 
     def prefill_step_paged(self, params, tokens, cache, grants):
         """One ragged prefill chunk: tokens (B, T), grants (B,) int32.
         Returns (logits (B, V) at each slot's last granted position,
         cache)."""
-        return T.lm_prefill_paged(params, self.cfg, tokens, cache, grants,
-                                  self.plain_attention)
+        return T.lm_prefill_paged(params, text_cfg(self.cfg), tokens, cache,
+                                  grants, self.plain_attention)
 
     def prefill_many_paged(self, params, tokens, cache, generator, grants,
                            *, temperature: float = 0.0):
@@ -147,8 +177,8 @@ class Model:
         grants (B,) int32 = 1 + proposals (0 = idle).  Returns (greedy
         (B, T) int32, accept (B,) int32, cache with "length" advanced by
         the whole grant)."""
-        return T.lm_verify_paged(params, self.cfg, tokens, cache, grants,
-                                 self.plain_attention)
+        return T.lm_verify_paged(params, text_cfg(self.cfg), tokens, cache,
+                                 grants, self.plain_attention)
 
     def decode_many_paged(self, params, tokens, cache, generator, active,
                           forced_tok=None, forced_mask=None, *,

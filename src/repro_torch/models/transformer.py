@@ -1,11 +1,14 @@
-"""The decoder-only LM (dense or MoE FFN) and the pure-SSM LM (Mamba1,
-falcon-mamba): schema, the whole-batch forward (``lm_forward``: train /
-prefill / hidden) and decode step (``lm_decode``) over a (L, B, T, KV,
-hd) cache or the SSM family's per-layer (conv, ssm) state, the two paged
-attention paths (decode and ragged prefill), the FFN (dense, or routed
-through ``models/moe.py``) and the paged forward passes.
+"""The decoder-only LM (dense or MoE FFN; token ids, or a VLM's
+precomputed embeddings with M-RoPE), the pure-SSM LM (Mamba1,
+falcon-mamba) and the encoder-decoder (whisper): schema, the whole-batch
+forward (``lm_forward``: train / prefill / hidden) and decode step
+(``lm_decode``) over a (L, B, T, KV, hd) cache or the SSM family's
+per-layer (conv, ssm) state, the two paged attention paths (decode and
+ragged prefill), the FFN (swiglu, the gelu MLP, or routed through
+``models/moe.py``), the paged forward passes, and whisper's encoder,
+forward and decode step (``whisper_*``).
 
-Port of the dense, MoE and Mamba1 subset of
+Port of the dense, MoE, VLM, Mamba1 and encoder-decoder subset of
 ``repro/models/transformer.py``.  The ``lax.scan`` over stacked layers
 becomes a Python loop over the layer index; caches and pools are
 updated IN PLACE where the JAX functions return updated copies, so the
@@ -20,6 +23,9 @@ keeps the JAX reference dispatch on the CPU).  ``plain=True`` calls the
 plain versions on any device — the reference that ``chip_smoke.py``
 holds the kernel path against on the card.  The same switch picks the
 selective-scan kernel or its plain version in the SSM family's prefill.
+Whisper's encoder and cross-attention are non-causal flash calls on the
+kernel route; a decode step's cross-attention (one query row) takes the
+direct path, as the reference dispatch does.
 
 One difference from the JAX package, in the SSM family: its
 ``lm_forward(mode="prefill")`` returns no cache parts, so its
@@ -43,38 +49,41 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention, direct_attention
 from repro_torch.models.kv_quant import quantize_rows
 from repro_torch.models.layers import (
-    apply_rope, dense, embed, rmsnorm, rope_angles, swiglu, unembed)
+    apply_rope, dense, embed, gelu_mlp, layernorm, mrope_angles, rmsnorm,
+    rope_angles, sinusoidal_positions, swiglu, unembed)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import ParamDecl, map_schema, stacked
 
 
 def check_supported(cfg: ArchConfig, paged: bool = False) -> None:
-    """Refuses what the port does not run: Mamba2, the hybrid and
-    encoder-decoder families and the features below (not ported yet), and
-    an SSM arch on the paged path, which the JAX package refuses too.
-    MoE runs, with swiglu or gelu experts; a dense FFN must be swiglu
-    (the dense gelu MLP is not ported yet)."""
+    """Refuses what the port does not run: Mamba2 and the hybrid family
+    (not ported yet), and on the paged path the SSM and encoder-decoder
+    archs, which the JAX package's ``PagedEngine`` refuses too.  Every
+    other family runs: dense, MoE, Mamba1, the VLM (M-RoPE, embedding
+    inputs) and whisper (encoder-decoder, layernorm, the gelu MLP)."""
     if cfg.mamba_version == 2 or cfg.family == "hybrid":
         raise NotImplementedError(f"Mamba2 and the hybrid family are not "
                                   f"ported yet ({cfg.name})")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder family is not "
-                                  f"ported yet ({cfg.name})")
-    if paged and cfg.mamba_version:
+    if paged and (cfg.mamba_version or cfg.is_encoder_decoder):
+        why = (f"SSM archs: a slot that joins would inherit the previous "
+               f"occupant's state.  Serve {cfg.name} whole-batch "
+               f"(ServingEngine, launch.serve --whole-batch)"
+               if cfg.mamba_version else
+               f"encoder-decoder archs: each request would need its own "
+               f"cross cache.  {cfg.name} runs at the Model level "
+               f"(Model.prefill with frames and tokens, decode_step, "
+               f"decode_many)")
         raise ValueError(
             f"paged serving requires a decoder-only attention LM (per-slot "
             f"page tables), as in the JAX package, whose PagedEngine refuses "
-            f"SSM archs: a slot that joins would inherit the previous "
-            f"occupant's state.  Serve {cfg.name} whole-batch "
-            f"(ServingEngine, launch.serve --whole-batch)")
-    for what, unsupported in (("M-RoPE", cfg.mrope_sections),
-                              ("layernorm", cfg.norm_kind != "rmsnorm"),
-                              ("the dense gelu FFN", cfg.ffn_kind != "swiglu"
-                               and not cfg.n_experts),
-                              ("stub-frontend inputs", not cfg.embed_inputs)):
-        if unsupported:
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"({cfg.name})")
+            f"{why}")
+
+
+def apply_norm(h, p, cfg: ArchConfig):
+    """The arch's norm with its parameters ``p`` ({"scale", "bias"})."""
+    if cfg.norm_kind == "layernorm":
+        return layernorm(h, p["scale"], p["bias"], cfg.norm_eps)
+    return rmsnorm(h, p["scale"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -103,8 +112,11 @@ def _attn_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
 
 def _ffn_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
     d, ff = cfg.d_model, cfg.d_ff
-    return {"w_gate": ParamDecl((d, ff)), "w_up": ParamDecl((d, ff)),
-            "w_down": ParamDecl((ff, d))}
+    if cfg.ffn_kind == "swiglu":
+        return {"w_gate": ParamDecl((d, ff)), "w_up": ParamDecl((d, ff)),
+                "w_down": ParamDecl((ff, d))}
+    return {"w_up": ParamDecl((d, ff)), "b_up": ParamDecl((ff,), "zeros"),
+            "w_down": ParamDecl((ff, d)), "b_down": ParamDecl((d,), "zeros")}
 
 
 def _moe_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
@@ -140,15 +152,28 @@ def _mamba_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
 
 
 def schema(cfg: ArchConfig) -> Dict[str, Any]:
-    """The parameter tree of a decoder-only LM (dense or MoE FFN) or a
-    Mamba1 LM, leaf for leaf the JAX package's ``schema`` (stacked (L,
-    ...) block parameters)."""
+    """The parameter tree of a decoder-only LM (dense or MoE FFN), a
+    Mamba1 LM or the encoder-decoder, leaf for leaf the JAX package's
+    ``schema`` (stacked (L, ...) block parameters).  The token embedding
+    is always there: the stub-frontend archs decode text tokens through
+    it."""
     check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     sch: Dict[str, Any] = {"embed": ParamDecl((V, d), "embed")}
     if not cfg.tie_embeddings:
         sch["unembed"] = ParamDecl((V, d), "embed")
     sch["ln_f"] = _norm_decl(d)
+    if cfg.is_encoder_decoder:
+        enc = {"ln1": _norm_decl(d), "ln2": _norm_decl(d),
+               "attn": _attn_decls(cfg), "ffn": _ffn_decls(cfg)}
+        dec = {"ln1": _norm_decl(d), "ln2": _norm_decl(d),
+               "ln3": _norm_decl(d), "attn": _attn_decls(cfg),
+               "cross": _attn_decls(cfg), "ffn": _ffn_decls(cfg)}
+        sch["encoder"] = map_schema(
+            lambda x: stacked(x, cfg.encoder_layers), enc)
+        sch["decoder"] = map_schema(lambda x: stacked(x, cfg.n_layers), dec)
+        sch["ln_enc"] = _norm_decl(d)
+        return sch
     if cfg.mamba_version:
         block = {"ln1": _norm_decl(d), "mixer": _mamba_decls(cfg)}
     else:
@@ -170,7 +195,9 @@ def cache_decls(cfg: ArchConfig, batch: int, max_seq: int
     [start[b], pos]) and, for the dense family, (L, batch, max_seq, KV,
     hd) k/v caches in the param dtype; for the SSM family, the state of
     every layer instead: (L, batch, K-1, d_in) conv inputs in the param
-    dtype and (L, batch, d_in, N) f32 scan states."""
+    dtype and (L, batch, d_in, N) f32 scan states.  The encoder-decoder
+    adds (L, batch, max_seq, KV, hd) ``cross_k``/``cross_v``, which its
+    decode attends row for row (see ``whisper_decode``)."""
     check_supported(cfg)
     hd, KV, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
     decls = {"pos": ParamDecl((), "zeros", torch.int32),
@@ -182,8 +209,10 @@ def cache_decls(cfg: ArchConfig, batch: int, max_seq: int
         decls["ssm"] = ParamDecl((L, batch, d_in, cfg.ssm_state), "zeros",
                                  torch.float32)
         return decls
-    decls["k"] = ParamDecl((L, batch, max_seq, KV, hd), "zeros")
-    decls["v"] = ParamDecl((L, batch, max_seq, KV, hd), "zeros")
+    names = ("k", "v", "cross_k", "cross_v") if cfg.is_encoder_decoder \
+        else ("k", "v")
+    for name in names:
+        decls[name] = ParamDecl((L, batch, max_seq, KV, hd), "zeros")
     return decls
 
 
@@ -220,9 +249,23 @@ def layer_params(blocks, li: int):
 # ---------------------------------------------------------------------------
 
 def _rope(cfg: ArchConfig, positions) -> Optional[Tuple]:
+    """(cos, sin) of ``positions``: (B, S), or (3, B, S) streams for an
+    M-RoPE arch; None for an arch without rotary positions."""
     if not cfg.rope_theta:
         return None
+    if cfg.mrope_sections:
+        return mrope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
     return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _streams(cfg: ArchConfig, positions):
+    """(B, S) positions as an M-RoPE arch's three equal (3, B, S) streams,
+    as the JAX decode and paged paths broadcast them; unchanged for any
+    other arch."""
+    if cfg.mrope_sections:
+        return positions[None].expand(3, *positions.shape)
+    return positions
 
 
 def _qkv(hn, p, cfg: ArchConfig, rope):
@@ -282,7 +325,7 @@ def attn_apply(h, p, cfg: ArchConfig, rope, causal: bool = True,
     """Train/prefill attention over the whole sequence: h (B, S, d); p is
     the block's parameters (ln1 + attn).  Returns (out, (k, v)) — k and v
     (B, S, KV, hd) after rope, for the prefill cache."""
-    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    hn = apply_norm(h, p["ln1"], cfg)
     a = p["attn"]
     q, k, v = _qkv(hn, a, cfg, rope)
     out = attention(q, k, v, causal=causal, chunk_q=cfg.attn_chunk_q,
@@ -299,7 +342,7 @@ def attn_decode(h, p, cfg: ArchConfig, rope, k_cache, v_cache, pos,
     the cache, as ``dynamic_update_slice`` clamps) and attends over
     [start[b], pos] (``start`` None -> 0).  Returns (out, k_cache,
     v_cache)."""
-    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    hn = apply_norm(h, p["ln1"], cfg)
     a = p["attn"]
     q, k, v = _qkv(hn, a, cfg, rope)
     row = torch.clamp(pos, 0, k_cache.shape[1] - 1).reshape(1).long()
@@ -322,7 +365,7 @@ def attn_decode_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
     bool.  Appends this step's K/V at each slot's own position (page
     ``table[b, lengths[b] // page]``, row ``lengths[b] % page``; inactive
     slots write the null page 0) and attends positions [0, lengths[b]]."""
-    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    hn = apply_norm(h, p["ln1"], cfg)
     a = p["attn"]
     q, k, v = _qkv(hn, a, cfg, rope)
     B = h.shape[0]
@@ -350,7 +393,7 @@ def attn_prefill_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
     tokens.  Scatters all the chunk's granted K/V rows (rows past the
     grant land on the null page), then attends causally: row t sees
     positions <= base[b] + t and < new_len[b]."""
-    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    hn = apply_norm(h, p["ln1"], cfg)
     a = p["attn"]
     q, k, v = _qkv(hn, a, cfg, rope)
     B, T, _ = h.shape
@@ -375,14 +418,16 @@ def attn_prefill_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
 
 
 def ffn_apply(h, p, cfg: ArchConfig):
-    hn = rmsnorm(h, p["ln2"]["scale"], cfg.norm_eps)
+    hn = apply_norm(h, p["ln2"], cfg)
     f = p["ffn"]
-    return swiglu(hn, f["w_gate"], f["w_up"], f["w_down"])
+    if cfg.ffn_kind == "swiglu":
+        return swiglu(hn, f["w_gate"], f["w_up"], f["w_down"])
+    return gelu_mlp(hn, f["w_up"], f["b_up"], f["w_down"], f["b_down"])
 
 
 def moe_apply(h, p, cfg: ArchConfig):
     """The routed FFN of an MoE block: (out, aux)."""
-    hn = rmsnorm(h, p["ln2"]["scale"], cfg.norm_eps)
+    hn = apply_norm(h, p["ln2"], cfg)
     m = p["moe"]
     return moe_ffn(hn, m["router"], m["w1"], m["w2"], m.get("w3"), cfg)
 
@@ -413,25 +458,30 @@ def mamba_block_apply(h, p, cfg: ArchConfig, state=None,
                       plain: bool = False):
     """Residual Mamba1 block: h (B, S, d) and no state (prefill), or
     (B, 1, d) and its layer's state (decode).  Returns (h, state)."""
-    hn = rmsnorm(h, p["ln1"]["scale"], cfg.norm_eps)
+    hn = apply_norm(h, p["ln1"], cfg)
     out, new_state = ssm_mod.mamba1_block(hn, p["mixer"], cfg, state, plain)
     return h + out, new_state
 
 
-def _embed_in(params, cfg: ArchConfig, tokens):
-    return embed(tokens, params["embed"]).to(cfg.param_dtype)
+def _embed_in(params, cfg: ArchConfig, inputs):
+    """Token ids (B, S) through the embedding table, or for a stub-frontend
+    arch (``embed_inputs`` False) the precomputed (B, S, d) embeddings
+    themselves; either in the param dtype."""
+    if cfg.embed_inputs:
+        return embed(inputs, params["embed"]).to(cfg.param_dtype)
+    return inputs.to(cfg.param_dtype)
 
 
 def _logits_exact(params, cfg: ArchConfig, h):
     """f32 unembed for the positions whose logits decide a token."""
-    h = rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
+    h = apply_norm(h, params["ln_f"], cfg)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed(h.to(torch.float32), table.to(torch.float32))
 
 
 def _logits(params, cfg: ArchConfig, h):
     """Logits in the activation dtype (training's full-sequence logits)."""
-    h = rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps)
+    h = apply_norm(h, params["ln_f"], cfg)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed(h, table)
 
@@ -442,8 +492,9 @@ def _logits(params, cfg: ArchConfig, h):
 
 def lm_forward(params, cfg: ArchConfig, inputs, positions,
                mode: str = "train", plain: bool = False):
-    """inputs: tokens (B, S) int; positions (B, S).  mode: train | prefill
-    | hidden — hidden returns the post-ln_f hidden states; prefill returns
+    """inputs: tokens (B, S) int, or (B, S, d) embeddings for a
+    stub-frontend arch; positions (B, S), or (3, B, S) streams for an
+    M-RoPE arch.  mode: train | prefill | hidden — hidden returns the post-ln_f hidden states; prefill returns
     only the LAST position's logits, (B, 1, V) at f32, and the cache parts:
     {"k", "v"}, (L, B, S, KV, hd) stacks of every layer's K/V, for the
     dense family; {"conv" (L, B, K-1, d_in), "ssm" (L, B, d_in, N) f32},
@@ -466,7 +517,7 @@ def lm_forward(params, cfg: ArchConfig, inputs, positions,
             ks.append(k)
             vs.append(v)
     if mode == "hidden":
-        return rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps), aux, None
+        return apply_norm(h, params["ln_f"], cfg), aux, None
     if mode == "prefill":
         return (_logits_exact(params, cfg, h[:, -1:]), aux,
                 {"k": torch.stack(ks), "v": torch.stack(vs)})
@@ -484,7 +535,7 @@ def _ssm_forward(params, cfg: ArchConfig, h, mode: str, plain: bool):
             ssms.append(state.ssm)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mode == "hidden":
-        return rmsnorm(h, params["ln_f"]["scale"], cfg.norm_eps), aux, None
+        return apply_norm(h, params["ln_f"], cfg), aux, None
     if mode == "prefill":
         return (_logits_exact(params, cfg, h[:, -1:]), aux,
                 {"conv": torch.stack(convs), "ssm": torch.stack(ssms)})
@@ -513,7 +564,7 @@ def lm_decode(params, cfg: ArchConfig, tokens, cache, plain: bool = False):
         cache["pos"] = pos + 1
         return _logits_exact(params, cfg, h)[:, 0], cache
     positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
-    rope = _rope(cfg, positions)
+    rope = _rope(cfg, _streams(cfg, positions))
     h = _embed_in(params, cfg, tokens)
     start = cache.get("start")
     for li in range(cfg.n_layers):
@@ -538,7 +589,7 @@ def lm_decode_paged(params, cfg: ArchConfig, tokens, cache, active,
     pools updated in place, "length" advanced by ``active``."""
     check_supported(cfg, paged=True)
     lengths = cache["length"]
-    rope = _rope(cfg, lengths[:, None])
+    rope = _rope(cfg, _streams(cfg, lengths[:, None]))
     h = _embed_in(params, cfg, tokens)
     for li in range(cfg.n_layers):
         p = layer_params(params["blocks"], li)
@@ -565,7 +616,7 @@ def lm_prefill_paged(params, cfg: ArchConfig, tokens, cache, grants,
     new_len = lengths + grants
     positions = lengths[:, None] + torch.arange(
         T, dtype=torch.int32, device=tokens.device)[None, :]
-    rope = _rope(cfg, positions)
+    rope = _rope(cfg, _streams(cfg, positions))
     h = _embed_in(params, cfg, tokens)
     for li in range(cfg.n_layers):
         p = layer_params(params["blocks"], li)
@@ -606,3 +657,106 @@ def lm_verify_paged(params, cfg: ArchConfig, tokens, cache, grants,
     accept = torch.minimum(run.sum(dim=1, dtype=torch.int32),
                            torch.clamp(grants - 1, min=0))
     return greedy, accept, cache
+
+
+# ---------------------------------------------------------------------------
+# whisper: the encoder-decoder
+# ---------------------------------------------------------------------------
+
+def whisper_encode(params, cfg: ArchConfig, frames, plain: bool = False):
+    """frames (B, S, d): the frontend's precomputed frame embeddings.
+    Adds sinusoidal positions and runs the encoder stack (non-causal
+    attention, the gelu MLP); returns the ``ln_enc``-normed (B, S, d)."""
+    S = frames.shape[1]
+    pos = torch.arange(S, device=frames.device)[None]
+    h = frames.to(cfg.param_dtype) + sinusoidal_positions(
+        pos, cfg.d_model).to(cfg.param_dtype)
+    for li in range(cfg.encoder_layers):
+        p = layer_params(params["encoder"], li)
+        out, _ = attn_apply(h, p, cfg, None, causal=False, plain=plain)
+        h = h + out
+        h = h + ffn_apply(h, p, cfg)
+    return apply_norm(h, params["ln_enc"], cfg)
+
+
+def _cross_kv(enc_out, p, cfg: ArchConfig):
+    """One decoder layer's cross K/V (B, S, KV, hd) from the encoder
+    output (no biases, as in the JAX function)."""
+    B, S, _ = enc_out.shape
+    hd = cfg.head_dim
+    k = dense(enc_out, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = dense(enc_out, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    return k, v
+
+
+def _cross_attend(h, p, cfg: ArchConfig, k, v, plain: bool = False):
+    """Non-causal attention of the decoder rows over every row of k and v:
+    no ``kv_len``, so a zero-padded cross cache takes part in the softmax
+    (the JAX function's behaviour, kept)."""
+    hn = apply_norm(h, p["ln3"], cfg)
+    B, S, _ = hn.shape
+    q = dense(hn, p["cross"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    out = attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk_q,
+                    chunk_kv=cfg.attn_chunk_kv, plain=plain)
+    return dense(out.reshape(B, S, -1), p["cross"]["wo"])
+
+
+def whisper_forward(params, cfg: ArchConfig, frames, tokens,
+                    mode: str = "train", plain: bool = False):
+    """frames (B, S_enc, d), tokens (B, S) int.  The encoder, then the
+    decoder: sinusoidal positions, causal self-attention, cross-attention
+    over the encoder output, the gelu MLP.  Returns (logits_or_hidden,
+    aux (0), cache_parts or None); prefill returns the last position's
+    logits (B, 1, V) at f32 and {"k", "v" (L, B, S, KV, hd), "cross_k",
+    "cross_v" (L, B, S_enc, KV, hd)}."""
+    assert mode in ("train", "prefill", "hidden")
+    check_supported(cfg)
+    enc = whisper_encode(params, cfg, frames, plain)
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=tokens.device)[None]
+    h = embed(tokens, params["embed"]).to(cfg.param_dtype)
+    h = h + sinusoidal_positions(pos, cfg.d_model).to(cfg.param_dtype)
+    parts = {"k": [], "v": [], "cross_k": [], "cross_v": []}
+    for li in range(cfg.n_layers):
+        p = layer_params(params["decoder"], li)
+        out, (k, v) = attn_apply(h, p, cfg, None, causal=True, plain=plain)
+        h = h + out
+        ck, cv = _cross_kv(enc, p["cross"], cfg)
+        h = h + _cross_attend(h, p, cfg, ck, cv, plain)
+        h = h + ffn_apply(h, p, cfg)
+        if mode == "prefill":
+            for name, t in zip(parts, (k, v, ck, cv)):
+                parts[name].append(t)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if mode == "hidden":
+        return apply_norm(h, params["ln_f"], cfg), aux, None
+    if mode == "prefill":
+        return (_logits_exact(params, cfg, h[:, -1:]), aux,
+                {name: torch.stack(ts) for name, ts in parts.items()})
+    return _logits(params, cfg, h), aux, None
+
+
+def whisper_decode(params, cfg: ArchConfig, tokens, cache,
+                   plain: bool = False):
+    """tokens (B, 1) int; cache from ``cache_decls`` with the prefill's
+    parts copied in.  Self-attention over [start[b], pos] as in
+    ``lm_decode`` (rows written in place); cross-attention over every row
+    of ``cross_k``/``cross_v``, padding included.  Returns (logits (B, V)
+    f32, cache) with "pos" advanced by one."""
+    check_supported(cfg)
+    pos = cache["pos"]
+    start = cache.get("start")
+    B = tokens.shape[0]
+    h = embed(tokens, params["embed"]).to(cfg.param_dtype)
+    positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
+    h = h + sinusoidal_positions(positions, cfg.d_model).to(cfg.param_dtype)
+    for li in range(cfg.n_layers):
+        p = layer_params(params["decoder"], li)
+        out, _, _ = attn_decode(h, p, cfg, None, cache["k"][li],
+                                cache["v"][li], pos, start, plain)
+        h = h + out
+        h = h + _cross_attend(h, p, cfg, cache["cross_k"][li],
+                              cache["cross_v"][li], plain)
+        h = h + ffn_apply(h, p, cfg)
+    cache["pos"] = pos + 1
+    return _logits_exact(params, cfg, h)[:, 0], cache

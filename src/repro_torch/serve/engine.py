@@ -11,6 +11,8 @@ prefill runs the flash kernel and its K/V go into a fresh (L, B, S + new,
 KV, hd) cache, which the dense decode kernel reads; for the SSM family
 (falcon-mamba) the prefill runs the selective-scan kernel and every
 layer's state after the prompt goes into the fresh (conv, ssm) cache.
+It refuses the stub-frontend archs (qwen2-vl, whisper), whose prompts
+are a frontend's embeddings, not tokens.
 
 ``PagedEngine``: each tick: admit queued requests into free slots, let the
 ``TickScheduler`` grant per-slot work over the ``PagedKVCache``, patch the
@@ -21,8 +23,9 @@ loop (``Model.decode_many_paged``, up to ``prefill_chunk`` steps under
 the per-slot grants) for generating slots — and do the request bookkeeping on
 the host.  The JAX package's donated ``jax.jit`` cells become in-place
 torch calls on the engine's device (the device of the parameters).  It
-serves decoder-only attention LMs only, and refuses the SSM family as the
-JAX package's ``PagedEngine`` does.
+serves decoder-only attention LMs only (qwen2-vl's text prompts among
+them), and refuses the SSM and encoder-decoder families as the JAX
+package's ``PagedEngine`` does.
 
 With ``prefill_lane=False`` there is no lane: prompts ride the decode
 loop as forced tokens, one step per prompt token (prefill-by-decode); a
@@ -202,7 +205,21 @@ class ServingEngine:
         prompt, pads included.  The JAX engine gets no SSM cache parts from
         its prefill and decodes from a zero state, as if the prompt had
         never been seen; its own ``lm_decode`` stepped over the prompt
-        gives the state used here."""
+        gives the state used here.  A stub-frontend arch is refused by
+        name: its prefill reads a frontend's embeddings or frames, which
+        token prompts do not give (the JAX engine fails here with a
+        ``KeyError`` on the missing input)."""
+        mcfg = self.model.cfg
+        if not mcfg.embed_inputs:
+            what = ("frames and decoder tokens" if mcfg.is_encoder_decoder
+                    else "precomputed embeddings")
+            raise ValueError(
+                f"ServingEngine prefills token prompts, and {mcfg.name} is a "
+                f"stub-frontend arch whose prefill reads {what} from a "
+                f"frontend the repo does not have.  Call Model.prefill with "
+                f"them, then Model.decode_step / decode_many"
+                + ("" if mcfg.is_encoder_decoder else
+                   ", or serve text prompts through PagedEngine"))
         B = len(prompts)
         S = max(len(p) for p in prompts)
         toks = np.zeros((B, S), np.int32)

@@ -20,6 +20,9 @@ ARCHS = ["granite-8b", "qwen2-0.5b", "falcon-mamba-7b", "granite-20b",
          "phi4-mini-3.8b"]
 ALL_ARCHS = ARCHS + ["llama4-scout-17b-a16e", "grok-1-314b", "zamba2-7b",
                      "whisper-large-v3", "qwen2-vl-72b"]
+# the stub-frontend families: embedding inputs with M-RoPE, and the
+# encoder-decoder (layernorm with biases, the gelu MLP with biases)
+STUB_FRONTEND = ["qwen2-vl-72b", "whisper-large-v3"]
 JNP_TO_TORCH = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
                 jnp.dtype(jnp.float32): torch.float32,
                 jnp.dtype(jnp.int32): torch.int32}
@@ -88,6 +91,34 @@ def test_bridge_bit_exact_mamba1(dtype):
             b.view(twin).numpy().view(bits), a.view(bits), err_msg=k)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", STUB_FRONTEND)
+def test_bridge_bit_exact_stub_frontend(arch, dtype):
+    """qwen2-vl's leaves (qkv biases) and whisper's (the ``encoder`` and
+    ``decoder`` stacks with ``ln3`` and ``cross``, ``ln_enc``, every norm
+    bias and the gelu MLP's biases), bit for bit."""
+    cfg_j = dataclasses.replace(jconfigs.get(arch).reduced(), dtype=dtype)
+    cfg_t = dataclasses.replace(tconfigs.get(arch).reduced(), dtype=dtype)
+    pj = jax.tree.map(np.asarray, jget_model(cfg_j).init(jax.random.key(6)))
+    pt = params_from_jax(pj, cfg_t, "cpu")
+    fj, ft = _flat(pj), _flat(pt)
+    assert fj.keys() == ft.keys()
+    if cfg_t.is_encoder_decoder:
+        for k in ("/encoder/ffn/b_up", "/encoder/ffn/b_down",
+                  "/encoder/ln1/bias", "/decoder/ln3/bias",
+                  "/decoder/cross/wq", "/ln_enc/bias", "/ln_f/bias"):
+            assert k in ft, k
+    else:
+        assert "/blocks/attn/bq" in ft and "/blocks/ffn/w_gate" in ft
+    for k, a in fj.items():
+        b = ft[k]
+        assert tuple(b.shape) == a.shape and b.dtype == JNP_TO_TORCH[a.dtype]
+        bits = np.uint16 if a.dtype.itemsize == 2 else np.uint32
+        twin = torch.int16 if a.dtype.itemsize == 2 else torch.int32
+        np.testing.assert_array_equal(
+            b.view(twin).numpy().view(bits), a.view(bits), err_msg=k)
+
+
 def test_registries_hold_the_same_archs():
     assert sorted(tconfigs.registry()) == sorted(ALL_ARCHS) \
         == sorted(jconfigs.registry())
@@ -95,24 +126,30 @@ def test_registries_hold_the_same_archs():
 
 @pytest.mark.parametrize("arch", ALL_ARCHS[len(ARCHS):])
 def test_unported_families_refused(arch):
-    """The mirrored configs of the families the port does not run (hybrid
-    Mamba2, encoder-decoder, VLM) are refused, not half-served.  The MoE
-    archs run; what they would still need beyond their experts, a dense
-    FFN of their ``ffn_kind`` in place of the MoE (for grok-1 the gelu
-    MLP, not ported), is refused for grok-1 and taken for llama4-scout."""
+    """Of the archs that were config mirrors when the port began, only the
+    hybrid Mamba2 family (zamba2) is still refused, not half-served.  The
+    MoE archs run, and so would their dense counterparts (swiglu, and for
+    grok-1 the gelu MLP); qwen2-vl runs on both paths; whisper runs on the
+    whole-batch path, and the paged path refuses it as the JAX
+    ``PagedEngine`` does."""
     from repro_torch.models.transformer import check_supported
     cfg = tconfigs.get(arch)
     if cfg.n_experts:
         check_supported(cfg)
-        dense = dataclasses.replace(cfg, n_experts=0, family="dense")
-        if cfg.ffn_kind == "gelu":
-            with pytest.raises(NotImplementedError, match="dense gelu"):
-                check_supported(dense)
-        else:
-            check_supported(dense)
+        check_supported(cfg, paged=True)
+        check_supported(dataclasses.replace(cfg, n_experts=0,
+                                            family="dense"))
         return
-    with pytest.raises(NotImplementedError):
-        check_supported(cfg)
+    if cfg.family == "hybrid":
+        with pytest.raises(NotImplementedError, match="Mamba2"):
+            check_supported(cfg)
+        return
+    check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        with pytest.raises(ValueError, match="encoder-decoder"):
+            check_supported(cfg, paged=True)
+    else:
+        check_supported(cfg, paged=True)
 
 
 def test_bridge_rejects_wrong_shape():
@@ -123,7 +160,7 @@ def test_bridge_rejects_wrong_shape():
         params_from_jax(pj, cfg_t, "cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + STUB_FRONTEND)
 def test_init_params_matches_jax_schema(arch):
     cfg_j = jconfigs.get(arch).reduced()
     cfg_t = tconfigs.get(arch).reduced()

@@ -119,12 +119,23 @@ def test_moe_schema_is_the_jax_schema(arch):
 
 
 def test_dense_gelu_ffn_still_refused():
-    """gelu runs only inside MoE experts: a dense gelu FFN still needs
-    the JAX ``layers.gelu_mlp``, which is not ported."""
-    cfg = dataclasses.replace(tconfigs.get(GROK).reduced(), n_experts=0,
-                              family="dense")
-    with pytest.raises(NotImplementedError, match="dense gelu FFN"):
-        tT.check_supported(cfg)
+    """The dense gelu FFN was refused while the JAX ``layers.gelu_mlp``
+    was not ported; it is now, with whisper.  grok-1's dense counterpart
+    (the gelu MLP with biases in place of the experts) is taken and its
+    train logits match the JAX package's."""
+    jcfg, tcfg = (dataclasses.replace(c, n_experts=0, family="dense")
+                  for c in _cfgs(GROK))
+    tT.check_supported(tcfg)
+    jp = jget_model(jcfg).init(jax.random.key(7))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    assert set(tp["blocks"]["ffn"]) == {"w_up", "b_up", "w_down", "b_down"}
+    toks = np.random.RandomState(8).randint(0, tcfg.vocab_size, (2, 12))
+    pos = np.broadcast_to(np.arange(12)[None], (2, 12)).astype(np.int32)
+    jl, _, _ = jT.lm_forward(jp, jcfg, jnp.asarray(toks, jnp.int32),
+                             jnp.asarray(pos))
+    tl, _, _ = tT.lm_forward(tp, tcfg, torch.from_numpy(toks),
+                             torch.from_numpy(pos))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
 @pytest.mark.parametrize("rows", list(ROWS))

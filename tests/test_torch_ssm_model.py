@@ -262,8 +262,11 @@ def test_paged_path_refuses_ssm(models):
 @pytest.mark.parametrize("change", ["zamba2", "mamba2", "hybrid",
                                     "whisper"])
 def test_unported_families_refused(change):
-    """Mamba2, the hybrid family (the JAX package's zamba2-7b) and the
-    encoder-decoder family raise NotImplementedError: not ported yet."""
+    """Mamba2 and the hybrid family (the JAX package's zamba2-7b) raise
+    NotImplementedError: not ported yet.  The encoder-decoder family
+    (whisper), refused here until it was ported, now builds its schema
+    and whole-batch cache (with the cross caches); the paged cache refuses
+    it with ValueError, as the JAX ``PagedEngine`` refuses it."""
     falcon = tconfigs.get(ARCH).reduced()
     if change in ("zamba2", "whisper"):
         name = "zamba2-7b" if change == "zamba2" else "whisper-large-v3"
@@ -272,6 +275,12 @@ def test_unported_families_refused(change):
         cfg = dataclasses.replace(falcon, mamba_version=2)
     else:
         cfg = dataclasses.replace(falcon, family="hybrid")
+    if change == "whisper":
+        assert {"encoder", "decoder", "ln_enc"} <= set(tT.schema(cfg))
+        assert {"cross_k", "cross_v"} <= set(tT.cache_decls(cfg, 2, 8))
+        with pytest.raises(ValueError, match="encoder-decoder"):
+            tT.paged_cache_decls(cfg, 2, 4, 4, 9)
+        return
     for fn in (lambda: tT.schema(cfg), lambda: tT.cache_decls(cfg, 2, 8),
                lambda: tT.paged_cache_decls(cfg, 2, 4, 4, 9)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
