@@ -132,8 +132,9 @@ Phases, each failing loudly (non-zero exit, no result line):
                is served (512 does not divide 777); the prefill's and one
                decode step's logits on the kernel path are held against
                the plain path.  Before it, both dense kernels are held
-               against their plain versions (GQA, MQA, MHA, and the MoE
-               archs' G = 5 and 6 at D = 128; f32 and bf16;
+               against their plain versions (GQA, MQA, MHA, the MoE
+               archs' G = 5 and 6 at D = 128, and zamba2's 32 heads of
+               112 over 32, the D = 112 instantiations; f32 and bf16;
                decode over caches of 24-2080 rows with random windows, no
                window and an empty one, and at the split kernel's piece
                edges; flash causal and not, S = T from 37 to 2048, S != T,
@@ -245,6 +246,38 @@ Phases, each failing loudly (non-zero exit, no result line):
                whisper's shapes (non-causal S = T = 1500, causal 448, the
                cross-attention's 64 x 1500), and the timing phase times
                flash at the encoder's shape beside its bound and SDPA.
+     hybrid  — zamba2-7b at its published widths and full depth (81
+               Mamba2 layers, d_model 3584, 112 SSD heads of 64, N 64,
+               chunks of 256; one shared attention + FFN block, 32/32
+               heads of 112, d_ff 14336, after every 6th layer: 13
+               applications, 3 tail layers; 6.64e9 parameters, 13.27 GB
+               of bf16), random weights from a seeded generator, after
+               the earlier phases' weights are released (device memory
+               printed at its start).  Through ``ServingEngine``: the
+               whole-batch phase's 4 prompts (64-500 tokens, the longest
+               454: SSD chunks of 256 and a ragged 198), 32 greedy tokens,
+               fused and legacy loop.  Hard checks: in-vocab tokens;
+               flash exactly 13 launches per prefill and dense decode 13
+               per step, both at D = 112; fused = legacy tokens.  Then one
+               prefill and one decode step timed on the host clock and
+               traced (``torch.profiler``): device ms beside host ms, and
+               the SSD scans' device ms in the prefill (each call in a
+               profiler range).  Then the routes: at all 81 layers, every
+               application's flash output held against plain attention
+               on the same inputs (TOL), and the drift of the prefill's
+               and a decode step's logits and of the states printed
+               beside the floor (the plain prefill with one bit flipped
+               in the share of attention outputs where flash differs);
+               at the first 13 layers (2 applications, 1 tail layer) of
+               the same weights, the prefill's logits, every layer's conv
+               and ssm state and one decode step's logits within 8 bf16
+               ulps of the plain route (the states to their stack's
+               scale).  Then dense decode (T = 486) and flash (S = T =
+               454, causal) timed at the phase's shapes beside their
+               bounds and SDPA; and zamba2 reduced to 13 layers in f32,
+               at its reduced heads and with two heads of 112, through
+               ``ServingEngine``: greedy tokens identical on both routes
+               (prompts right-aligned to 17, 64 and 2).
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
                shapes that exercise the bounds guards, ragged last
@@ -267,7 +300,7 @@ Phases, each failing loudly (non-zero exit, no result line):
                add and triad with no branch at all, and every bf16
                flash and paged-prefill instantiation issuing bf16
                tensor-core products (``HMMA.16816.F32.BF16``) and cp.async
-               copies (``LDGSTS``); the H100
+               copies (``LDGSTS``), D = 112 included; the H100
                ``HardwareSpec`` read from the card with the measured
                ceiling; and the instruction roofline (``launch/irm.py``),
                with the SM clock read right after the BabelStream loop:
@@ -278,7 +311,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                every SASS loop of every instantiation a point uses tied
                to a loop marked ``REPRO_TRIP``, its unroll factor read
                from the listing, no ``LoopError``; their int8 and f32
-               instantiations are counted too) times its trip model,
+               instantiations, and dense decode's and flash's at D = 112
+               in bf16 and f32, are counted too) times its trip model,
                with bytes from the byte model and runtime from the
                kernel's device time in a ``torch.profiler`` trace (taken
                right after the build, before any large trace); then
@@ -334,7 +368,7 @@ LOOPED = ("paged_", "decode_attention_kernel",
           "flash_attention_tc_kernel", "selective_scan_kernel")
 # the bf16 instantiations on the tensor cores: each must issue the bf16
 # m16n8k16 product (HMMA) and the cp.async copy (LDGSTS); name: count
-TENSOR_CORE = {"flash_attention_tc_kernel": 4, "paged_prefill_tc_kernel": 8}
+TENSOR_CORE = {"flash_attention_tc_kernel": 5, "paged_prefill_tc_kernel": 8}
 
 
 def log(msg: str) -> None:
@@ -2317,7 +2351,8 @@ DECODE_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                 "llama4-scout": dict(H=40, KV=8, D=128),
                 "grok-1": dict(H=48, KV=8, D=128),
                 "qwen2-vl": dict(H=64, KV=8, D=128),
-                "whisper": dict(H=20, KV=20, D=64)}
+                "whisper": dict(H=20, KV=20, D=64),
+                "zamba2": dict(H=32, KV=32, D=112)}
 FLASH_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                "MQA": dict(H=8, KV=1, D=64),
                "MHA": dict(H=8, KV=8, D=64),
@@ -2325,7 +2360,8 @@ FLASH_GEOMS = {"granite GQA": dict(H=32, KV=8, D=128),
                "phi4-mini": dict(H=24, KV=8, D=128),
                "llama4-scout": dict(H=40, KV=8, D=128),
                "grok-1": dict(H=48, KV=8, D=128),
-               "qwen2-vl": dict(H=64, KV=8, D=128)}
+               "qwen2-vl": dict(H=64, KV=8, D=128),
+               "zamba2": dict(H=32, KV=32, D=112)}
 # whisper-large-v3's attention (20 heads of 64, G = 1) at its shapes: the
 # encoder's non-causal S = T = 1500, the decoder's causal self-attention
 # over its 448-token context, the cross-attention of 64 decoder rows over
@@ -2494,12 +2530,13 @@ def route_check(torch, gen, dtype, tol, tname):
     return err
 
 
-def dense_timing(torch, S):
-    """Kernel, plain and SDPA times at the whole-batch path's shapes
-    (granite-8b, bf16, B = 4): decode over a T = S + 32 row cache (all
-    rows live, the last decode step's work), cycling through 36 layers'
-    caches; flash at S = 512, causal, cycling through 8 inputs, so that
-    every call reads from memory and not from the 50 MB L2."""
+def dense_kernel_timing(torch, gen, *, B, H, KV, D, T, L, S, n_sets):
+    """Kernel, plain and SDPA times of the two dense kernels in bf16:
+    decode over a T-row cache (all rows live), cycling through L caches;
+    flash at S = T' = S, causal, cycling through ``n_sets`` inputs, so
+    that every call reads from memory and not from the 50 MB L2.
+    Returns {kernel: row}, each with ms, plain_ms, library_ms (SDPA),
+    device_ms, library_device_ms, shape, bytes and flops."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode
@@ -2507,12 +2544,8 @@ def dense_timing(torch, S):
     from repro_torch.kernels.flash_attention import flash
     from repro_torch.models.attention import repeat_kv
     from repro_torch.models.flash import flash_attention_ref
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(77)
-    B, H, KV, D, bf = 4, 32, 8, 128, torch.bfloat16
+    bf = torch.bfloat16
     rows = {}
-
-    T, L = S + 32, 36
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(bf)
     kc, vc = (torch.randn(L, B, T, KV, D, generator=gen, device="cuda")
               .to(bf) for _ in range(2))
@@ -2525,55 +2558,70 @@ def dense_timing(torch, S):
         lambda i: F.scaled_dot_product_attention(
             q.transpose(1, 2), kc[i % L].transpose(1, 2),
             vc[i % L].transpose(1, 2), enable_gqa=True))
-    nbytes = sum(la.io_bytes for la in decode.trip_model(
-        B, T, H, KV, D, T, [0] * B, bf))
     rows["decode_attention"] = dict(
         zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
-        shape=f"B={B} T={T} kv_len={T} H={H} KV={KV} D={D}", bytes=nbytes,
-        flops=4 * B * T * H * D)
+        shape=f"B={B} T={T} kv_len={T} H={H} KV={KV} D={D}",
+        bytes=sum(la.io_bytes for la in decode.trip_model(
+            B, T, H, KV, D, T, [0] * B, bf)),
+        flops=4 * B * T * H * D, device_ms=device_ms(calls[0]),
+        library_device_ms=device_ms(calls[2]))
+    del kc, vc
+    qs, ks, vs = zip(*(dense_inputs(gen, B, S, S, H, KV, D, bf)
+                       for _ in range(n_sets)))
+    n = n_sets
+    calls = (
+        lambda i: flash.launch(qs[i % n], ks[i % n], vs[i % n], True),
+        lambda i: flash_attention_ref(qs[i % n], repeat_kv(ks[i % n], H),
+                                      repeat_kv(vs[i % n], H), True, S, S),
+        lambda i: F.scaled_dot_product_attention(
+            qs[i % n].transpose(1, 2), ks[i % n].transpose(1, 2),
+            vs[i % n].transpose(1, 2), is_causal=True, enable_gqa=True))
+    rows["flash_attention"] = dict(
+        zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
+        shape=f"B={B} S=T={S} causal H={H} KV={KV} D={D}",
+        bytes=flash.trip_model(B, S, S, H, KV, D, True)[0].io_bytes,
+        flops=4 * D * B * H * S * (S + 1) // 2, device_ms=device_ms(calls[0]),
+        library_device_ms=device_ms(calls[2]))
+    return rows
+
+
+def log_dense_rows(rows, arch):
+    """Each row's bound (bytes over 3.35 TB/s or flops over 989 TFLOP/s),
+    logged beside its times; ``arch(name)`` labels a row."""
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
+                                                BF16_FLOPS_PER_S)
+        log(f"[timing] {name} {arch(name)} bf16 {r['shape']}: kernel_ms="
+            f"{r['ms']:.4f} device_ms={r['device_ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA; "
+            f"device {r['library_device_ms']:.4f}) bound_ms="
+            f"{r['bound_ms']:.5f} (by {r['bound_by']}: {r['bytes']} bytes "
+            f"over 3.35 TB/s, {r['flops']} flops over 989 TFLOP/s)")
+
+
+def dense_timing(torch, S):
+    """The dense kernels at the whole-batch path's shapes (granite-8b,
+    bf16, B = 4): decode over a T = S + 32 row cache (the last decode
+    step's work) cycling through 36 layers' caches, flash at S = 512
+    over 8 inputs; and flash at the whisper encoder's shape."""
+    from repro_torch.kernels.decode_attention import decode
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    B, KV, T = 4, 8, S + 32
+    rows = dense_kernel_timing(torch, gen, B=B, H=32, KV=KV, D=128, T=T,
+                               L=36, S=512, n_sets=8)
     blocks = decode.grid_blocks(B, T, KV)
-    rows["decode_attention"]["device_ms"] = device_ms(calls[0])
     log(f"[timing] decode_attention grid at B={B} T={T} KV={KV}: "
         f"{decode.splits(T, B, KV)} splits, {blocks} blocks (+ the combine's "
         f"{KV * B}); device_ms (queued ahead of the card): kernel "
         f"{rows['decode_attention']['device_ms']:.4f}, SDPA "
-        f"{device_ms(calls[2]):.4f}")
+        f"{rows['decode_attention']['library_device_ms']:.4f}")
     if blocks < 4 * B * KV:
         raise AssertionError(f"dense decode launches {blocks} blocks, fewer "
                              f"than 4 B KV = {4 * B * KV}")
-    del kc, vc
-
-    Sf, L = 512, 8
-    qs, ks, vs = zip(*(dense_inputs(gen, B, Sf, Sf, H, KV, D, bf)
-                       for _ in range(L)))
-    calls = (
-        lambda i: flash.flash_attention(qs[i % L], ks[i % L], vs[i % L]),
-        lambda i: flash_attention_ref(qs[i % L], repeat_kv(ks[i % L], H),
-                                      repeat_kv(vs[i % L], H), True, Sf, Sf),
-        lambda i: F.scaled_dot_product_attention(
-            qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
-            vs[i % L].transpose(1, 2), is_causal=True, enable_gqa=True))
-    rows["flash_attention"] = dict(
-        zip(("ms", "plain_ms", "library_ms"), map(time_ms, calls)),
-        shape=f"B={B} S=T={Sf} causal H={H} KV={KV} D={D}",
-        bytes=flash.trip_model(B, Sf, Sf, H, KV, D, True)[0].io_bytes,
-        flops=4 * D * B * H * Sf * (Sf + 1) // 2)
-    rows["flash_attention"]["device_ms"] = device_ms(calls[0])
-    log(f"[timing] flash_attention device_ms (queued ahead of the card): "
-        f"kernel {rows['flash_attention']['device_ms']:.4f}, SDPA "
-        f"{device_ms(calls[2]):.4f}")
-    del qs, ks, vs
     rows["flash_whisper"] = whisper_flash_timing(torch, gen)
-    for name, r in rows.items():
-        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"],
-                                                BF16_FLOPS_PER_S)
-        arch = "whisper-large-v3" if name == "flash_whisper" else \
-            "granite-8b"
-        log(f"[timing] {name} {arch} bf16 {r['shape']}: kernel_ms="
-            f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
-            f"{r['library_ms']:.4f} (SDPA) bound_ms={r['bound_ms']:.5f} (by "
-            f"{r['bound_by']}: {r['bytes']} bytes over 3.35 TB/s, "
-            f"{r['flops']} flops over 989 TFLOP/s)")
+    log_dense_rows(rows, lambda name: "whisper-large-v3"
+                   if name == "flash_whisper" else "granite-8b")
     return rows
 
 
@@ -2727,28 +2775,24 @@ def compare_whole_batch_logits(torch, cfg, params, prompts):
                                  f"drift {err:.4e} > {lim:.4e}")
 
 
-def whole_batch_parity(torch):
-    """qwen2-0.5b (reduced) in f32 through ``ServingEngine``: the kernel
-    path's greedy tokens equal the plain path's.  Prompts of 32-96 tokens
-    in multiples of 32 (the plain side's chunked flash reference, chunks of
-    32), a batch of short ones (its direct attention), and (608, 64):
-    chunks of 32 divide 608, 512 does not, so the kernel route must take
-    it as the reference does."""
+def route_parity(torch, cfg, seed, lens_sets):
+    """``cfg`` in f32, random weights from ``seed``, through
+    ``ServingEngine`` on the kernel and the plain route: 12 greedy tokens
+    for each batch of prompts of ``lens_sets``.  Returns (requests
+    token-identical, requests)."""
     import dataclasses
 
     import numpy as np
 
-    from repro_torch import configs
     from repro_torch.models.model import get_model
     from repro_torch.serve.engine import ServeConfig, ServingEngine
-    cfg = dataclasses.replace(configs.get("qwen2-0.5b").reduced(),
-                              dtype="float32")
+    cfg = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(8)
+    gen.manual_seed(seed)
     params = get_model(cfg).init(gen, "cuda")
-    rng = np.random.RandomState(9)
+    rng = np.random.RandomState(seed + 1)
     same = total = 0
-    for lens in ((32, 64, 96), (96, 96, 32, 64), (7, 30, 19), (608, 64)):
+    for lens in lens_sets:
         prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
                    for n in lens]
         outs = [ServingEngine(get_model(cfg, plain_attention=plain), params,
@@ -2757,6 +2801,20 @@ def whole_batch_parity(torch):
                 for plain in (False, True)]
         same += sum(a == b for a, b in zip(*outs))
         total += len(prompts)
+    return same, total
+
+
+def whole_batch_parity(torch):
+    """qwen2-0.5b (reduced) in f32 through ``ServingEngine``: the kernel
+    path's greedy tokens equal the plain path's.  Prompts of 32-96 tokens
+    in multiples of 32 (the plain side's chunked flash reference, chunks of
+    32), a batch of short ones (its direct attention), and (608, 64):
+    chunks of 32 divide 608, 512 does not, so the kernel route must take
+    it as the reference does."""
+    from repro_torch import configs
+    same, total = route_parity(
+        torch, configs.get("qwen2-0.5b").reduced(), 8,
+        ((32, 64, 96), (96, 96, 32, 64), (7, 30, 19), (608, 64)))
     log(f"[parity] qwen2-0.5b-reduced f32 ServingEngine, kernel vs plain "
         f"path: {same}/{total} requests token-identical (the (608, 64) "
         f"batch included)")
@@ -3076,29 +3134,10 @@ def ssm_parity(torch):
     kernel path's greedy tokens equal the plain path's, over prompts
     shorter than the conv window, ragged ones, and ones over several of
     the kernel's 32-step tiles."""
-    import dataclasses
-
-    import numpy as np
-
     from repro_torch import configs
-    from repro_torch.models.model import get_model
-    from repro_torch.serve.engine import ServeConfig, ServingEngine
-    cfg = dataclasses.replace(configs.get("falcon-mamba-7b").reduced(),
-                              dtype="float32")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(12)
-    params = get_model(cfg).init(gen, "cuda")
-    rng = np.random.RandomState(13)
-    same = total = 0
-    for lens in ((5, 40, 17), (64, 100, 2, 70), (1, 2)):
-        prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
-                   for n in lens]
-        outs = [ServingEngine(get_model(cfg, plain_attention=plain), params,
-                              ServeConfig(max_new_tokens=12)
-                              ).generate_batch(prompts)
-                for plain in (False, True)]
-        same += sum(a == b for a, b in zip(*outs))
-        total += len(prompts)
+    same, total = route_parity(
+        torch, configs.get("falcon-mamba-7b").reduced(), 12,
+        ((5, 40, 17), (64, 100, 2, 70), (1, 2)))
     log(f"[parity] falcon-mamba-7b-reduced f32 ServingEngine, kernel vs "
         f"plain path: {same}/{total} requests token-identical")
     if same != total:
@@ -3978,6 +4017,365 @@ def audio_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# hybrid: zamba2-7b at full width and depth through ServingEngine
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_PARITY_LAYERS = 13        # the f32 parity: G = 2 groups, R = 1 tail
+HYBRID_MARK = "ssd_scan"         # the profiler range around each SSD scan
+
+
+def profiled_ms(torch, fn, mark=None):
+    """``fn()`` once under ``torch.profiler``: (device ms of all its CUDA
+    work, device ms of the kernels launched inside ``mark`` ranges, or
+    None without a mark).  A range's kernels are those the profiler links
+    to the CPU ops under it; 0 where it links none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    total = sum(e.device_time_total for e in events
+                if e.device_type == cuda and e.name != mark) / 1e3
+    if mark is None:
+        return total, None
+    return total, sum(e.device_time_total for e in events
+                      if e.device_type != cuda and e.name == mark) / 1e3
+
+
+def hybrid_generate(torch, engine, prompts, fused):
+    """One ``generate_batch`` with the dense kernels' counts set to 0
+    just before it: (tokens, host s, {kernel: launches})."""
+    from repro_torch.kernels.decode_attention import decode
+    from repro_torch.kernels.flash_attention import flash
+    decode.KERNEL.launches = flash.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate_batch(prompts, fused=fused)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {
+        "flash_attention": flash.KERNEL.launches,
+        "decode_attention": decode.KERNEL.launches}
+
+
+def hybrid_phase(torch):
+    """zamba2-7b at its published widths and full depth (81 Mamba2
+    layers, the shared block after every 6th: 13 applications, 3 tail
+    layers), bf16, random weights, through ``ServingEngine``: 4 prompts
+    of 64-500 tokens (the longest not a multiple of the SSD chunks), 32
+    greedy tokens; fused and legacy loops; the routes against each
+    other; the host split and the SSD scan's share of a prefill; the
+    dense kernels timed at D = 112; then the reduced f32 parity."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    free, total = torch.cuda.mem_get_info()
+    log(f"[hybrid] device memory at phase start: {free / 2**30:.2f} GiB "
+        f"free of {total / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated by "
+        f"this process); on {gpu_line()}")
+    cfg = configs.get(HYBRID_ARCH)               # full width and depth
+    k, G = cfg.attn_every, cfg.n_layers // cfg.attn_every
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[hybrid] {HYBRID_ARCH}: {cfg.n_layers} Mamba2 layers (d_model "
+        f"{cfg.d_model}, d_in {cfg.d_model * cfg.ssm_expand}, "
+        f"{cfg.d_model * cfg.ssm_expand // cfg.ssm_head_dim} SSD heads of "
+        f"{cfg.ssm_head_dim}, N {cfg.ssm_state}, chunks of {cfg.ssm_chunk})"
+        f" and one shared block ({cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}) after every {k}: {G} "
+        f"applications, {cfg.n_layers - G * k} tail layers; "
+        f"{n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB in "
+        f"bf16, init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(17)              # the whole-batch phase's
+    prompt_lens = rng.randint(64, 501, size=4)   # prompt lengths
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
+               for n in prompt_lens]
+    new_tokens, S = 32, int(prompt_lens.max())
+    if S % cfg.ssm_chunk == 0:
+        raise AssertionError(f"hybrid: S = {S} must leave a ragged SSD "
+                             f"chunk")
+    engine = ServingEngine(model, params,
+                           ServeConfig(max_new_tokens=new_tokens))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fused, dt, launches = hybrid_generate(torch, engine, prompts, True)
+        legacy, dt_legacy, legacy_launches = hybrid_generate(
+            torch, engine, prompts, False)
+    n_out = sum(len(o) for o in fused)
+    want = {"flash_attention": G, "decode_attention": G * (new_tokens - 1)}
+    log(f"[hybrid] prompts {prompt_lens.tolist()} (right-aligned to S={S}:"
+        f" SSD chunks of {cfg.ssm_chunk} and {S % cfg.ssm_chunk}), "
+        f"{new_tokens} new tokens each: fused {n_out} tokens in {dt:.2f} s "
+        f"= {n_out / dt:.1f} tokens/s, legacy loop {dt_legacy:.2f} s = "
+        f"{n_out / dt_legacy:.1f} tokens/s (host clock, prefill included); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[hybrid] launches: fused {launches}, legacy {legacy_launches} "
+        f"(want {want}: flash once per application in the prefill, dense "
+        f"decode once per application per step, both at D = "
+        f"{cfg.head_dim})")
+    if not all(len(o) == new_tokens and all(0 <= t < cfg.vocab_size
+                                            for t in o) for o in fused):
+        raise AssertionError(f"hybrid: a request did not get {new_tokens} "
+                             f"in-vocab tokens")
+    if fused != legacy:
+        raise AssertionError("hybrid: fused and legacy loop disagree")
+    if launches != want or legacy_launches != want:
+        raise AssertionError(f"hybrid: launches {launches} and "
+                             f"{legacy_launches}, want {want}")
+    log("[hybrid] fused and legacy loop: 4/4 requests token-identical")
+    split = hybrid_host_split(torch, cfg, engine, prompts, ssm_mod)
+    del engine
+    compare_hybrid_paths(torch, cfg, params, prompts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = hybrid_timing(torch, S, G)
+    hybrid_parity(torch)
+    return dict(launches=launches, tok_s=n_out / dt, S=S, timing=timing,
+                free_gib=free / 2**30, **split)
+
+
+def hybrid_host_split(torch, cfg, engine, prompts, ssm_mod):
+    """One prefill and one decode step, each timed on the host clock
+    (synchronised) and traced by ``torch.profiler``: device ms beside host
+    ms, the rest the device's idle share; and the SSD scans' device ms in
+    the prefill (each call wrapped in a profiler range)."""
+    import numpy as np
+    S = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), S), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = p
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    model, params = engine.model, engine.params
+    scan = ssm_mod.ssd_scan
+
+    def marked(*args):
+        with torch.profiler.record_function(HYBRID_MARK):
+            return scan(*args)
+
+    with torch.no_grad():
+        last, cache = engine._prefill_cache(prompts, 4)
+        nxt = last.argmax(-1).to(torch.int32)[:, None]
+        model.decode_step(params, nxt, cache)                 # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        model.decode_step(params, nxt, cache)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        ssm_mod.ssd_scan = marked
+        try:
+            pre_dev, scan_dev = profiled_ms(
+                torch, lambda: model.prefill(params, batch), HYBRID_MARK)
+        finally:
+            ssm_mod.ssd_scan = scan
+        step_dev, _ = profiled_ms(
+            torch, lambda: model.decode_step(params, nxt, cache))
+    log(f"[hybrid] host split: a prefill (B={len(prompts)}, S={S}) "
+        f"{pre_ms:.1f} ms host clock, {pre_dev:.2f} ms of device time "
+        f"(torch.profiler; the device idles {100 * (1 - pre_dev / pre_ms):.1f}"
+        f"%); the SSD scans {scan_dev:.2f} ms of it "
+        f"({100 * scan_dev / pre_dev:.1f}%, {cfg.n_layers} calls); a decode "
+        f"step {step_ms:.2f} ms host clock, {step_dev:.3f} ms of device time"
+        f" (idle {100 * (1 - step_dev / step_ms):.1f}%); on {gpu_line()}")
+    return dict(prefill_ms=pre_ms, prefill_dev_ms=pre_dev,
+                scan_dev_ms=scan_dev, step_ms=step_ms, step_dev_ms=step_dev)
+
+
+# The depth at which the hybrid phase holds the two routes' logits and
+# states to LOGIT_ULPS: the first 13 layers (2 shared-block applications,
+# 1 tail layer) of the full-width weights.  At all 81 layers this random
+# network turns one bf16 ulp in 1e-3 of one application's attention
+# outputs into a logit change ~3x that bound (PERF.md, PR 27): the
+# full-depth drift is printed beside that floor, and each application's
+# flash output is held against plain attention on the same inputs.
+HYBRID_ULP_LAYERS = 13
+
+
+def hybrid_route_pair(torch, cfg, params, prompts, attend=None,
+                      routes=("kernel", "plain")):
+    """The kernel and plain routes' prefill (last-position logits, conv
+    and ssm states) and one decode step's logits (fed the plain route's
+    prefill argmax) from the same prompts; ``attend(direct_attention)``
+    wraps the plain route's prefill attention.  Returns {route: [prefill
+    logits, decode logits, conv, ssm]}."""
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models.model import get_model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    out = {}
+    plain_of = {"kernel": False, "plain": True}
+    with torch.no_grad():
+        for route in routes:
+            plain = plain_of[route]
+            m = get_model(cfg, plain_attention=plain)
+            direct = attention_mod.direct_attention
+            if plain and attend is not None:
+                attention_mod.direct_attention = attend(direct)
+            try:
+                last, cache = ServingEngine(m, params, ServeConfig()
+                                            )._prefill_cache(prompts, 2)
+            finally:
+                attention_mod.direct_attention = direct
+            states = (cache["conv"].float(), cache["ssm"].clone())
+            out[route] = [last.float(), cache, *states]
+        nxt = out["plain"][0].argmax(-1).to(torch.int32)[:, None]
+        for route in routes:
+            step, _ = get_model(cfg, plain_attention=plain_of[route]
+                                ).decode_step(params, nxt, out[route][1])
+            out[route][1] = step.float()
+    return out
+
+
+def compare_hybrid_paths(torch, cfg, params, prompts):
+    """The two routes at full width.  At all 81 layers: every shared-block
+    application's flash output held against plain attention on the same
+    inputs (TOL), the drift of the prefill's and one decode step's
+    logits and of the states printed beside the floor (the plain prefill
+    with the last bit of its attention outputs flipped in the share of
+    elements where flash differs).  At the first HYBRID_ULP_LAYERS
+    layers: the prefill's logits, every layer's conv and ssm state (to
+    its stack's scale, as the ssm phase holds falcon's) and one decode
+    step's logits within LOGIT_ULPS bf16 ulps of the plain route."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import flash
+    tol, _ = TOL["bfloat16"]
+    seen = {"calls": 0, "err": 0.0, "share": []}
+
+    def both(direct):
+        def run(q, k, v, causal, *rest):
+            want = direct(q, k, v, causal, *rest)
+            got = flash.launch(q, k, v, causal)
+            seen["err"] = max(seen["err"], check_close(
+                f"hybrid application {seen['calls']} flash", got, want, tol))
+            seen["share"].append((got != want).float().mean().item())
+            seen["calls"] += 1
+            return want
+        return run
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def flip(direct):
+        share = sum(seen["share"]) / len(seen["share"])
+
+        def run(*args):
+            out = direct(*args)
+            mask = (torch.rand(out.shape, generator=gen, device=out.device)
+                    < share).to(torch.int16)
+            return (out.view(torch.int16) ^ mask).view(out.dtype)
+        return run
+
+    full = hybrid_route_pair(torch, cfg, params, prompts, both)
+    G = cfg.n_layers // cfg.attn_every
+    if seen["calls"] != G:
+        raise AssertionError(f"hybrid: {seen['calls']} attention calls in "
+                             f"the plain prefill, not {G}")
+    log(f"[hybrid] every application's flash output against plain "
+        f"attention on the same inputs ({G} of them, B={len(prompts)}, "
+        f"S={max(len(p) for p in prompts)}, D={cfg.head_dim}): "
+        f"max|kernel-plain|={seen['err']:.3e} (tol {tol}), differing "
+        f"elements {100 * sum(seen['share']) / G:.2f}%")
+    floor = hybrid_route_pair(torch, cfg, params, prompts, flip,
+                              routes=("plain",))["plain"]
+    names = ("prefill logits", "decode step logits", "conv state",
+             "ssm state")
+    for i, name in enumerate(names):
+        k, p, f = full["kernel"][i], full["plain"][i], floor[i]
+        if i == 1:
+            f = None                  # the floor's prefill only
+        lim = LOGIT_ULPS * 2.0 ** -8 * p.abs().max().item()
+        log(f"[hybrid] {cfg.n_layers} layers, {name}, kernel vs plain "
+            f"route: max|diff|={(k - p).abs().max().item():.4e} = "
+            f"{(k - p).abs().max().item() / lim:.2f} x the {LOGIT_ULPS}-ulp "
+            f"bound {lim:.4e}"
+            + ("" if f is None else
+               f"; floor (one bit flipped in "
+               f"{100 * sum(seen['share']) / G:.2f}% of the plain "
+               f"attention outputs) {(f - p).abs().max().item():.4e} = "
+               f"{(f - p).abs().max().item() / lim:.2f} x"))
+    del full, floor
+    torch.cuda.empty_cache()
+
+    n = HYBRID_ULP_LAYERS
+    cut = dataclasses.replace(cfg, n_layers=n)
+    cut_params = dict(params, blocks=first_layers(params["blocks"], n))
+    pair = hybrid_route_pair(torch, cut, cut_params, prompts)
+    ulp_check("hybrid", f"{n} layers, prefill logits, kernel vs plain "
+              f"route", pair["kernel"][0], pair["plain"][0])
+    ulp_check("hybrid", f"{n} layers, decode step logits, kernel vs plain "
+              f"route", pair["kernel"][1], pair["plain"][1])
+    for i, name in ((2, "conv"), (3, "ssm")):
+        a, b = pair["kernel"][i], pair["plain"][i]
+        err = (a - b).abs().max().item()
+        lim = LOGIT_ULPS * 2.0 ** -8 * b.abs().max().item()
+        diff = (a - b).abs().flatten(1).amax(1)
+        ratio = (diff / (LOGIT_ULPS * 2.0 ** -8 * b.abs().flatten(1).amax(1))
+                 .clamp(min=1e-30)).tolist()
+        worst = max(range(n), key=ratio.__getitem__)
+        log(f"[hybrid] {n} layers, prefill {name} state, kernel vs plain "
+            f"route, every layer: max|diff|={err:.4e}, bound {lim:.4e} "
+            f"({LOGIT_ULPS} bf16 ulps of the stack's scale); against its "
+            f"own scale the worst layer is {worst} at {ratio[worst]:.3f} "
+            f"of its bound; the {cfg.attn_every} layers before the first "
+            f"shared block differ by {diff[:cfg.attn_every].max().item():.1e}")
+        if not err <= lim:
+            raise AssertionError(f"hybrid {n} layers, {name} state: kernel "
+                                 f"route drifts {err:.4e} > {lim:.4e}")
+
+
+def hybrid_timing(torch, S, G):
+    """The dense kernels at the hybrid phase's shapes (zamba2-7b's shared
+    block, bf16, B = 4, 32 heads of 112 over 32): decode over a T = S + 32
+    row cache cycling through the G applications' caches, flash at S =
+    T = the longest prompt over 4 inputs."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(78)
+    rows = dense_kernel_timing(torch, gen, B=4, H=32, KV=32, D=112,
+                               T=S + 32, L=G, S=S, n_sets=4)
+    log_dense_rows(rows, lambda name: "zamba2-7b")
+    return rows
+
+
+def hybrid_parity(torch):
+    """zamba2-7b reduced to 13 layers (G = 2, R = 1) in f32 through
+    ``ServingEngine``, kernel route against plain route: greedy tokens
+    identical, at the reduced heads (16 wide) and with two heads of 112
+    (the dense kernels' new instantiation).  Prompts right-aligned to 17
+    (a ragged SSD chunk; direct attention on the plain route), 64 (the
+    chunked reference) and 2."""
+    import dataclasses
+
+    from repro_torch import configs
+    base = dataclasses.replace(configs.get(HYBRID_ARCH).reduced(),
+                               n_layers=HYBRID_PARITY_LAYERS)
+    for what, cfg in (("heads of 16", base),
+                      ("heads of 112", dataclasses.replace(
+                          base, n_heads=2, n_kv_heads=2, d_head=112))):
+        same, total = route_parity(torch, cfg, 23,
+                                   ((5, 17, 9), (64, 30, 2, 50), (1, 2)))
+        log(f"[parity] {HYBRID_ARCH}-reduced, {HYBRID_PARITY_LAYERS} layers,"
+            f" {what}, f32 ServingEngine, kernel vs plain route: "
+            f"{same}/{total} requests token-identical")
+        if same != total:
+            raise AssertionError(f"hybrid ({what}): kernel and plain route "
+                                 f"disagree in f32")
+
+
+# ---------------------------------------------------------------------------
 # 5./6. BabelStream and the instruction roofline
 # ---------------------------------------------------------------------------
 
@@ -4340,6 +4738,9 @@ def main() -> int:
     audio = audio_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    hybrid = hybrid_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
     irm_phase(torch, res, clocks, gpu, listing, counter,
               points + sv["census"])
@@ -4377,7 +4778,11 @@ def main() -> int:
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "moe_launches": moe["wb"]["launches"][name],
             "vlm_launches": vlm["wb_launches"][name],
-            "audio_launches": audio["launches"][name]})
+            "audio_launches": audio["launches"][name],
+            "hybrid_launches": hybrid["launches"][name],
+            "zamba2": {k: hybrid["timing"][name][k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by")}})
         if name == "flash_attention":
             w = d_timing["flash_whisper"]
             kernels[-1]["whisper_encoder"] = {
@@ -4458,6 +4863,13 @@ def main() -> int:
         f"call ({audio['enc_dev_ms']:.2f} ms of device time, flash "
         f"{audio['enc_flash_ms']:.2f}); launches {audio['launches']}; on "
         f"{gpu}")
+    log(f"[summary] hybrid ({HYBRID_ARCH}, 81 layers, 13 shared-block "
+        f"applications, bf16): {hybrid['free_gib']:.2f} GiB free at phase "
+        f"start; whole-batch {hybrid['tok_s']:.1f} tokens/s; a prefill "
+        f"{hybrid['prefill_ms']:.1f} ms ({hybrid['prefill_dev_ms']:.2f} ms "
+        f"device, SSD scans {hybrid['scan_dev_ms']:.2f}); a decode step "
+        f"{hybrid['step_ms']:.2f} ms ({hybrid['step_dev_ms']:.3f} ms "
+        f"device); launches {hybrid['launches']}; on {gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

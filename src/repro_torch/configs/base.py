@@ -3,13 +3,13 @@
 The dataclass is copied field for field (the tests hold it equal to the
 JAX package's for every ported arch), so one config describes the same
 model in both packages.  All ten of the JAX package's archs are
-registered, and nine run: the dense ones (granite-8b, the serving arch;
+registered, and all run: the dense ones (granite-8b, the serving arch;
 granite-20b; qwen2-0.5b, the test arch; phi4-mini-3.8b), the MoE ones
 (llama4-scout-17b-a16e, grok-1-314b), falcon-mamba-7b (Mamba1,
-whole-batch serving), qwen2-vl-72b (M-RoPE, embedding inputs; paged
-serving of text prompts) and whisper-large-v3 (the encoder-decoder, at
-the Model level).  zamba2-7b (the Mamba2 hybrid) is a config mirror that
-``transformer.check_supported`` refuses.
+whole-batch serving), zamba2-7b (the Mamba2 hybrid with a shared
+attention block, whole-batch serving), qwen2-vl-72b (M-RoPE, embedding
+inputs; paged serving of text prompts) and whisper-large-v3 (the
+encoder-decoder, at the Model level).
 ``attention_impl`` is mirrored for equality only: in the port the DEVICE
 of the tensors picks the paged-attention implementation (CUDA tensors
 always reach the hand-written kernels, CPU tensors the plain version),

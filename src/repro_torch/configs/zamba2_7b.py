@@ -1,8 +1,8 @@
 """zamba2-7b — hybrid Mamba2 trunk + shared attention block.
 [arXiv:2411.15242; unverified]
 81L d_model=3584 32H (GQA kv=32) d_ff=14336 vocab=32000, ssm_state=64.
-Config mirror only: ``transformer.check_supported`` refuses Mamba2 and
-the hybrid family.
+Served whole-batch (``ServingEngine``); the paged engine refuses it,
+as the JAX package's does.
 """
 from repro_torch.configs.base import ArchConfig, register
 

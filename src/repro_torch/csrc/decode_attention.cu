@@ -37,6 +37,12 @@
 // Tiles are read only inside the window, so blocks outside it read
 // nothing (the Pallas kernel's dead-block skip).
 //
+// Head dims: 16, 32, 64 and 128, the paged kernels' own, and 112, the
+// zamba2 hybrid's shared attention (3584 / 32 heads).  Nothing in the body
+// needs D to be a power of two: a bf16 row is 14 copies of 16 bytes, its
+// 240-byte padded shared row keeps each quarter-warp's 16-byte reads on
+// distinct banks, and p @ v takes 28 four-column units a row.
+//
 // Empty windows (kv_start[b] >= kv_len): every piece is empty, keeps m =
 // -inf and l = 0, and the combine skips pieces with l = 0, so it never
 // forms exp(-inf - -inf) and the output is exact zeros.  The plain
@@ -103,6 +109,10 @@ cudaError_t run_typed(const Params& p, int B, int D, void* out,
     case 64:
       err = launch_smem(decode_attention_kernel<T, 64>, grid, kThreads, smem,
                         stream, p);
+      break;
+    case 112:                                // zamba2: 3584 / 32 heads
+      err = launch_smem(decode_attention_kernel<T, 112>, grid, kThreads,
+                        smem, stream, p);
       break;
     case 128:
       err = launch_smem(decode_attention_kernel<T, 128>, grid, kThreads,

@@ -44,6 +44,14 @@
 // the serving shape that is 2048 rows per (b, kv head) and 512 blocks.  p
 // is rounded to bf16 before p @ v (the plain version keeps it in f32).
 //
+// Head dims: 16, 32, 64, 128, and 112 for the zamba2 hybrid's shared
+// attention (3584 / 32 heads).  At 112 the tensor-core body takes 7 k16
+// blocks of Q K^T and 7 pairs of n8 tiles of P V (each ldmatrix_x4 loads
+// 16 columns, so no two blocks are paired), and a padded row of 120 bf16
+// (240 bytes, 60 words) puts ldmatrix's 8 row addresses at bank offsets
+// 0, 28, 24, ... 4: distinct 16-byte groups.  The f32 body takes 7 output
+// columns a thread.
+//
 // What still holds it back (left for later work): mma.sync runs at about
 // two thirds of the wgmma rate, and the tiles are copied by every thread
 // rather than by TMA; at these shapes the bytes, not the math, bound the
@@ -247,6 +255,9 @@ cudaError_t run_typed(const Params& p, int B, int D, cudaStream_t stream) {
     case 64:
       return launch_smem(flash_attention_kernel<T, 64>, grid, kThreads, smem,
                          stream, p);
+    case 112:                                // zamba2: 3584 / 32 heads
+      return launch_smem(flash_attention_kernel<T, 112>, grid, kThreads,
+                         smem, stream, p);
     case 128:
       return launch_smem(flash_attention_kernel<T, 128>, grid, kThreads,
                          smem, stream, p);
@@ -303,6 +314,9 @@ cudaError_t run_tc(const Params& p, int B, int D, cudaStream_t stream) {
     case 64:
       return launch_smem(flash_attention_tc_kernel<64>, grid, 32 * kTcWarps,
                          smem, stream, p);
+    case 112:          // D / 16 = 7 column blocks: nothing pairs them
+      return launch_smem(flash_attention_tc_kernel<112>, grid,
+                         32 * kTcWarps, smem, stream, p);
     case 128:
       return launch_smem(flash_attention_tc_kernel<128>, grid,
                          32 * kTcWarps, smem, stream, p);

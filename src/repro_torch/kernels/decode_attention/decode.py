@@ -25,14 +25,18 @@ import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
 from repro_torch.kernels.decode_attention.paged import (
-    HEAD_DIMS, SPLIT_THREADS, SPLIT_TILE, TARGET_BLOCKS, combine_launch,
-    on_cpu, split_attend_trips)
+    SPLIT_THREADS, SPLIT_TILE, TARGET_BLOCKS, combine_launch, on_cpu,
+    split_attend_trips)
 from repro_torch.kernels.trips import Launch, mangled
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 KERNEL = Kernel("decode_attention", [_P] * 7 + [_I] * 7 + [_P])
+
+# the head dims the dense kernels (this one and flash) are built for: the
+# paged kernels' and zamba2's 112 (3584 / 32 heads)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def splits(T: int, B: int, KV: int) -> int:

@@ -33,7 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("paged_decode_attention",
                 [_P] * 9 + [_I] * 11 + [_P])
 
-HEAD_DIMS = (16, 32, 64, 128)       # the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)   # the head dims the paged kernels are built for
 SMEM_LIMIT = 232448                 # bytes of shared memory a block may use
 PREFILL_ROWS = 64     # f32 prefill, CUDA-core body: rows per tile (kRows)
 TC_ROWS = 32          # bf16 prefill, tensor-core body: rows per block

@@ -324,10 +324,11 @@ def app_cases(torch, device: str = "cuda") -> List[AppCase]:
 
 
 def variant_launches() -> List[Launch]:
-    """The looped kernels' other instantiations at the same shapes, for a
-    census without a point: paged decode and prefill on int8 pools and
+    """The looped kernels' other instantiations, for a census without a
+    point: at the same shapes, paged decode and prefill on int8 pools and
     with f32 q (the CUDA-core prefill body), dense decode, flash and the
-    scan in f32."""
+    scan in f32; and dense decode and flash, bf16 and f32, at zamba2-7b's
+    head dim 112 (32 heads over 32, the hybrid phase's S 454)."""
     import torch
 
     from repro_torch.kernels.decode_attention import (
@@ -342,6 +343,9 @@ def variant_launches() -> List[Launch]:
         out += paged.trip_model(4, 32, 8, 128, 16, NB, lens, q, kv)
         out += prefill_paged.trip_model(4, 32, 32, 8, 128, 16, NB, base,
                                         new, kv, q)
+    for dt in (bf, f32):
+        out += decode.trip_model(4, 486, 32, 32, 112, 486, [0] * 4, dt)
+        out += flash.trip_model(4, 454, 454, 32, 32, 112, True, dt)
     return out + decode.trip_model(4, 486, 32, 8, 128, 486, [0] * 4, f32) \
         + flash.trip_model(4, 512, 512, 32, 8, 128, True, f32) \
         + scan.trip_model(4, 454, 8192, 16, f32)

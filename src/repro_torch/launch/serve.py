@@ -5,6 +5,7 @@ whole-batch lockstep generation, on one card.
     python -m repro_torch.launch.serve --whole-batch      # ServingEngine
     python -m repro_torch.launch.serve --whole-batch --legacy-loop
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --whole-batch
+    python -m repro_torch.launch.serve --arch zamba2-7b --whole-batch
     python -m repro_torch.launch.serve --arch qwen2-vl-72b --local-smoke \
         --device cpu                         # text prompts, paged only
     python -m repro_torch.launch.serve --local-smoke --device cpu
@@ -26,10 +27,11 @@ Weights are random, drawn from a seeded ``torch.Generator`` on the device
 the paged engine, twice ``--batch`` requests of a shared system prompt
 plus a short random tail, with staggered output budgets; for
 ``--whole-batch``, ``--batch`` random prompts of 4-15 tokens.  The SSM
-arch (falcon-mamba-7b) is served whole-batch only: the paged engine
-refuses it, as the JAX package's does.  qwen2-vl's demo prompts are
-text tokens, served paged only: the whole-batch engine prefills token
-prompts, and the model's prefill reads a frontend's embeddings.  Whisper
+arch (falcon-mamba-7b) and the hybrid (zamba2-7b) are served whole-batch
+only: the paged engine refuses them, as the JAX package's does.
+qwen2-vl's demo prompts are text tokens, served paged only: the
+whole-batch engine prefills token prompts, and the model's prefill reads
+a frontend's embeddings.  Whisper
 is refused: the paged engine refuses encoder-decoder archs, as the JAX
 package's does, and its prefill reads a frontend's frames (it runs at
 the Model level, ``Model.prefill`` with frames and tokens).  Prefix
@@ -235,7 +237,7 @@ def main() -> int:
                  f"engine serves its text prompts")
     if cfg.mamba_version and not args.whole_batch:
         ap.error(f"{cfg.name} is an SSM arch: pass --whole-batch (the paged "
-                 f"engine refuses SSM archs, as the JAX package's "
+                 f"engine refuses SSM and hybrid archs, as the JAX package's "
                  f"PagedEngine does: a slot that joins would inherit the "
                  f"previous occupant's state)")
     if args.local_smoke:

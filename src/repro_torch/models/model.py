@@ -1,5 +1,6 @@
-"""Model facade for the serving paths — port of the dense, MoE, VLM,
-Mamba1 and encoder-decoder subset of ``repro/models/model.py``.
+"""Model facade for the serving paths — port of ``repro/models/model.py``
+(every family: dense, MoE, VLM, Mamba1, the Mamba2 hybrid and the
+encoder-decoder).
 
 ``Model(cfg)`` exposes init, the whole-batch cache and its steps
 (``prefill``, ``decode_step``, ``decode_many``), and the paged cache and
@@ -66,7 +67,8 @@ class Model:
     def init_cache(self, batch: int, max_seq: int,
                    device="cuda") -> Dict[str, Any]:
         """Zeros of ``cache_decls``, each leaf in its declared dtype (the
-        SSM family's ``ssm`` states in f32), else the param dtype."""
+        SSM and hybrid families' ``ssm`` states in f32), else the param
+        dtype."""
         return init_from_schema(self.cache_decls(batch, max_seq), None,
                                 device, self.cfg.param_dtype)
 
@@ -81,7 +83,9 @@ class Model:
         (whisper adds {"cross_k", "cross_v"} (L, B, S_enc, KV, hd)); for
         the SSM family {"conv" (L, B, K-1, d_in), "ssm" (L, B, d_in, N)
         f32}, every layer's state after the prompt (the JAX package
-        returns None)."""
+        returns None); for the hybrid {"attn_k", "attn_v"} (G, B, S, KV,
+        hd), as the JAX package returns them, plus every layer's "conv"
+        and "ssm" (L, B, H, hd, N) f32 state."""
         cfg = self.cfg
         if cfg.is_encoder_decoder:
             logits, _, cache = T.whisper_forward(

@@ -20,7 +20,7 @@ import torch
 class ParamDecl:
     shape: Tuple[int, ...]
     init: str = "normal"             # normal (fan-in) | zeros | ones | embed
-                                     # | ssm_a | ssm_dt
+                                     # | ssm_a | ssm_a_scalar | ssm_dt
     dtype: Optional[torch.dtype] = None   # None -> the config's param dtype
 
 
@@ -37,7 +37,8 @@ def map_schema(fn: Callable[[ParamDecl], Any], tree) -> Any:
 def _init_leaf(d: ParamDecl, generator: torch.Generator,
                device: torch.device, default_dtype: torch.dtype):
     dt = d.dtype or default_dtype
-    if d.init == "zeros":
+    if d.init in ("zeros", "ssm_a_scalar"):
+        # ssm_a_scalar: Mamba2's per-head A_log, 0 so that A = -1
         return torch.zeros(d.shape, dtype=dt, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dt, device=device)
@@ -80,11 +81,11 @@ def init_from_schema(schema, generator: torch.Generator,
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):
     """Random parameters of ``cfg`` with the JAX schema's shapes, dtypes
-    and init kinds (fan-in normal, ``embed`` x0.02, ones, zeros, and
-    Mamba1's ``ssm_a`` and ``ssm_dt``), drawn from ``generator`` on
-    ``device``.  The values differ from the JAX package's (a torch
-    generator is not threefry); the tests hand both packages the same
-    weights through ``params_from_jax`` instead."""
+    and init kinds (fan-in normal, ``embed`` x0.02, ones, zeros,
+    Mamba1's ``ssm_a``, Mamba2's ``ssm_a_scalar`` and ``ssm_dt``), drawn
+    from ``generator`` on ``device``.  The values differ from the JAX
+    package's (a torch generator is not threefry); the tests hand both
+    packages the same weights through ``params_from_jax`` instead."""
     from repro_torch.models.transformer import schema
     return init_from_schema(schema(cfg), generator, device, cfg.param_dtype)
 

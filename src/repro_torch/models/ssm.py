@@ -1,21 +1,22 @@
-"""Mamba1 (falcon-mamba) blocks: the depthwise causal conv, the selective
-scan and its single-step recurrence, and the mixer that joins them.
+"""State-space blocks: Mamba1 (falcon-mamba) and Mamba2/SSD (zamba2's
+trunk) — the depthwise causal conv, the scans and their single-step
+recurrences, and the mixers that join them.
 
-Port of the Mamba1 half of ``repro/models/ssm.py``, with the same dtype
-discipline: the state math runs in f32 whatever the activation dtype.
-The Mamba2/SSD half waits for the hybrid family.
+Port of ``repro/models/ssm.py``, with the same dtype discipline: the
+state math runs in f32 whatever the activation dtype.
 
-One difference in what the block returns: the JAX ``mamba1_block``
-computes the prompt's final scan state and returns ``None`` for the
-state of a full-sequence call.  Here it returns the state that stepping
-``mamba1_block`` over the same tokens from a zero state would leave —
-the scan's final state and the last K-1 conv inputs — so that decode
-can start from the prompt.
+One difference in what the blocks return: the JAX ``mamba1_block`` and
+``mamba2_block`` compute the prompt's final scan state and return
+``None`` for the state of a full-sequence call.  Here they return the
+state that stepping the block over the same tokens from a zero state
+would leave — the scan's final state and the last K-1 conv inputs — so
+that decode can start from the prompt.
 
-``plain=False`` (the serving path) runs the scan through the
+``plain=False`` (the serving path) runs the Mamba1 scan through the
 selective-scan kernel wrapper, which launches the CUDA kernel for CUDA
 tensors and runs ``mamba1_scan`` for CPU tensors; ``plain=True`` runs
-``mamba1_scan`` on any device.
+``mamba1_scan`` on any device.  The SSD scan is plain PyTorch on both
+routes: the JAX package's is plain jnp too, no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import dense
+from repro_torch.models.layers import dense, rmsnorm
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -144,3 +145,118 @@ def mamba1_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     y = y + x_t * p["D"]
     out = dense(y * F.silu(z[:, 0]), p["out_proj"])[:, None]
     return out, Mamba1State(conv=new_conv, ssm=h_new)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+class Mamba2State(NamedTuple):
+    conv: torch.Tensor               # (B, K-1, d_in)
+    ssm: torch.Tensor                # (B, H, hd, N) f32
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bc: torch.Tensor, Cc: torch.Tensor, chunk: int,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD chunked algorithm (Mamba2), in f32: within a chunk the
+    attention-like form (the decay matrix L), across chunks the state
+    recurrence.  x (B, S, H, hd); dt (B, S, H) (post-softplus); A (H,)
+    negative; Bc, Cc (B, S, N), shared across heads (ngroups == 1).
+    Returns (y (B, S, H, hd) in x's dtype, h_final (B, H, hd, N) f32).
+
+    Chunks are ``min(chunk, S)`` steps, as in the JAX function, which
+    asserts that they divide S; here the last chunk may be shorter.  The
+    chunked form is exact for any split of the sequence, so a ragged S
+    changes only the rounding; where JAX runs, the chunks and so the sums
+    are the same."""
+    B, S, H, hd = x.shape
+    N = Bc.shape[-1]
+    c = min(chunk, S)
+    f32 = torch.float32
+    h = torch.zeros((B, H, hd, N), dtype=f32, device=x.device) \
+        if h0 is None else h0
+    xf, dtf = x.to(f32), dt.to(f32)
+    Bf, Cf = Bc.to(f32), Cc.to(f32)
+    A32 = A.to(f32)
+    neg = torch.tensor(-torch.inf, dtype=f32, device=x.device)
+    ys = []
+    for s0 in range(0, S, c):
+        xc, dtc = xf[:, s0:s0 + c], dtf[:, s0:s0 + c]
+        bc, cc = Bf[:, s0:s0 + c], Cf[:, s0:s0 + c]
+        n = xc.shape[1]
+        # per-step log decay a_t = dt_t A (negative)
+        cum = torch.cumsum(dtc * A32, dim=1)                 # (B, n, H)
+        # L[t, j] = exp(cum_t - cum_j) for j <= t else 0.  Mask BEFORE
+        # exp: above the diagonal the differences are positive and would
+        # overflow (inf * 0 = NaN)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]        # (B, n, n, H)
+        tri = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                    device=x.device))
+        Lm = torch.exp(torch.where(tri[None, :, :, None], diff, neg))
+        # within the chunk: scores[t, j] = (C_t . B_j) L[t, j] dt_j
+        cb = torch.einsum("btn,bjn->btj", cc, bc)            # (B, n, n)
+        scores = cb[..., None] * Lm * dtc[:, None]           # (B, n, n, H)
+        y_diag = torch.einsum("btjh,bjhd->bthd", scores, xc)
+        # the chunk's exit decay, and each step's decay to the chunk end
+        total = cum[:, -1]                                   # (B, H)
+        dec_j = torch.exp(total[:, None] - cum)              # (B, n, H)
+        dBx = torch.einsum("bjh,bjn,bjhd->bhdn", dec_j * dtc, bc, xc)
+        # across chunks: y_t += C_t . (exp(cum_t) h_in)
+        y_off = torch.einsum("btn,bhdn,bth->bthd", cc, h, torch.exp(cum))
+        h = torch.exp(total)[..., None, None] * h + dBx
+        ys.append(y_diag + y_off)
+    return torch.cat(ys, dim=1).to(x.dtype), h
+
+
+def ssd_step(x_t, dt_t, A, B_t, C_t, h):
+    """Single decode step: x_t (B, H, hd); dt_t (B, H); B_t, C_t (B, N);
+    h (B, H, hd, N) f32 -> (y (B, H, hd) in x_t's dtype, h')."""
+    f32 = torch.float32
+    a = torch.exp(dt_t.to(f32) * A.to(f32))                  # (B, H)
+    dBx = torch.einsum("bh,bn,bhd->bhdn", dt_t.to(f32), B_t.to(f32),
+                       x_t.to(f32))
+    h_new = a[..., None, None] * h + dBx
+    y = torch.einsum("bhdn,bn->bhd", h_new, C_t.to(f32))
+    return y.to(x_t.dtype), h_new
+
+
+def mamba2_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                 state: Optional[Mamba2State] = None
+                 ) -> Tuple[torch.Tensor, Mamba2State]:
+    """Mamba2 mixer: the projections stored apart (``w_zx``, ``w_bc``,
+    ``w_dt``), a scalar decay per head, and an rmsnorm over d_in gated by
+    silu(z).  x (B, S, d) prefill (state None) or (B, 1, d) decode with
+    state.  Returns (out, state): for a prefill the state stepping over
+    x from zero would leave (see the module docstring), for a decode step
+    the updated state."""
+    Bsz, S, d = x.shape
+    d_in = d * cfg.ssm_expand
+    hd = cfg.ssm_head_dim
+    H = d_in // hd
+
+    z, xr = dense(x, p["w_zx"]).chunk(2, dim=-1)      # (B, S, d_in) each
+    B_c, C_c = dense(x, p["w_bc"]).chunk(2, dim=-1)   # (B, S, N) each
+    dt_raw = dense(x, p["w_dt"])                      # (B, S, H)
+    A = -torch.exp(p["A_log"].to(torch.float32))      # (H,)
+
+    if state is None:
+        tail = conv_tail(xr, cfg.ssm_conv)
+        xr = F.silu(causal_conv(xr, p["conv_w"], p["conv_b"]))
+        dt = F.softplus(dt_raw + p["dt_bias"])
+        xh = xr.reshape(Bsz, S, H, hd)
+        y, h_fin = ssd_scan(xh, dt, A, B_c, C_c, cfg.ssm_chunk)
+        y = (y + xh * p["D"][None, None, :, None]).reshape(Bsz, S, d_in)
+        y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+        return dense(y, p["out_proj"]), Mamba2State(conv=tail, ssm=h_fin)
+
+    x_t, new_conv = conv_step(xr[:, 0], state.conv, p["conv_w"], p["conv_b"])
+    x_t = F.silu(x_t)
+    dt_t = F.softplus(dt_raw[:, 0] + p["dt_bias"])
+    xh = x_t.reshape(Bsz, H, hd)
+    y, h_new = ssd_step(xh, dt_t, A, B_c[:, 0], C_c[:, 0], state.ssm)
+    y = (y + xh * p["D"][None, :, None]).reshape(Bsz, d_in)
+    y = rmsnorm(y * F.silu(z[:, 0]), p["norm"], cfg.norm_eps)
+    out = dense(y, p["out_proj"])[:, None]
+    return out, Mamba2State(conv=new_conv, ssm=h_new)

@@ -1,15 +1,17 @@
 """The decoder-only LM (dense or MoE FFN; token ids, or a VLM's
 precomputed embeddings with M-RoPE), the pure-SSM LM (Mamba1,
-falcon-mamba) and the encoder-decoder (whisper): schema, the whole-batch
-forward (``lm_forward``: train / prefill / hidden) and decode step
-(``lm_decode``) over a (L, B, T, KV, hd) cache or the SSM family's
-per-layer (conv, ssm) state, the two paged attention paths (decode and
-ragged prefill), the FFN (swiglu, the gelu MLP, or routed through
+falcon-mamba), the hybrid (zamba2: a Mamba2 trunk with one shared
+attention block after every ``attn_every`` layers) and the
+encoder-decoder (whisper): schema, the whole-batch forward
+(``lm_forward``: train / prefill / hidden) and decode step
+(``lm_decode``) over a (L, B, T, KV, hd) cache, the SSM family's
+per-layer (conv, ssm) state or the hybrid's states and per-application
+attention caches, the two paged attention paths (decode and ragged
+prefill), the FFN (swiglu, the gelu MLP, or routed through
 ``models/moe.py``), the paged forward passes, and whisper's encoder,
 forward and decode step (``whisper_*``).
 
-Port of the dense, MoE, VLM, Mamba1 and encoder-decoder subset of
-``repro/models/transformer.py``.  The ``lax.scan`` over stacked layers
+Port of ``repro/models/transformer.py``.  The ``lax.scan`` over stacked layers
 becomes a Python loop over the layer index; caches and pools are
 updated IN PLACE where the JAX functions return updated copies, so the
 returned cache holds the same tensors it was given.  The remat grouping
@@ -22,13 +24,15 @@ the plain version for CPU tensors (for the flash kernel, ``attention``
 keeps the JAX reference dispatch on the CPU).  ``plain=True`` calls the
 plain versions on any device — the reference that ``chip_smoke.py``
 holds the kernel path against on the card.  The same switch picks the
-selective-scan kernel or its plain version in the SSM family's prefill.
+selective-scan kernel or its plain version in the SSM family's prefill;
+the hybrid's shared block takes flash and dense decode as the dense
+family does, and its SSD scan is plain PyTorch on both routes.
 Whisper's encoder and cross-attention are non-causal flash calls on the
 kernel route; a decode step's cross-attention (one query row) takes the
 direct path, as the reference dispatch does.
 
-One difference from the JAX package, in the SSM family: its
-``lm_forward(mode="prefill")`` returns no cache parts, so its
+One difference from the JAX package, in the SSM and hybrid families:
+its ``lm_forward(mode="prefill")`` returns no SSM cache parts, so its
 ``ServingEngine`` decodes from a zero state as if the prompt had never
 been seen.  Here the prefill returns each layer's final scan state and
 conv tail — the state the JAX package's own ``lm_decode`` leaves after
@@ -36,7 +40,7 @@ stepping over the prompt — and decode starts from it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -56,17 +60,30 @@ from repro_torch.models.params import ParamDecl, map_schema, stacked
 
 
 def check_supported(cfg: ArchConfig, paged: bool = False) -> None:
-    """Refuses what the port does not run: Mamba2 and the hybrid family
-    (not ported yet), and on the paged path the SSM and encoder-decoder
+    """Refuses what the port does not run: the two SSM layouts that the
+    JAX package's decode cannot run either (Mamba2 blocks outside the
+    hybrid family, and a hybrid of Mamba1 blocks or without attention
+    groups), and on the paged path the SSM, hybrid and encoder-decoder
     archs, which the JAX package's ``PagedEngine`` refuses too.  Every
-    other family runs: dense, MoE, Mamba1, the VLM (M-RoPE, embedding
-    inputs) and whisper (encoder-decoder, layernorm, the gelu MLP)."""
-    if cfg.mamba_version == 2 or cfg.family == "hybrid":
-        raise NotImplementedError(f"Mamba2 and the hybrid family are not "
-                                  f"ported yet ({cfg.name})")
+    other family runs: dense, MoE, Mamba1, the zamba2 hybrid (Mamba2
+    with ``attn_every`` > 0), the VLM (M-RoPE, embedding inputs) and
+    whisper (encoder-decoder, layernorm, the gelu MLP)."""
+    if cfg.mamba_version == 2 and cfg.family != "hybrid":
+        raise NotImplementedError(
+            f"Mamba2 blocks outside the hybrid family are not ported yet "
+            f"({cfg.name}): the JAX package's cache_decls lays out the "
+            f"{cfg.family!r} family's ssm state for Mamba1, (L, B, d_in, "
+            f"N), so its decode of such an arch fails")
+    if cfg.family == "hybrid" and (cfg.mamba_version != 2
+                                   or cfg.attn_every <= 0):
+        raise NotImplementedError(
+            f"a hybrid of Mamba{cfg.mamba_version} blocks with attn_every "
+            f"{cfg.attn_every} is not ported yet ({cfg.name}): the JAX "
+            f"package's hybrid decode builds a Mamba2State for every layer "
+            f"and a group for every attn_every > 0 of them")
     if paged and (cfg.mamba_version or cfg.is_encoder_decoder):
-        why = (f"SSM archs: a slot that joins would inherit the previous "
-               f"occupant's state.  Serve {cfg.name} whole-batch "
+        why = (f"SSM and hybrid archs: a slot that joins would inherit the "
+               f"previous occupant's state.  Serve {cfg.name} whole-batch "
                f"(ServingEngine, launch.serve --whole-batch)"
                if cfg.mamba_version else
                f"encoder-decoder archs: each request would need its own "
@@ -133,30 +150,46 @@ def _moe_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
 
 
 def _mamba_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
-    """The Mamba1 mixer's parameters."""
+    """The Mamba1 mixer's parameters, or Mamba2's: the projections apart
+    (z and x, B and C, dt), and a scalar A, D and dt bias per head."""
     d = cfg.d_model
     d_in = d * cfg.ssm_expand
     N, K = cfg.ssm_state, cfg.ssm_conv
-    dt_rank = max(1, d // 16)
+    if cfg.mamba_version == 1:
+        dt_rank = max(1, d // 16)
+        return {
+            "in_proj": ParamDecl((d, 2 * d_in)),
+            "conv_w": ParamDecl((d_in, K)),
+            "conv_b": ParamDecl((d_in,), "zeros"),
+            "x_proj": ParamDecl((d_in, dt_rank + 2 * N)),
+            "dt_proj": ParamDecl((dt_rank, d_in)),
+            "dt_bias": ParamDecl((d_in,), "ssm_dt"),
+            "A_log": ParamDecl((d_in, N), "ssm_a"),
+            "D": ParamDecl((d_in,), "ones"),
+            "out_proj": ParamDecl((d_in, d)),
+        }
+    H = d_in // cfg.ssm_head_dim
     return {
-        "in_proj": ParamDecl((d, 2 * d_in)),
+        "w_zx": ParamDecl((d, 2 * d_in)),
+        "w_bc": ParamDecl((d, 2 * N)),
+        "w_dt": ParamDecl((d, H)),
         "conv_w": ParamDecl((d_in, K)),
         "conv_b": ParamDecl((d_in,), "zeros"),
-        "x_proj": ParamDecl((d_in, dt_rank + 2 * N)),
-        "dt_proj": ParamDecl((dt_rank, d_in)),
-        "dt_bias": ParamDecl((d_in,), "ssm_dt"),
-        "A_log": ParamDecl((d_in, N), "ssm_a"),
-        "D": ParamDecl((d_in,), "ones"),
+        "dt_bias": ParamDecl((H,), "ssm_dt"),
+        "A_log": ParamDecl((H,), "ssm_a_scalar"),
+        "D": ParamDecl((H,), "ones"),
+        "norm": ParamDecl((d_in,), "ones"),
         "out_proj": ParamDecl((d_in, d)),
     }
 
 
 def schema(cfg: ArchConfig) -> Dict[str, Any]:
     """The parameter tree of a decoder-only LM (dense or MoE FFN), a
-    Mamba1 LM or the encoder-decoder, leaf for leaf the JAX package's
-    ``schema`` (stacked (L, ...) block parameters).  The token embedding
-    is always there: the stub-frontend archs decode text tokens through
-    it."""
+    Mamba1 LM, the hybrid or the encoder-decoder, leaf for leaf the JAX
+    package's ``schema`` (stacked (L, ...) block parameters; the hybrid's
+    ``shared_attn``, attention and FFN, is one weight set, not stacked).
+    The token embedding is always there: the stub-frontend archs decode
+    text tokens through it."""
     check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     sch: Dict[str, Any] = {"embed": ParamDecl((V, d), "embed")}
@@ -184,6 +217,10 @@ def schema(cfg: ArchConfig) -> Dict[str, Any]:
         else:
             block["ffn"] = _ffn_decls(cfg)
     sch["blocks"] = map_schema(lambda x: stacked(x, cfg.n_layers), block)
+    if cfg.family == "hybrid":
+        sch["shared_attn"] = {"ln1": _norm_decl(d), "ln2": _norm_decl(d),
+                              "attn": _attn_decls(cfg),
+                              "ffn": _ffn_decls(cfg)}
     return sch
 
 
@@ -195,9 +232,12 @@ def cache_decls(cfg: ArchConfig, batch: int, max_seq: int
     [start[b], pos]) and, for the dense family, (L, batch, max_seq, KV,
     hd) k/v caches in the param dtype; for the SSM family, the state of
     every layer instead: (L, batch, K-1, d_in) conv inputs in the param
-    dtype and (L, batch, d_in, N) f32 scan states.  The encoder-decoder
-    adds (L, batch, max_seq, KV, hd) ``cross_k``/``cross_v``, which its
-    decode attends row for row (see ``whisper_decode``)."""
+    dtype and (L, batch, d_in, N) f32 scan states.  The hybrid has the
+    conv inputs, (L, batch, H, hd, N) f32 SSD states and (G, batch,
+    max_seq, KV, hd) ``attn_k``/``attn_v``, one per application of the
+    shared block.  The encoder-decoder adds (L, batch, max_seq, KV, hd)
+    ``cross_k``/``cross_v``, which its decode attends row for row (see
+    ``whisper_decode``)."""
     check_supported(cfg)
     hd, KV, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
     decls = {"pos": ParamDecl((), "zeros", torch.int32),
@@ -206,8 +246,16 @@ def cache_decls(cfg: ArchConfig, batch: int, max_seq: int
         d_in = cfg.d_model * cfg.ssm_expand
         decls["conv"] = ParamDecl((L, batch, cfg.ssm_conv - 1, d_in),
                                   "zeros")
-        decls["ssm"] = ParamDecl((L, batch, d_in, cfg.ssm_state), "zeros",
-                                 torch.float32)
+        if cfg.family != "hybrid":
+            decls["ssm"] = ParamDecl((L, batch, d_in, cfg.ssm_state),
+                                     "zeros", torch.float32)
+            return decls
+        sh = cfg.ssm_head_dim
+        decls["ssm"] = ParamDecl((L, batch, d_in // sh, sh, cfg.ssm_state),
+                                 "zeros", torch.float32)
+        G = cfg.n_layers // cfg.attn_every
+        for name in ("attn_k", "attn_v"):
+            decls[name] = ParamDecl((G, batch, max_seq, KV, hd), "zeros")
         return decls
     names = ("k", "v", "cross_k", "cross_v") if cfg.is_encoder_decoder \
         else ("k", "v")
@@ -456,11 +504,33 @@ def dense_block(h, p, cfg: ArchConfig, rope, plain: bool = False):
 
 def mamba_block_apply(h, p, cfg: ArchConfig, state=None,
                       plain: bool = False):
-    """Residual Mamba1 block: h (B, S, d) and no state (prefill), or
-    (B, 1, d) and its layer's state (decode).  Returns (h, state)."""
+    """Residual Mamba1 or Mamba2 block: h (B, S, d) and no state
+    (prefill), or (B, 1, d) and its layer's state (decode).  Returns (h,
+    state)."""
     hn = apply_norm(h, p["ln1"], cfg)
-    out, new_state = ssm_mod.mamba1_block(hn, p["mixer"], cfg, state, plain)
+    if cfg.mamba_version == 1:
+        out, new_state = ssm_mod.mamba1_block(hn, p["mixer"], cfg, state,
+                                              plain)
+    else:
+        out, new_state = ssm_mod.mamba2_block(hn, p["mixer"], cfg, state)
     return h + out, new_state
+
+
+def shared_attn_block(h, p, cfg: ArchConfig, rope, plain: bool = False):
+    """The hybrid's shared block over the whole sequence: causal
+    attention, then the FFN.  Returns (h, (k, v))."""
+    out, kv = attn_apply(h, p, cfg, rope, causal=True, plain=plain)
+    h = h + out
+    return h + ffn_apply(h, p, cfg), kv
+
+
+def shared_attn_decode(h, p, cfg: ArchConfig, rope, k_c, v_c, pos,
+                       start=None, plain: bool = False):
+    """The shared block's decode step over its application's cache (K/V
+    written in place at row ``pos``, as ``attn_decode`` does)."""
+    out, _, _ = attn_decode(h, p, cfg, rope, k_c, v_c, pos, start, plain)
+    h = h + out
+    return h + ffn_apply(h, p, cfg)
 
 
 def _embed_in(params, cfg: ArchConfig, inputs):
@@ -499,11 +569,17 @@ def lm_forward(params, cfg: ArchConfig, inputs, positions,
     {"k", "v"}, (L, B, S, KV, hd) stacks of every layer's K/V, for the
     dense family; {"conv" (L, B, K-1, d_in), "ssm" (L, B, d_in, N) f32},
     every layer's state after the prompt, for the SSM family (the JAX
-    package returns None there; see the module docstring).  Returns
-    (logits_or_hidden, aux, cache_parts or None)."""
+    package returns None there; see the module docstring); for the
+    hybrid {"attn_k", "attn_v"} (G, B, S, KV, hd), as the JAX package
+    returns them, and every layer's "conv" and "ssm" (L, B, H, hd, N) f32
+    state, which it does not.  Returns (logits_or_hidden, aux,
+    cache_parts or None)."""
     assert mode in ("train", "prefill", "hidden")
     check_supported(cfg)
     h = _embed_in(params, cfg, inputs)
+    if cfg.family == "hybrid":
+        return _hybrid_forward(params, cfg, h, _rope(cfg, positions), mode,
+                               plain)
     if cfg.mamba_version:
         return _ssm_forward(params, cfg, h, mode, plain)
     rope = _rope(cfg, positions)
@@ -544,15 +620,16 @@ def _ssm_forward(params, cfg: ArchConfig, h, mode: str, plain: bool):
 
 def lm_decode(params, cfg: ArchConfig, tokens, cache, plain: bool = False):
     """tokens (B, 1) int; cache from ``cache_decls``: {"pos", "start",
-    "k", "v"} (dense) or {"pos", "start", "conv", "ssm"} (SSM).  ``pos``
-    is both the cache ROW the new token is written to and its rope
-    position (whole-batch generation never rebases rows); the SSM family
-    only advances it.  Returns (logits (B, V) f32, cache) — the k/v
-    caches or the layer states updated in place, "pos" advanced by one."""
+    "k", "v"} (dense), {"pos", "start", "conv", "ssm"} (SSM) or those and
+    "attn_k", "attn_v" (hybrid).  ``pos`` is both the cache ROW the new
+    token is written to and its rope position (whole-batch generation
+    never rebases rows); the SSM family only advances it.  Returns
+    (logits (B, V) f32, cache) — the k/v caches or the layer states
+    updated in place, "pos" advanced by one."""
     check_supported(cfg)
     B = tokens.shape[0]
     pos = cache["pos"]
-    if cfg.mamba_version:
+    if cfg.mamba_version == 1:
         h = _embed_in(params, cfg, tokens)
         for li in range(cfg.n_layers):
             p = layer_params(params["blocks"], li)
@@ -566,12 +643,79 @@ def lm_decode(params, cfg: ArchConfig, tokens, cache, plain: bool = False):
     positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
     rope = _rope(cfg, _streams(cfg, positions))
     h = _embed_in(params, cfg, tokens)
+    if cfg.family == "hybrid":
+        return _hybrid_decode(params, cfg, h, rope, cache, plain)
     start = cache.get("start")
     for li in range(cfg.n_layers):
         p = layer_params(params["blocks"], li)
         out, _, _ = attn_decode(h, p, cfg, rope, cache["k"][li],
                                 cache["v"][li], pos, start, plain)
         h = decode_ffn(h + out, p, cfg)
+    cache["pos"] = pos + 1
+    return _logits_exact(params, cfg, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# the zamba2 hybrid: attn_every Mamba2 layers, then the shared block
+# ---------------------------------------------------------------------------
+
+def _hybrid_split(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    """The hybrid trunk in order, as the JAX ``_hybrid_split`` cuts the
+    stack: ("mamba", li) for each Mamba2 layer by its absolute index (the
+    conv and ssm states' index), and ("attn", g) after every k =
+    ``attn_every`` of them, the g-th application of the shared block (its
+    attention cache's index): G = L // k applications, then the R = L - G
+    k tail layers."""
+    k = cfg.attn_every
+    order = []
+    for li in range(cfg.n_layers):
+        order.append(("mamba", li))
+        if (li + 1) % k == 0:
+            order.append(("attn", li // k))
+    return order
+
+
+def _hybrid_forward(params, cfg: ArchConfig, h, rope, mode: str,
+                    plain: bool):
+    """``lm_forward`` of the hybrid (h the embedded inputs)."""
+    parts = {"attn_k": [], "attn_v": [], "conv": [], "ssm": []}
+    for kind, i in _hybrid_split(cfg):
+        if kind == "attn":
+            h, kv = shared_attn_block(h, params["shared_attn"], cfg, rope,
+                                      plain)
+            new = dict(zip(("attn_k", "attn_v"), kv))
+        else:
+            h, state = mamba_block_apply(
+                h, layer_params(params["blocks"], i), cfg)
+            new = state._asdict()
+        if mode == "prefill":
+            for name, t in new.items():
+                parts[name].append(t)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if mode == "hidden":
+        return apply_norm(h, params["ln_f"], cfg), aux, None
+    if mode == "prefill":
+        return (_logits_exact(params, cfg, h[:, -1:]), aux,
+                {name: torch.stack(ts) for name, ts in parts.items()})
+    return _logits(params, cfg, h), aux, None
+
+
+def _hybrid_decode(params, cfg: ArchConfig, h, rope, cache, plain: bool):
+    """``lm_decode`` of the hybrid: every layer's state and every
+    application's cache updated in place."""
+    pos, start = cache["pos"], cache.get("start")
+    for kind, i in _hybrid_split(cfg):
+        if kind == "attn":
+            h = shared_attn_decode(h, params["shared_attn"], cfg, rope,
+                                   cache["attn_k"][i], cache["attn_v"][i],
+                                   pos, start, plain)
+            continue
+        state = ssm_mod.Mamba2State(conv=cache["conv"][i],
+                                    ssm=cache["ssm"][i])
+        h, new = mamba_block_apply(h, layer_params(params["blocks"], i), cfg,
+                                   state)
+        cache["conv"][i].copy_(new.conv)
+        cache["ssm"][i].copy_(new.ssm)
     cache["pos"] = pos + 1
     return _logits_exact(params, cfg, h)[:, 0], cache
 

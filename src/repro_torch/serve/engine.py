@@ -10,9 +10,11 @@ legacy loop with a host round trip per token.  For the dense family the
 prefill runs the flash kernel and its K/V go into a fresh (L, B, S + new,
 KV, hd) cache, which the dense decode kernel reads; for the SSM family
 (falcon-mamba) the prefill runs the selective-scan kernel and every
-layer's state after the prompt goes into the fresh (conv, ssm) cache.
-It refuses the stub-frontend archs (qwen2-vl, whisper), whose prompts
-are a frontend's embeddings, not tokens.
+layer's state after the prompt goes into the fresh (conv, ssm) cache;
+for the hybrid (zamba2) both: the shared block's flash K/V, one cache per
+application, and every Mamba2 layer's state.  It refuses the
+stub-frontend archs (qwen2-vl, whisper), whose prompts are a frontend's
+embeddings, not tokens.
 
 ``PagedEngine``: each tick: admit queued requests into free slots, let the
 ``TickScheduler`` grant per-slot work over the ``PagedKVCache``, patch the
@@ -24,8 +26,8 @@ the per-slot grants) for generating slots — and do the request bookkeeping on
 the host.  The JAX package's donated ``jax.jit`` cells become in-place
 torch calls on the engine's device (the device of the parameters).  It
 serves decoder-only attention LMs only (qwen2-vl's text prompts among
-them), and refuses the SSM and encoder-decoder families as the JAX
-package's ``PagedEngine`` does.
+them), and refuses the SSM, hybrid and encoder-decoder families as the
+JAX package's ``PagedEngine`` does.
 
 With ``prefill_lane=False`` there is no lane: prompts ride the decode
 loop as forced tokens, one step per prompt token (prefill-by-decode); a
@@ -201,14 +203,16 @@ class ServingEngine:
         """Right-aligns the prompts to a common length S with pad 0 (no pad
         mask, as in the JAX package), prefills once, and copies the cache
         parts into a fresh decode cache of S + mnt rows: the prefill K/V,
-        or for the SSM family every layer's (conv, ssm) state after the
-        prompt, pads included.  The JAX engine gets no SSM cache parts from
-        its prefill and decodes from a zero state, as if the prompt had
-        never been seen; its own ``lm_decode`` stepped over the prompt
-        gives the state used here.  A stub-frontend arch is refused by
-        name: its prefill reads a frontend's embeddings or frames, which
-        token prompts do not give (the JAX engine fails here with a
-        ``KeyError`` on the missing input)."""
+        for the SSM family every layer's (conv, ssm) state after the
+        prompt, pads included, and for the hybrid both: each shared-block
+        application's K/V and every layer's state.  The JAX engine gets
+        no SSM cache parts from its prefill and decodes from a zero state,
+        as if the prompt had never been seen; its own ``lm_decode``
+        stepped over the prompt gives the state used here.  A
+        stub-frontend arch is refused by name: its prefill reads a
+        frontend's embeddings or frames, which token prompts do not give
+        (the JAX engine fails here with a ``KeyError`` on the missing
+        input)."""
         mcfg = self.model.cfg
         if not mcfg.embed_inputs:
             what = ("frames and decoder tokens" if mcfg.is_encoder_decoder

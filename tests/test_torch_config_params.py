@@ -23,6 +23,8 @@ ALL_ARCHS = ARCHS + ["llama4-scout-17b-a16e", "grok-1-314b", "zamba2-7b",
 # the stub-frontend families: embedding inputs with M-RoPE, and the
 # encoder-decoder (layernorm with biases, the gelu MLP with biases)
 STUB_FRONTEND = ["qwen2-vl-72b", "whisper-large-v3"]
+# the hybrid: a stacked Mamba2 trunk and the unstacked shared block
+HYBRID = ["zamba2-7b"]
 JNP_TO_TORCH = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
                 jnp.dtype(jnp.float32): torch.float32,
                 jnp.dtype(jnp.int32): torch.int32}
@@ -92,11 +94,12 @@ def test_bridge_bit_exact_mamba1(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("arch", STUB_FRONTEND)
+@pytest.mark.parametrize("arch", STUB_FRONTEND + HYBRID)
 def test_bridge_bit_exact_stub_frontend(arch, dtype):
-    """qwen2-vl's leaves (qkv biases) and whisper's (the ``encoder`` and
+    """qwen2-vl's leaves (qkv biases), whisper's (the ``encoder`` and
     ``decoder`` stacks with ``ln3`` and ``cross``, ``ln_enc``, every norm
-    bias and the gelu MLP's biases), bit for bit."""
+    bias and the gelu MLP's biases) and zamba2's (the Mamba2 mixer, the
+    unstacked ``shared_attn``), bit for bit."""
     cfg_j = dataclasses.replace(jconfigs.get(arch).reduced(), dtype=dtype)
     cfg_t = dataclasses.replace(tconfigs.get(arch).reduced(), dtype=dtype)
     pj = jax.tree.map(np.asarray, jget_model(cfg_j).init(jax.random.key(6)))
@@ -108,6 +111,12 @@ def test_bridge_bit_exact_stub_frontend(arch, dtype):
                   "/encoder/ln1/bias", "/decoder/ln3/bias",
                   "/decoder/cross/wq", "/ln_enc/bias", "/ln_f/bias"):
             assert k in ft, k
+    elif cfg_t.family == "hybrid":
+        for k in ("/blocks/mixer/w_zx", "/blocks/mixer/A_log",
+                  "/blocks/mixer/norm", "/shared_attn/attn/wq",
+                  "/shared_attn/ffn/w_down"):
+            assert k in ft, k
+        assert ft["/shared_attn/attn/wq"].ndim == 2
     else:
         assert "/blocks/attn/bq" in ft and "/blocks/ffn/w_gate" in ft
     for k, a in fj.items():
@@ -126,12 +135,11 @@ def test_registries_hold_the_same_archs():
 
 @pytest.mark.parametrize("arch", ALL_ARCHS[len(ARCHS):])
 def test_unported_families_refused(arch):
-    """Of the archs that were config mirrors when the port began, only the
-    hybrid Mamba2 family (zamba2) is still refused, not half-served.  The
-    MoE archs run, and so would their dense counterparts (swiglu, and for
-    grok-1 the gelu MLP); qwen2-vl runs on both paths; whisper runs on the
-    whole-batch path, and the paged path refuses it as the JAX
-    ``PagedEngine`` does."""
+    """Every arch that was a config mirror when the port began now runs.
+    The MoE archs run, and so would their dense counterparts (swiglu, and
+    for grok-1 the gelu MLP); qwen2-vl runs on both paths; the hybrid
+    Mamba2 family (zamba2) and whisper run on the whole-batch path, and
+    the paged path refuses them as the JAX ``PagedEngine`` does."""
     from repro_torch.models.transformer import check_supported
     cfg = tconfigs.get(arch)
     if cfg.n_experts:
@@ -140,12 +148,11 @@ def test_unported_families_refused(arch):
         check_supported(dataclasses.replace(cfg, n_experts=0,
                                             family="dense"))
         return
-    if cfg.family == "hybrid":
-        with pytest.raises(NotImplementedError, match="Mamba2"):
-            check_supported(cfg)
-        return
     check_supported(cfg)
-    if cfg.is_encoder_decoder:
+    if cfg.family == "hybrid":
+        with pytest.raises(ValueError, match="SSM and hybrid archs"):
+            check_supported(cfg, paged=True)
+    elif cfg.is_encoder_decoder:
         with pytest.raises(ValueError, match="encoder-decoder"):
             check_supported(cfg, paged=True)
     else:
@@ -160,7 +167,7 @@ def test_bridge_rejects_wrong_shape():
         params_from_jax(pj, cfg_t, "cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS + STUB_FRONTEND)
+@pytest.mark.parametrize("arch", ARCHS + STUB_FRONTEND + HYBRID)
 def test_init_params_matches_jax_schema(arch):
     cfg_j = jconfigs.get(arch).reduced()
     cfg_t = tconfigs.get(arch).reduced()

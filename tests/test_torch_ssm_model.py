@@ -262,11 +262,13 @@ def test_paged_path_refuses_ssm(models):
 @pytest.mark.parametrize("change", ["zamba2", "mamba2", "hybrid",
                                     "whisper"])
 def test_unported_families_refused(change):
-    """Mamba2 and the hybrid family (the JAX package's zamba2-7b) raise
-    NotImplementedError: not ported yet.  The encoder-decoder family
-    (whisper), refused here until it was ported, now builds its schema
-    and whole-batch cache (with the cross caches); the paged cache refuses
-    it with ValueError, as the JAX ``PagedEngine`` refuses it."""
+    """Mamba2 blocks in falcon-mamba's SSM family, and a hybrid of its
+    Mamba1 blocks, raise NotImplementedError: not ported yet (the JAX
+    package's decode cannot run them either).  The families refused here
+    until they were ported now build their schema and whole-batch cache:
+    the hybrid (zamba2, with the shared block and its attention caches)
+    and the encoder-decoder (whisper, with the cross caches); the paged
+    cache refuses both with ValueError, as the JAX ``PagedEngine`` does."""
     falcon = tconfigs.get(ARCH).reduced()
     if change in ("zamba2", "whisper"):
         name = "zamba2-7b" if change == "zamba2" else "whisper-large-v3"
@@ -275,6 +277,13 @@ def test_unported_families_refused(change):
         cfg = dataclasses.replace(falcon, mamba_version=2)
     else:
         cfg = dataclasses.replace(falcon, family="hybrid")
+    if change == "zamba2":
+        assert "shared_attn" in tT.schema(cfg)
+        assert {"conv", "ssm", "attn_k", "attn_v"} <= set(
+            tT.cache_decls(cfg, 2, 8))
+        with pytest.raises(ValueError, match="SSM and hybrid archs"):
+            tT.paged_cache_decls(cfg, 2, 4, 4, 9)
+        return
     if change == "whisper":
         assert {"encoder", "decoder", "ln_enc"} <= set(tT.schema(cfg))
         assert {"cross_k", "cross_v"} <= set(tT.cache_decls(cfg, 2, 8))
