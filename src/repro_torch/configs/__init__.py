@@ -1,2 +1,2 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, get, register, registry)
+    SHAPES, ArchConfig, ShapeConfig, get, register, registry)

@@ -10,6 +10,8 @@ whole-batch serving), zamba2-7b (the Mamba2 hybrid with a shared
 attention block, whole-batch serving), qwen2-vl-72b (M-RoPE, embedding
 inputs; paged serving of text prompts) and whisper-large-v3 (the
 encoder-decoder, at the Model level).
+``n_params`` / ``active_params`` (the 6ND count of ``model_flops``) and
+``ShapeConfig`` / ``SHAPES`` are copied too.
 ``attention_impl`` is mirrored for equality only: in the port the DEVICE
 of the tensors picks the paged-attention implementation (CUDA tensors
 always reach the hand-written kernels, CPU tensors the plain version),
@@ -94,6 +96,53 @@ class ArchConfig:
                              f"got {self.kv_dtype!r}")
         return self.kv_dtype == "int8"
 
+    def n_params(self) -> float:
+        """Approximate parameter count (embedding + blocks), for 6ND."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        if self.ffn_kind == "swiglu":
+            ffn = 3 * d * ff
+        else:
+            ffn = 2 * d * ff
+        if self.n_experts:
+            ffn = ffn * self.n_experts + d * self.n_experts
+        block = attn + ffn + 2 * d
+        if self.mamba_version:
+            d_in = d * self.ssm_expand
+            if self.mamba_version == 1:
+                dt_rank = max(1, d // 16)
+                ssm_blk = (d * 2 * d_in + d_in * self.ssm_conv
+                           + d_in * (dt_rank + 2 * self.ssm_state)
+                           + dt_rank * d_in + d_in * self.ssm_state
+                           + d_in + d_in * d)
+            else:
+                n_heads = d_in // self.ssm_head_dim
+                ssm_blk = (d * (2 * d_in + 2 * self.ssm_state * 1 + n_heads)
+                           + d_in * self.ssm_conv + d_in * d + n_heads)
+            if self.family == "hybrid" and self.attn_every:
+                n_attn = self.n_layers // self.attn_every
+                block = ssm_blk + 2 * d
+                total_blocks = self.n_layers * block + (attn + 2 * d)  # shared
+                return float(total_blocks + v * d * (1 if self.tie_embeddings else 2))
+            block = ssm_blk + 2 * d
+        total = self.n_layers * block
+        if self.is_encoder_decoder:
+            # encoder blocks + decoder cross-attn
+            enc_block = attn + ffn + 2 * d
+            total += self.encoder_layers * enc_block + self.n_layers * (attn + d)
+        total += v * d * (1 if self.tie_embeddings else 2)
+        return float(total)
+
+    def active_params(self) -> float:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.n_experts:
+            return self.n_params()
+        d, ff = self.d_model, self.d_ff
+        expert = 3 * d * ff if self.ffn_kind == "swiglu" else 2 * d * ff
+        inactive = (self.n_experts - self.experts_per_token) * expert
+        return self.n_params() - self.n_layers * inactive
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU smoke tests."""
         scale = dict(
@@ -118,6 +167,22 @@ class ArchConfig:
             name=self.name + "-reduced",
         )
         return dataclasses.replace(self, **scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}

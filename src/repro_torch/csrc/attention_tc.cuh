@@ -51,6 +51,7 @@ using namespace attn;  // kNegInf, to_f32, imin
 constexpr int kTile = 64;   // K/V positions per tile
 constexpr int kPad = 8;     // bf16 elements of padding per shared row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Dynamic shared memory of one block, in bytes: the Q tile and two stages
 // of K and V in bf16, and for int8 K/V two stages of raw rows and scales.
@@ -125,9 +126,14 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = pack_bf16x2(c1[2], c1[3]);
 }
 
-template <typename KVT, int D, int WARPS, int MT, class KvRow>
+// kLse (off unless asked for, so the instantiations without it compile
+// as before): also write each live row's natural-log softmax normalizer
+// L = m + log(max(l, 1e-30)), in f32, to lse[(r / G) tok_stride / D +
+// r % G] (the caller offsets lse to its first row, as it does q).
+template <typename KVT, int D, int WARPS, int MT, bool kLse = false,
+          class KvRow>
 __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
-                       unsigned char* smem) {
+                       unsigned char* smem, float* lse = nullptr) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int R = 16 * MT * WARPS, kThreads = 32 * WARPS, DS = D + kPad;
   constexpr int CH = D / 8;                  // 16-byte chunks of a bf16 row
@@ -343,6 +349,12 @@ __device__ void attend(const Tile<KVT>& a, const KvRow& kv_row,
       l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], 1);
       l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], 2);
       l[mt][h] = fmaxf(l[mt][h], 1e-30f);
+      if constexpr (kLse) {                  // m is in log2 units
+        const int row = a.r0 + w0 + 16 * mt + g + 8 * h;
+        if (c == 0 && row < a.nrows)
+          lse[(size_t)(row / a.G) * (a.tok_stride / D) + row % a.G] =
+              m[mt][h] * kLn2 + logf(l[mt][h]);
+      }
     }
     __nv_bfloat16* os = qs + (w0 + 16 * mt) * DS;  // the warp's own Q rows
 #pragma unroll

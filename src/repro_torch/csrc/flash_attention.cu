@@ -63,6 +63,14 @@
 // k/v tiles of 32 positions through shared memory, 4 x 2 scores and
 // 4 x D/16 outputs per thread, all in f32 (TF32 tensor cores would miss
 // the f32 tolerance).
+//
+// Training (the forward under autograd): flash_attention_tc_lse_kernel
+// and flash_attention_lse_kernel are the same two bodies instantiated
+// with kLse, which also write each row's softmax normalizer
+// L = m + log(max(l, 1e-30)) (natural log, f32) to a (B, S, H) output for
+// the backward (models/flash.py), which recomputes the probabilities as
+// exp(s - L) instead of saving them.  The serving instantiations are
+// built with kLse off and compile as they did without it.
 #include "attention_common.cuh"
 #include "attention_tc.cuh"
 
@@ -82,6 +90,7 @@ struct Params {
   int S, T, H, KV;
   int causal;
   float scale;                               // 1 / sqrt(D)
+  float* lse;                                // (B, S, H) f32: L, or null
 };
 
 // Dynamic shared memory of one block, in bytes.
@@ -93,9 +102,8 @@ inline size_t smem_bytes(int D) {
                           + 3 * (size_t)kBQ);      // m, l, corr
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(Params p) {
+template <typename T, int D, bool kLse>
+__device__ __forceinline__ void flash_cuda_core_body(const Params& p) {
   static_assert(D % 16 == 0, "head dim must split over 16 columns");
   constexpr int DP = D + 1;
   constexpr int NJ = D / 16;                 // output columns per thread
@@ -237,14 +245,51 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < NJ; ++j)
         store_f32(out, (((size_t)b * p.S + s) * p.H + h) * D + tx + 16 * j,
                   acc[i][j] / l);
+      if constexpr (kLse) {
+        if (tx == 0)
+          p.lse[((size_t)b * p.S + s) * p.H + h] = ms[r] + logf(l);
+      }
     }
   }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_kernel(Params p) {
+  flash_cuda_core_body<T, D, false>(p);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_lse_kernel(Params p) {
+  flash_cuda_core_body<T, D, true>(p);
 }
 
 template <typename T>
 cudaError_t run_typed(const Params& p, int B, int D, cudaStream_t stream) {
   const dim3 grid(B * p.H, (p.S + kBQ - 1) / kBQ);
   const size_t smem = smem_bytes(D);
+  if (p.lse != nullptr) {                    // training: the kLse bodies
+    switch (D) {
+      case 16:
+        return launch_smem(flash_attention_lse_kernel<T, 16>, grid,
+                           kThreads, smem, stream, p);
+      case 32:
+        return launch_smem(flash_attention_lse_kernel<T, 32>, grid,
+                           kThreads, smem, stream, p);
+      case 64:
+        return launch_smem(flash_attention_lse_kernel<T, 64>, grid,
+                           kThreads, smem, stream, p);
+      case 112:
+        return launch_smem(flash_attention_lse_kernel<T, 112>, grid,
+                           kThreads, smem, stream, p);
+      case 128:
+        return launch_smem(flash_attention_lse_kernel<T, 128>, grid,
+                           kThreads, smem, stream, p);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   switch (D) {
     case 16:
       return launch_smem(flash_attention_kernel<T, 16>, grid, kThreads, smem,
@@ -269,9 +314,8 @@ cudaError_t run_typed(const Params& p, int B, int D, cudaStream_t stream) {
 constexpr int kTcWarps = 4, kTcMT = 2;       // bf16: 32 query rows a warp
 constexpr int kTcRows = 16 * kTcMT * kTcWarps;
 
-template <int D>
-__global__ void __launch_bounds__(32 * kTcWarps)
-    flash_attention_tc_kernel(Params p) {
+template <int D, bool kLse>
+__device__ __forceinline__ void flash_tc_body(const Params& p) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / p.KV, hk = blockIdx.x % p.KV;
   const int G = p.H / p.KV;
@@ -292,9 +336,24 @@ __global__ void __launch_bounds__(32 * kTcWarps)
   a.scale_log2 = p.scale * tc::kLog2e;
   const size_t kv0 = (size_t)b * p.T * p.KV + hk;  // row of position 0
   const int KV = p.KV;
-  tc::attend<__nv_bfloat16, D, kTcWarps, kTcMT>(
+  // L of row r (token r / G, head hk G + r % G): (b S + r / G) H + hk G
+  float* lse = kLse ? p.lse + (size_t)b * p.S * p.H + (size_t)hk * G
+                    : nullptr;
+  tc::attend<__nv_bfloat16, D, kTcWarps, kTcMT, kLse>(
       a, [=](int pos) { return (kv0 + (size_t)pos * KV) * D; },
-      reinterpret_cast<unsigned char*>(smem));
+      reinterpret_cast<unsigned char*>(smem), lse);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kTcWarps)
+    flash_attention_tc_kernel(Params p) {
+  flash_tc_body<D, false>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kTcWarps)
+    flash_attention_tc_lse_kernel(Params p) {
+  flash_tc_body<D, true>(p);
 }
 
 cudaError_t run_tc(const Params& p, int B, int D, cudaStream_t stream) {
@@ -304,6 +363,27 @@ cudaError_t run_tc(const Params& p, int B, int D, cudaStream_t stream) {
   const int G = p.H / p.KV;
   const dim3 grid(B * p.KV, (p.S * G + kTcRows - 1) / kTcRows);
   const size_t smem = tc::smem_bytes(D, kTcRows, false);
+  if (p.lse != nullptr) {                    // training: the kLse body
+    switch (D) {
+      case 16:
+        return launch_smem(flash_attention_tc_lse_kernel<16>, grid,
+                           32 * kTcWarps, smem, stream, p);
+      case 32:
+        return launch_smem(flash_attention_tc_lse_kernel<32>, grid,
+                           32 * kTcWarps, smem, stream, p);
+      case 64:
+        return launch_smem(flash_attention_tc_lse_kernel<64>, grid,
+                           32 * kTcWarps, smem, stream, p);
+      case 112:
+        return launch_smem(flash_attention_tc_lse_kernel<112>, grid,
+                           32 * kTcWarps, smem, stream, p);
+      case 128:
+        return launch_smem(flash_attention_tc_lse_kernel<128>, grid,
+                           32 * kTcWarps, smem, stream, p);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   switch (D) {
     case 16:
       return launch_smem(flash_attention_tc_kernel<16>, grid, 32 * kTcWarps,
@@ -328,8 +408,9 @@ cudaError_t run_tc(const Params& p, int B, int D, cudaStream_t stream) {
 }  // namespace
 
 // out, q: (B, S, H, D); k, v: (B, T, KV, D), all of dtype code `dtype`
-// (0 f32, 1 bf16), H a multiple of KV; causal 0 or 1.  All device
-// pointers, all contiguous.  Returns the launch's cudaError_t (0 =
+// (0 f32, 1 bf16), H a multiple of KV; causal 0 or 1; lse null, or a
+// (B, S, H) f32 output for each row's L (the training forward).  All
+// device pointers, all contiguous.  Returns the launch's cudaError_t (0 =
 // launched); cudaErrorInvalidValue for a head dim or dtype no kernel was
 // built for (the Python wrapper refuses those before calling) and, in
 // bf16, for a pointer that is not 16-byte aligned.  f32 runs the
@@ -337,7 +418,7 @@ cudaError_t run_tc(const Params& p, int B, int D, cudaStream_t stream) {
 extern "C" int flash_attention(void* out, const void* q, const void* k,
                                const void* v, int B, int S, int T, int H,
                                int KV, int D, int causal, int dtype,
-                               void* stream) {
+                               void* stream, float* lse) {
   Params p;
   p.out = out;
   p.q = q;
@@ -349,6 +430,7 @@ extern "C" int flash_attention(void* out, const void* q, const void* k,
   p.KV = KV;
   p.causal = causal;
   p.scale = (float)(1.0 / sqrt((double)D));  // as math.sqrt in Python
+  p.lse = lse;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return (int)run_typed<float>(p, B, D, s);
   if (dtype == kBF16) return (int)run_tc(p, B, D, s);

@@ -108,6 +108,19 @@ def library() -> ctypes.CDLL:
     return ctypes.CDLL(str(build()))
 
 
+def refuse_grad(kind: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raises where a kernel that has no backward is asked for a
+    gradient: it writes its output through a raw pointer, so under
+    autograd it would return a result with no ``grad_fn`` and the
+    gradient would be dropped without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kind} on the card has no backward: a call whose inputs need "
+            f"a gradient would return a detached result (run it under "
+            f"torch.no_grad(), or take the plain route)")
+
+
 class Kernel:
     """One C entry point of the library, with a count of its launches.
 

@@ -23,7 +23,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
 from repro_torch.kernels.decode_attention.paged import (
     SPLIT_THREADS, SPLIT_TILE, TARGET_BLOCKS, combine_launch, on_cpu,
     split_attend_trips)
@@ -98,6 +98,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lens = [t for t in (kv_len, kv_start) if isinstance(t, torch.Tensor)]
     if on_cpu(q, k, v, *lens):
         return decode_attention_ref(q, k, v, kv_len, kv_start)
+    refuse_grad("decode attention", q, k, v)
     B, S, T, H, KV, D = check_dense("decode", q, k, v)
     if S != 1:
         raise ValueError("decode attention takes one query token per slot")

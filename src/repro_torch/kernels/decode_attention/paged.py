@@ -22,7 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
 from repro_torch.kernels.trips import (
     Launch, cdiv, mangled, strided, warps_of)
 from repro_torch.kernels.decode_attention.ref import (
@@ -189,6 +189,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if on_cpu(q, k_pool, v_pool, block_table, kv_len, k_scale, v_scale):
         return paged_decode_attention_ref(q, k_pool, v_pool, block_table,
                                           kv_len, layer, k_scale, v_scale)
+    refuse_grad("paged decode attention", q, k_pool, v_pool, k_scale,
+                v_scale)
     k_pool, v_pool, k_scale, v_scale = promote(k_pool, v_pool, k_scale,
                                                v_scale)
     B, T, H, KV, D, num_pages, page, NB = check_args(

@@ -23,7 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
 from repro_torch.kernels.decode_attention.paged import (
     KV_TILE, PREFILL_ROWS, TC_ROWS, check_args, on_cpu, promote, ptr)
 from repro_torch.kernels.trips import (
@@ -65,6 +65,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_prefill_attention_ref(q, k_pool, v_pool, block_table,
                                            base_len, new_len, layer,
                                            k_scale, v_scale)
+    refuse_grad("paged prefill attention", q, k_pool, v_pool, k_scale,
+                v_scale)
     k_pool, v_pool, k_scale, v_scale = promote(k_pool, v_pool, k_scale,
                                                v_scale)
     B, T, H, KV, D, num_pages, page, NB = check_args(

@@ -19,7 +19,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
 from repro_torch.kernels.decode_attention.paged import on_cpu
 from repro_torch.kernels.ssm_scan.ref import mamba1_scan
 from repro_torch.kernels.trips import (
@@ -98,6 +98,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``mamba1_scan`` from a zero state."""
     if on_cpu(x, dt, A, Bc, Cc):
         return mamba1_scan(x, dt, A, Bc, Cc)
+    refuse_grad("the selective scan", x, dt, A, Bc, Cc)
     B, S, d_in, N = check_scan(x, dt, A, Bc, Cc)
     y = torch.empty_like(x)
     h = torch.empty((B, d_in, N), dtype=torch.float32, device=x.device)

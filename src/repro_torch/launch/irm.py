@@ -190,6 +190,7 @@ APP_COLUMNS = ("kernel", "warp_insts_lo", "warp_insts_hi", "bytes", "ms",
                "achieved_gips", "roof_gips", "achieved_over_roof", "bound")
 PEAK_SLACK = 1.05             # the SM clock's rounding in Eq. 3's peak
 ITERS = 36
+TRACE_TRIES = 3               # a trace that missed launches is taken again
 
 
 def serve_shapes() -> Tuple[List[int], List[int], int]:
@@ -327,8 +328,10 @@ def variant_launches() -> List[Launch]:
     """The looped kernels' other instantiations, for a census without a
     point: at the same shapes, paged decode and prefill on int8 pools and
     with f32 q (the CUDA-core prefill body), dense decode, flash and the
-    scan in f32; and dense decode and flash, bf16 and f32, at zamba2-7b's
-    head dim 112 (32 heads over 32, the hybrid phase's S 454)."""
+    scan in f32; dense decode and flash, bf16 and f32, at zamba2-7b's
+    head dim 112 (32 heads over 32, the hybrid phase's S 454); and flash's
+    training instantiations (which also write L), bf16 and f32, at
+    qwen2-0.5b's training shape (B 4, S 4096, 14 heads over 2 of 64)."""
     import torch
 
     from repro_torch.kernels.decode_attention import (
@@ -346,6 +349,8 @@ def variant_launches() -> List[Launch]:
     for dt in (bf, f32):
         out += decode.trip_model(4, 486, 32, 32, 112, 486, [0] * 4, dt)
         out += flash.trip_model(4, 454, 454, 32, 32, 112, True, dt)
+        out += flash.trip_model(4, 4096, 4096, 14, 2, 64, True, dt,
+                                with_lse=True)
     return out + decode.trip_model(4, 486, 32, 8, 128, 486, [0] * 4, f32) \
         + flash.trip_model(4, 512, 512, 32, 8, 128, True, f32) \
         + scan.trip_model(4, 454, 8192, 16, f32)
@@ -396,17 +401,35 @@ def app_points(torch, counter: LoopCounter, cases: List[AppCase],
                iters: int = ITERS) -> List[AppPoint]:
     """One point per launch of each case (the split kernel and its
     combine apart, then their sum), per call: the census of the trip
-    model, its bytes, the device time per call."""
+    model, its bytes, the device time per call.  A point is read only from
+    a trace that holds every launch of the ``iters`` calls: the profiler
+    has been seen to drop a share of them (18 of 36 dense decode launches
+    on an H100), so a short trace is taken again, up to ``TRACE_TRIES``
+    times, and raises after that."""
     out = []
     for case in cases:
-        times = device_us(torch, case.call, iters)
+        names = [kernel_name(la) for la in case.launches]
+        seen = []
+        for _ in range(TRACE_TRIES):
+            times = device_us(torch, case.call, iters)
+            try:
+                got = [kernel_us(times, la) for la in case.launches]
+            except KeyError as e:
+                seen.append(str(e))
+            else:
+                seen.append([n for _, n in got])
+                if all(n == iters for _, n in got):
+                    break
+            print(f"[irm] {case.name}: the trace of {iters} calls holds "
+                  f"{seen[-1]} launches of {names}; tracing again",
+                  file=sys.stderr)
+        else:
+            raise AssertionError(f"{case.name}: launches of {names} in "
+                                 f"{TRACE_TRIES} traces of {iters} calls: "
+                                 f"{seen}")
         pts = []
-        for la in case.launches:
+        for la, (us, _) in zip(case.launches, got):
             lo, hi = counter.count(la)
-            us, n = kernel_us(times, la)
-            if n != iters:
-                raise AssertionError(f"{case.name}: {n} launches of "
-                                     f"{kernel_name(la)} in {iters} calls")
             pts.append(AppPoint(f"{case.name}: {kernel_name(la)}", lo, hi,
                                 la.bytes, us / iters * 1e-6))
         if len(pts) > 1:

@@ -147,7 +147,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel masks its own ragged tiles, so the Pallas wrapper's 512-block
     contract is not applied here.  Otherwise the JAX reference dispatch:
     decode and small shapes -> direct; long -> the chunked flash
-    reference on repeated kv heads."""
+    reference on repeated kv heads.  Under autograd the kernel route is
+    the kernel's training route (its forward with L, the chunked
+    reference's backward) and the chunked reference takes its custom
+    backward; direct attention is differentiated by autograd, as in the
+    JAX package."""
     B, S, H, D = q.shape
     T = k.shape[1]
     if not plain and on_card(q) and S > 1 and kv_len is None:

@@ -1,13 +1,13 @@
-"""Model facade for the serving paths — port of ``repro/models/model.py``
-(every family: dense, MoE, VLM, Mamba1, the Mamba2 hybrid and the
-encoder-decoder).
+"""Model facade — port of ``repro/models/model.py`` (every family: dense,
+MoE, VLM, Mamba1, the Mamba2 hybrid and the encoder-decoder).
 
-``Model(cfg)`` exposes init, the whole-batch cache and its steps
-(``prefill``, ``decode_step``, ``decode_many``), and the paged cache and
-its steps.  The JAX cells are ``lax.scan``s jitted with donated caches;
-here they are Python loops over steps, updating the cache in place, with
-sampling on the device.  Randomness comes from an explicit
-``torch.Generator``.
+``Model(cfg)`` exposes init, the training loss (``loss``, through the
+fused unembed cross-entropy) and ``model_flops``, the whole-batch cache
+and its steps (``prefill``, ``decode_step``, ``decode_many``), and the
+paged cache and its steps.  The JAX cells are ``lax.scan``s jitted with
+donated caches; here they are Python loops over steps, updating the
+cache in place, with sampling on the device.  Randomness comes from an
+explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -17,8 +17,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import transformer as T
+from repro_torch.models.losses import fused_unembed_xent
 from repro_torch.models.params import init_from_schema, init_params
 
 
@@ -35,6 +36,15 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
     else:
         tok = torch.argmax(logits, dim=-1)
     return tok.to(torch.int32)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """logits (B, S, V); labels (B, S) int.  Mean NLL in f32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - gold)
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +68,47 @@ class Model:
 
     def init(self, generator: torch.Generator, device="cuda"):
         return init_params(self.cfg, generator, device)
+
+    # -- training -------------------------------------------------------
+
+    def loss(self, params, batch: Dict[str, Any]) -> torch.Tensor:
+        """batch: "tokens" (B, S) int (or "embeds" (B, S, d) for a
+        stub-frontend arch, and "frames" for the encoder-decoder),
+        "labels" (B, S) int, optional "positions" (``arange(S)`` per row
+        when absent).  The hidden states of ``lm_forward(mode="hidden")``
+        through the fused unembed cross-entropy against the tied or
+        untied table, plus ``router_aux_weight`` x the MoE load-balance
+        loss."""
+        cfg = self.cfg
+        labels = batch["labels"]
+        if cfg.is_encoder_decoder:
+            hidden, aux, _ = T.whisper_forward(
+                params, cfg, batch["frames"], batch["tokens"], mode="hidden",
+                plain=self.plain_attention)
+        else:
+            inputs = batch["tokens"] if cfg.embed_inputs else batch["embeds"]
+            positions = batch.get("positions")
+            if positions is None:      # three equal streams for M-RoPE,
+                B, S = labels.shape     # as ``prefill`` builds them
+                positions = torch.arange(S, device=labels.device)[None]\
+                    .expand(B, S)
+                if cfg.mrope_sections:
+                    positions = positions[None].expand(3, B, S)
+            hidden, aux, _ = T.lm_forward(params, cfg, inputs, positions,
+                                          mode="hidden",
+                                          plain=self.plain_attention)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        ce = fused_unembed_xent(hidden, table, labels)
+        return ce + cfg.router_aux_weight * aux
+
+    def model_flops(self, shape: ShapeConfig) -> float:
+        """Algorithmic FLOPs of one step: 6 N_active D for train, 2
+        N_active D for prefill/decode forward (D = processed tokens)."""
+        n_active = self.cfg.active_params()
+        tokens = shape.global_batch * (shape.seq_len
+                                       if shape.kind != "decode" else 1)
+        mult = 6.0 if shape.kind == "train" else 2.0
+        return mult * n_active * tokens
 
     # -- whole-batch cache and steps ------------------------------------
 

@@ -14,9 +14,14 @@ forward and decode step (``whisper_*``).
 Port of ``repro/models/transformer.py``.  The ``lax.scan`` over stacked layers
 becomes a Python loop over the layer index; caches and pools are
 updated IN PLACE where the JAX functions return updated copies, so the
-returned cache holds the same tensors it was given.  The remat grouping
-of ``lm_forward`` does nothing in a forward pass and is dropped, as are
-the sharding constraints, which have no counterpart on one card.
+returned cache holds the same tensors it was given.  The sharding
+constraints have no counterpart on one card and are dropped.  Remat is
+kept where it acts, in a training pass: with grad enabled, the dense
+family's ``lm_forward`` checkpoints each block (``cfg.remat`` "block" or
+"full") or each group of ``cfg.remat_group`` layers with
+``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
+each layer once from its group's saved input; the values and gradients
+are those of the pass without it.
 
 Attention: ``plain=False`` (the default, and the serving path) calls the
 kernel wrappers, which launch the CUDA kernels for CUDA tensors and run
@@ -43,6 +48,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import (
@@ -585,19 +591,49 @@ def lm_forward(params, cfg: ArchConfig, inputs, positions,
     rope = _rope(cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        p = layer_params(params["blocks"], li)
-        h, aux_i, (k, v) = dense_block(h, p, cfg, rope, plain)
-        aux = aux + aux_i
-        if mode == "prefill":
-            ks.append(k)
-            vs.append(v)
+
+    def layers(h, aux, l0: int, l1: int):
+        for li in range(l0, l1):
+            p = layer_params(params["blocks"], li)
+            h, aux_i, (k, v) = dense_block(h, p, cfg, rope, plain)
+            aux = aux + aux_i
+            if mode == "prefill":
+                ks.append(k)
+                vs.append(v)
+        return h, aux
+
+    g = remat_span(cfg, mode, params["blocks"])
+    if g:
+        for l0 in range(0, cfg.n_layers, g):
+            h, aux = checkpoint(layers, h, aux, l0, l0 + g,
+                                use_reentrant=False)
+    else:
+        h, aux = layers(h, aux, 0, cfg.n_layers)
     if mode == "hidden":
         return apply_norm(h, params["ln_f"], cfg), aux, None
     if mode == "prefill":
         return (_logits_exact(params, cfg, h[:, -1:]), aux,
                 {"k": torch.stack(ks), "v": torch.stack(vs)})
     return _logits(params, cfg, h), aux, None
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    return any(_needs_grad(v) for v in tree.values())
+
+
+def remat_span(cfg: ArchConfig, mode: str, blocks) -> int:
+    """Layers per checkpoint of the dense family's ``lm_forward``: 0 (no
+    remat) outside a training pass (grad mode off, block parameters that
+    need no gradient, or a prefill) or with ``cfg.remat`` "none"; else
+    ``remat_group`` where it divides the layers (the JAX package's
+    layer-grouped remat), else 1 (per block)."""
+    if (not torch.is_grad_enabled() or mode == "prefill"
+            or cfg.remat not in ("block", "full") or not _needs_grad(blocks)):
+        return 0
+    g = cfg.remat_group
+    return g if g > 1 and cfg.n_layers % g == 0 else 1
 
 
 def _ssm_forward(params, cfg: ArchConfig, h, mode: str, plain: bool):

@@ -205,15 +205,19 @@ def test_decode_splits_fill_the_card():
 
 
 def test_flash_wrapper_refuses_gradients_off_the_cpu():
-    """Off the CPU, a call that would need a gradient raises, naming the
-    training slice; a tensor neither on the CPU nor on a CUDA device is
-    refused."""
+    """Off the CPU, a tensor neither on the CPU nor on a CUDA device is
+    refused, with or without a gradient: flash's training route (it has a
+    backward since the training slice) checks the device as its forward
+    does.  Dense decode, which has no backward, refuses a call that needs
+    a gradient before anything else."""
     meta = [torch.empty(1, 64, 2, 16, device="meta") for _ in range(3)]
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention(*meta)
     meta[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention(*meta)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        decode.decode_attention(meta[0][:, :1], meta[1], meta[2], 3)
     with pytest.raises(ValueError, match="CUDA"):
         decode.decode_attention(meta[0][:, :1].detach(), meta[1], meta[2], 3)
 

@@ -576,6 +576,49 @@ def test_kernel_names_and_trace_keys():
         launch_irm.kernel_us({}, split)
 
 
+@pytest.mark.parametrize("traces,tries,ok", [
+    ([36, 36], 1, True), ([18, 36], 2, True), ([18, 0, 36], 3, True),
+    ([18, 18, 18], 3, False), ({}, 3, False)])
+def test_app_points_reads_only_a_trace_with_every_launch(monkeypatch,
+                                                          traces, tries, ok):
+    """A trace that misses launches of the case's calls (the profiler
+    drops some) is taken again; a point is read only from one that holds
+    them all, and ``TRACE_TRIES`` short traces raise."""
+    from repro_torch.kernels.decode_attention import paged as kpaged
+    split, comb = kpaged.trip_model(1, 32, 8, 128, 16, 4, [9],
+                                    torch.bfloat16, torch.bfloat16)
+    keys = {"split": "void paged_decode_kernel<__nv_bfloat16>(Params)",
+            "comb": "void decode_attention_combine_kernel<float>(P)"}
+    # a list: the split kernel's launches in each trace, the combine's all
+    # there; a dict: every trace without the split kernel
+    seq = ([36] * 3 if isinstance(traces, dict) else list(traces))
+    taken = []
+
+    def device_us(torch_, call, iters):
+        n = seq[len(taken)]
+        taken.append(n)
+        out = {keys["comb"]: (72.0, iters)}
+        if not isinstance(traces, dict) and n:
+            out[keys["split"]] = (2.0 * n, n)
+        return out
+
+    monkeypatch.setattr(launch_irm, "device_us", device_us)
+    counter = types.SimpleNamespace(count=lambda la: (10, 20))
+    case = launch_irm.AppCase("paged_decode", lambda i: None, [split, comb])
+    if not ok:
+        with pytest.raises(AssertionError, match="3 traces of 36 calls"):
+            launch_irm.app_points(torch, counter, [case], iters=36)
+        assert len(taken) == launch_irm.TRACE_TRIES
+        return
+    pts = launch_irm.app_points(torch, counter, [case], iters=36)
+    assert len(taken) == tries
+    assert [p.kernel for p in pts] == [
+        "paged_decode: paged_decode_kernel",
+        "paged_decode: decode_attention_combine_kernel", "paged_decode: sum"]
+    assert pts[0].seconds == pytest.approx(2.0 * 36 / 36 * 1e-6)
+    assert pts[1].seconds == pytest.approx(72.0 / 36 * 1e-6)
+
+
 def test_serve_shapes_are_the_serve_phase_lengths():
     assert launch_irm.serve_shapes() == ([255, 276, 105, 147],
                                          [224, 256, 64, 128], 21)
