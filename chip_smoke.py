@@ -308,8 +308,51 @@ Phases, each failing loudly (non-zero exit, no result line):
                shape beside its bound and SDPA, and
                ``launch.train --arch qwen2-0.5b --steps 2 --batch 8``.
                Before it, the kernel phase holds flash at qwen2's G = 7
-               and, at S = T = 4096 causal, its output and L in bf16
-               and f32.
+               and, in bf16 and f32, the training instantiation's output
+               and L against the plain forward's (and its output against
+               the serving instantiation's, bit for bit) at every
+               training shape of the port: qwen2's S = T = 4096 causal,
+               whisper's S = T = 1500 causal and not (G = 1, D 64, a
+               ragged last tile), zamba2's S = T = 1024 causal (D 112).
+     train-families — the non-dense families through the port's training
+               path (remat per block, the kernel route under autograd).
+               whisper-large-v3 at full width and depth (32 + 32 layers,
+               1.5e9 parameters, bf16, attn chunks 500 as in the audio
+               phase) through the ``Trainer``: S = 1500 frames and
+               tokens, batch 8 in 2 microbatches, the launchers' lr
+               schedule (``cosine_with_warmup(3e-4, 100, 5)``), f32
+               moments, 5 steps.  Hard: finite losses and grad norms, the
+               last loss below the first, the first batch's loss after
+               the steps below its loss under the initial weights (one
+               evaluation each; equal if no weight moved), flash
+               exactly 384 launches a
+               step ((32 encoder + 32 self + 32 cross) x forward and
+               remat recompute x 2 microbatches); at 2 + 2 layers, S =
+               512, every gradient leaf of ``Model.loss`` on the kernel
+               route against the plain route (f32 within 1e-4 of the
+               leaf's max abs; bf16 relative norm error within
+               TRAIN_BF16_GRAD_BOUND).  Prints the median step, decoder
+               tokens/s, ``model_flops`` (6 N D, D the decoder tokens)
+               over the step and its share of the bf16 peak, a profiled
+               step's device split, the peak memory, the kernel with L at
+               the encoder's shape (B 4, S = T = 1500, 20 heads of 64,
+               non-causal) beside SDPA and its bound, and
+               ``launch.train --arch whisper-large-v3 --steps 1 --batch
+               4`` (S 4096).  falcon-mamba-7b at its published widths:
+               the routes' grads at 2 layers (S 256, B 2), the selective
+               scan exactly 2 launches a layer (forward, recompute; its
+               backward the plain scan's), 3 steps at 4 layers (S 512,
+               batch 4) with finite losses, the step ms, a profiled
+               step's device split and the plain backward's host share.
+               zamba2-7b at its published widths: the routes' grads at 6
+               layers (S 512, one application), 3 steps at 12 layers (S
+               1024, batch 4) with flash exactly 4 launches a step, a
+               profiled step's device split and the SSD scans' share
+               (their forwards, recomputes and backwards).  Then
+               llama4-scout, grok-1, qwen2-vl, whisper, falcon-mamba and
+               zamba2 reduced in f32 through 3 ``make_train_step`` steps
+               on both routes (losses within 1e-4, params within 1e-4 of
+               their max abs).
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
                shapes that exercise the bounds guards, ragged last
@@ -2586,34 +2629,47 @@ def route_check(torch, gen, dtype, tol, tname):
 LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
 
 
+# The training instantiation's shapes, (model, B, S, T, H, KV, D, causal,
+# the plain forward's chunk): qwen2-0.5b's (14 over 2 heads of 64; its
+# train S, and S != T); whisper-large-v3's (20/20 heads of 64 at S = T =
+# 1500, a ragged last tile: the encoder's and cross-attention's
+# non-causal, the decoder's causal self-attention); zamba2-7b's shared
+# block (32/32 heads of 112, its train S)
+LSE_SHAPES = (("qwen2", 1, 4096, 4096, 14, 2, 64, True, 512),
+              ("qwen2", 2, 1000, 1500, 14, 2, 64, False, 500),
+              ("whisper", 4, 1500, 1500, 20, 20, 64, False, 500),
+              ("whisper", 4, 1500, 1500, 20, 20, 64, True, 500),
+              ("zamba2", 4, 1024, 1024, 32, 32, 112, True, 512))
+
+
 def lse_check(torch, gen, dtype, tol, tname):
-    """The training instantiation at qwen2-0.5b's geometry (14 over 2
-    heads of 64): S = T = 4096 causal (B 1) and S = 1000 non-causal over
-    T = 1500 (B 2), its output and L against the plain forward's; its
-    output also bit-identical to the serving instantiation's.  Returns
-    the output's max error."""
+    """The training instantiation at each of LSE_SHAPES, its output and L
+    against the plain forward's on the same inputs; its output also
+    bit-identical to the serving instantiation's.  Returns the output's
+    max error."""
     from repro_torch.kernels.flash_attention import flash
     from repro_torch.models.attention import repeat_kv
     from repro_torch.models.flash import _flash_fwd
-    H, KV, D = 14, 2, 64
     err = 0.0
-    for B, S, T, causal, c in ((1, 4096, 4096, True, 512),
-                               (2, 1000, 1500, False, 500)):
+    for model, B, S, T, H, KV, D, causal, c in LSE_SHAPES:
         q, k, v = dense_inputs(gen, B, S, T, H, KV, D, dtype)
         out, L = flash.run(q, k, v, causal, with_lse=True)
         serving, _ = flash.run(q, k, v, causal)
         want, want_L = _flash_fwd(q, repeat_kv(k, H), repeat_kv(v, H),
                                   causal, c, c)
-        what = f"flash with L qwen2 {tname} B={B} S={S} T={T} " \
-               f"causal={causal}"
+        what = f"flash with L {model} {tname} B={B} S={S} T={T} " \
+               f"H={H} KV={KV} D={D} causal={causal}"
         if not torch.equal(out, serving):
             raise AssertionError(f"{what}: the output differs from the "
                                  f"serving instantiation's")
-        err = max(err, check_close(what, out, want, tol))
+        o_err = check_close(what, out, want, tol)
         l_err = check_close(what + " L", L, want_L, LSE_TOL[tname])
-        log(f"[dense] flash with L, qwen2 G = 7, {tname}, B={B} S={S} "
-            f"T={T} causal={causal}: max|kernel-plain| out {err:.3e} (tol "
-            f"{tol}), L {l_err:.3e} (tol {LSE_TOL[tname]})")
+        err = max(err, o_err)
+        log(f"[dense] flash with L, {model} G = {H // KV}, D = {D}, "
+            f"{tname}, B={B} S={S} T={T} causal={causal}: max|kernel-plain| "
+            f"out {o_err:.3e} (tol {tol}), L {l_err:.3e} (tol "
+            f"{LSE_TOL[tname]}); out = serving's, bit for bit")
+        del q, k, v, out, L, serving, want, want_L
     return err
 
 
@@ -4476,7 +4532,6 @@ TRAIN_RESUME_TOL = 2e-3             # the JAX test's rtol = atol for resume
 # against plain route: the bound on each leaf's relative norm error,
 # written in PERF.md (PR 28) before the first run and never widened
 TRAIN_BF16_GRAD_BOUND = 5e-2
-TRAIN_MARKS = ("flash_bwd", "fused_xent", "adamw")   # profiler ranges
 
 
 def train_config():
@@ -4508,17 +4563,18 @@ def train_setup(steps, ckpt_dir=None):
                       async_checkpoint=False, device="cuda"))
 
 
-def counted_steps(trainer):
-    """Wraps the trainer's step so that each step runs with the flash
-    kernel's count set to 0 just before it; returns the list that each
-    step's count is appended to."""
+def counted_steps(trainer, kernel=None):
+    """Wraps the trainer's step so that each step runs with ``kernel``'s
+    count (the flash kernel's by default) set to 0 just before it;
+    returns the list that each step's count is appended to."""
     from repro_torch.kernels.flash_attention import flash
+    kernel = kernel or flash.KERNEL
     per_step, inner = [], trainer.step_fn
 
     def step(*args):
-        flash.KERNEL.launches = 0
+        kernel.launches = 0
         out = inner(*args)
-        per_step.append(flash.KERNEL.launches)
+        per_step.append(kernel.launches)
         return out
 
     trainer.step_fn = step
@@ -4549,35 +4605,35 @@ def leaf_errors(torch, got, want):
     return out
 
 
-def train_route_grads(torch):
-    """Every gradient leaf of one ``Model.loss`` at 2 of qwen2-0.5b's 24
-    layers, full width, B 2, S 1024, kernel route (flash forward with L,
-    the plain backward) against plain route (direct attention), f32 and
-    bf16; flash launched twice a layer (forward, remat recompute)."""
+def route_grads(torch, tag, cfg, S, B, kernel, want, seed=5):
+    """Every gradient leaf of one ``Model.loss`` of ``cfg`` (the batch
+    from the synthetic pipeline at S and B, frames or embeddings as the
+    launcher asks) on the kernel route against the plain route, in f32
+    and bf16: f32 within 1e-4 of each leaf's max abs, bf16 relative norm
+    error within TRAIN_BF16_GRAD_BOUND; ``kernel`` launched ``want``
+    times by the kernel route.  Returns {dtype: worst error}."""
     import dataclasses
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
-    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
     from repro_torch.models.model import get_model
     from repro_torch.models.params import init_params
     from repro_torch.train.train_step import loss_and_grads
     from repro_torch.train.trainer import batch_to_device
     worst = {}
     for dtype in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(train_config(), n_layers=2, dtype=dtype)
-        gen = torch.Generator(device="cuda").manual_seed(5)
-        params = init_params(cfg, gen, "cuda")
-        batch = batch_to_device(SyntheticTokenPipeline(DataConfig(
-            vocab_size=cfg.vocab_size, seq_len=1024, global_batch=2,
-            seed=5)).batch_at(0), cfg, "cuda")
-        flash.KERNEL.launches = 0
-        loss, grads = loss_and_grads(get_model(cfg), params, batch)
-        if flash.KERNEL.launches != 2 * cfg.n_layers:
-            raise AssertionError(f"train grads {dtype}: flash launched "
-                                 f"{flash.KERNEL.launches} times, not "
-                                 f"{2 * cfg.n_layers}")
-        want_loss, want = loss_and_grads(get_model(cfg, True), params, batch)
-        errs = leaf_errors(torch, grads, want)
+        c = dataclasses.replace(cfg, dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(c, gen, "cuda")
+        batch = batch_to_device(SyntheticTokenPipeline(data_config(
+            c, S, B, seed)).batch_at(0), c, "cuda")
+        kernel.launches = 0
+        loss, grads = loss_and_grads(get_model(c), params, batch)
+        if kernel.launches != want:
+            raise AssertionError(f"{tag} grads {dtype}: {kernel.symbol} "
+                                 f"launched {kernel.launches} times, not "
+                                 f"{want}")
+        want_loss, want_g = loss_and_grads(get_model(c, True), params, batch)
+        errs = leaf_errors(torch, grads, want_g)
         if dtype == "float32":
             bad = {k: e for k, e in errs.items() if e[0] > 1e-4}
             worst[dtype] = max(e[0] for e in errs.values())
@@ -4587,39 +4643,61 @@ def train_route_grads(torch):
                    if e[1] > TRAIN_BF16_GRAD_BOUND}
             worst[dtype] = max(e[1] for e in errs.values())
             rule = (f"relative norm error within {TRAIN_BF16_GRAD_BOUND}")
-        log(f"[train] grads {TRAIN_ARCH} 2 layers full width {dtype} B=2 "
-            f"S=1024: loss kernel {loss.item():.6f} plain "
-            f"{want_loss.item():.6f}; per leaf (max err / max abs, rel "
-            f"norm err): " + ", ".join(
+        log(f"[{tag}] grads {c.name} {dtype} B={B} S={S}: loss kernel "
+            f"{loss.item():.6f} plain {want_loss.item():.6f}; "
+            f"{kernel.symbol} launches {want}; per leaf (max err / max abs, "
+            f"rel norm err): " + ", ".join(
                 f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in sorted(errs.items())))
         if bad or not torch.isfinite(loss):
-            raise AssertionError(f"train grads {dtype}: {rule} fails for "
+            raise AssertionError(f"{tag} grads {dtype}: {rule} fails for "
                                  f"{sorted(bad)}")
-        del params, grads, want
+        del params, grads, want_g
         torch.cuda.empty_cache()
     return worst
 
 
-def train_reduced_parity(torch):
-    """qwen2-0.5b reduced in f32 through 3 ``make_train_step`` steps
-    (B 4 in 2 microbatches, S 64) on the kernel and the plain route from
-    the same weights: losses within 1e-4, params within 1e-4 of their
-    max abs."""
+def data_config(cfg, S, B, seed=0):
+    """The synthetic pipeline's config for ``cfg`` at S and B, with
+    frames or embeddings as ``launch.train`` asks for them."""
+    from repro_torch.data.pipeline import DataConfig
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                      seed=seed,
+                      emit_embeddings=not cfg.embed_inputs
+                      and not cfg.is_encoder_decoder,
+                      emit_frames=cfg.is_encoder_decoder,
+                      d_model=cfg.d_model)
+
+
+def train_route_grads(torch):
+    """Every gradient leaf of one ``Model.loss`` at 2 of qwen2-0.5b's 24
+    layers, full width, B 2, S 1024, kernel route (flash forward with L,
+    the plain backward) against plain route (direct attention), f32 and
+    bf16; flash launched twice a layer (forward, remat recompute)."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import flash
+    return route_grads(torch, "train", dataclasses.replace(
+        train_config(), n_layers=2), 1024, 2, flash.KERNEL, 4)
+
+
+def train_reduced_parity(torch, arch=TRAIN_ARCH, tag="parity"):
+    """``arch`` reduced in f32 through 3 ``make_train_step`` steps (B 4 in
+    2 microbatches, S 64, frames or embeddings as the launcher asks) on
+    the kernel and the plain route from the same weights: losses within
+    1e-4, params within 1e-4 of their max abs."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
     from repro_torch.models.model import get_model
     from repro_torch.models.params import init_params
     from repro_torch.optim.adamw import AdamW, AdamWConfig, tree_leaves
     from repro_torch.train.train_step import make_train_step
     from repro_torch.train.trainer import batch_to_device
-    cfg = dataclasses.replace(configs.get(TRAIN_ARCH).reduced(),
-                              dtype="float32")
+    cfg = dataclasses.replace(configs.get(arch).reduced(), dtype="float32")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
                          "cuda")
-    pipe = SyntheticTokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                             seq_len=64, global_batch=4))
+    pipe = SyntheticTokenPipeline(data_config(cfg, 64, 4))
     runs = []
     for plain in (False, True):
         opt = AdamW(AdamWConfig(lr=TRAIN_LR))
@@ -4635,12 +4713,48 @@ def train_reduced_parity(torch):
     perr = max((a - b).abs().max().item()
                for a, b in zip(tree_leaves(kp), tree_leaves(pp)))
     lerr = max(abs(a - b) for a, b in zip(kl, pl))
-    log(f"[parity] {TRAIN_ARCH}-reduced f32, 3 train steps, kernel vs plain "
+    log(f"[{tag}] {arch}-reduced f32, 3 train steps, kernel vs plain "
         f"route: losses {kl} vs {pl} (max diff {lerr:.2e}); params max diff "
         f"{perr:.2e} of max abs {scale:.3f}")
     if lerr > 1e-4 + 1e-4 * max(pl) or perr > 1e-4 * scale:
-        raise AssertionError("train parity: kernel and plain route differ "
-                             "in f32")
+        raise AssertionError(f"{tag}: {arch} kernel and plain route differ "
+                             f"in f32")
+    return lerr, perr / scale
+
+
+def lse_timing(torch, label, B, S, H, KV, D, causal, chunk, seed):
+    """The flash kernel with L (bf16) at one training shape, cycling
+    through 4 inputs: kernel, the plain chunked forward (with L, chunks
+    of ``chunk``) and SDPA's forward; its bound, logged under ``label``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.attention import repeat_kv
+    from repro_torch.models.flash import _flash_fwd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n = 4
+    qs, ks, vs = zip(*(dense_inputs(gen, B, S, S, H, KV, D, torch.bfloat16)
+                       for _ in range(n)))
+    kernel = lambda i: flash.run(qs[i % n], ks[i % n], vs[i % n],  # noqa
+                                 causal, with_lse=True)
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa
+        qs[i % n].transpose(1, 2), ks[i % n].transpose(1, 2),
+        vs[i % n].transpose(1, 2), is_causal=causal, enable_gqa=KV != H)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    row = dict(ms=time_ms(kernel), library_ms=time_ms(sdpa),
+               plain_ms=time_ms(lambda i: _flash_fwd(
+                   qs[i % n], repeat_kv(ks[i % n], H),
+                   repeat_kv(vs[i % n], H), causal, chunk, chunk), iters=6,
+                   warmup=1),
+               device_ms=device_ms(kernel), library_device_ms=device_ms(sdpa),
+               shape=f"B={B} S=T={S} {'causal' if causal else 'non-causal'} "
+                     f"H={H} KV={KV} D={D}, with L",
+               bytes=flash.trip_model(B, S, S, H, KV, D, causal,
+                                      with_lse=True)[0].io_bytes,
+               flops=4 * D * B * H * pairs)
+    log_dense_rows({"flash_attention": row}, lambda name: label)
+    return row
 
 
 def train_lse_timing(torch):
@@ -4648,90 +4762,114 @@ def train_lse_timing(torch):
     heads over 2 of 64, causal, bf16), cycling through 4 inputs: kernel,
     the plain chunked forward (with L, chunks of 512) and SDPA's forward;
     its bound."""
-    import torch.nn.functional as F
+    return lse_timing(torch, f"{TRAIN_ARCH} train", 4, TRAIN_S, 14, 2, 64,
+                      True, 512, 91)
 
+
+def train_marks():
+    """The functions a profiled train step puts a range around, (owner,
+    attribute, part); the scan's and the SSD scan's run only on their
+    families' steps."""
     from repro_torch.kernels.flash_attention import flash
-    from repro_torch.models.attention import repeat_kv
-    from repro_torch.models.flash import _flash_fwd
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(91)
-    B, S, H, KV, D, n = 4, TRAIN_S, 14, 2, 64, 4
-    qs, ks, vs = zip(*(dense_inputs(gen, B, S, S, H, KV, D, torch.bfloat16)
-                       for _ in range(n)))
-    kernel = lambda i: flash.run(qs[i % n], ks[i % n], vs[i % n], True,  # noqa
-                                 with_lse=True)
-    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa
-        qs[i % n].transpose(1, 2), ks[i % n].transpose(1, 2),
-        vs[i % n].transpose(1, 2), is_causal=True, enable_gqa=True)
-    row = dict(ms=time_ms(kernel), library_ms=time_ms(sdpa),
-               plain_ms=time_ms(lambda i: _flash_fwd(
-                   qs[i % n], repeat_kv(ks[i % n], H),
-                   repeat_kv(vs[i % n], H), True, 512, 512), iters=6,
-                   warmup=1),
-               device_ms=device_ms(kernel), library_device_ms=device_ms(sdpa),
-               shape=f"B={B} S=T={S} causal H={H} KV={KV} D={D}, with L",
-               bytes=flash.trip_model(B, S, S, H, KV, D, True,
-                                      with_lse=True)[0].io_bytes,
-               flops=4 * D * B * H * S * (S + 1) // 2)
-    log_dense_rows({"flash_attention": row},
-                   lambda name: f"{TRAIN_ARCH} train")
-    return row
+    from repro_torch.kernels.ssm_scan import scan
+    from repro_torch.models import losses, ssm
+    from repro_torch.optim import adamw
+    return ((flash, "flash_bwd", "plain flash backward"),
+            (losses._FusedXent, "forward", "fused loss"),
+            (losses._FusedXent, "backward", "fused loss"),
+            (adamw.AdamW, "update", "optimizer"),
+            (scan.SelectiveScan, "backward", "plain scan backward"),
+            (ssm, "ssd_scan", "SSD scans"))
+
+
+AUTOGRAD_NODE = "autograd::engine::evaluate_function: "
+FLASH_LSE = "flash_attention_tc_lse_kernel"
+TRAIN_REST = "the rest (GEMMs, norms, rope, embedding)"
 
 
 def train_split(torch, step, params, opt, batch):
-    """One train step under ``torch.profiler`` with ranges around the
-    plain flash backward, the fused loss (forward and backward) and the
-    optimizer update: {part: device ms}, the rest being the flash forward
-    kernel (by name) and everything else (the GEMMs of the layers and
-    their recompute, norms, rope, the embedding), and the total."""
+    """One train step under ``torch.profiler``, a range (its part's name)
+    around each of ``train_marks()``.  Each kernel is counted once: the
+    flash forward kernel by name; else in the part of the innermost range
+    or autograd node that launched it, a node belonging to the part whose
+    range ran its forward op (matched by sequence number and thread), so
+    that the SSD scans' part holds their forwards, remat recomputes and
+    backwards; else in the rest.  Returns (device ms, {part: device ms},
+    {"step": the step's host ms, part: host ms inside its ranges}); parts
+    that took no time are left out."""
+    import inspect
+
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.flash_attention import flash
-    from repro_torch.models import losses
-    from repro_torch.optim import adamw
-
-    def marked(fn, mark):
+    def marked(fn, part):
         def inner(*args, **kw):
-            with torch.profiler.record_function(mark):
+            with torch.profiler.record_function(part):
                 return fn(*args, **kw)
         return inner
 
-    saved = (flash.flash_bwd, losses._FusedXent.forward,
-             losses._FusedXent.backward, adamw.AdamW.update)
-    flash.flash_bwd = marked(saved[0], "flash_bwd")
-    losses._FusedXent.forward = staticmethod(marked(saved[1], "fused_xent"))
-    losses._FusedXent.backward = staticmethod(marked(saved[2], "fused_xent"))
-    adamw.AdamW.update = marked(saved[3], "adamw")
+    marks = train_marks()
+    saved = [(o, a, inspect.getattr_static(o, a)) for o, a, _ in marks]
+    for (o, a, part), (_, _, raw) in zip(marks, saved):
+        fn = marked(getattr(o, a), part)
+        setattr(o, a, staticmethod(fn) if isinstance(raw, staticmethod)
+                else fn)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             step(params, opt, batch)
             torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        flash.flash_bwd = saved[0]
-        losses._FusedXent.forward = staticmethod(saved[1])
-        losses._FusedXent.backward = staticmethod(saved[2])
-        adamw.AdamW.update = saved[3]
+        for o, a, raw in saved:
+            setattr(o, a, raw)
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
+    host = [e for e in events if e.device_type != cuda]
+    names = {e.name for e in host}
+    parts = {"flash forward kernel": 0.0}
+    parts.update((part, 0.0) for *_, part in marks)
+
+    def in_range(e):
+        while e is not None and e.name not in parts:
+            e = e.cpu_parent
+        return e and e.name
+
+    made = {(e.sequence_nr, e.thread): in_range(e) for e in host
+            if e.sequence_nr >= 0 and not e.name.startswith(AUTOGRAD_NODE)
+            and in_range(e)}
+
+    def owner(e):
+        while e is not None:
+            if e.name in parts:
+                return e.name
+            if e.name.startswith(AUTOGRAD_NODE):
+                part = made.get((e.sequence_nr, e.fwd_thread))
+                if part:
+                    return part
+            e = e.cpu_parent
+        return None
+
     # the device timeline also carries each range as an annotation of the
     # range's name: only kernels (names no CPU event has) are summed
-    host = {e.name for e in events if e.device_type != cuda}
     kernels = [e for e in events if e.device_type == cuda
-               and e.name not in host]
+               and e.name not in names]
     total = sum(e.device_time_total for e in kernels) / 1e3
-    split = {"flash forward kernel": sum(
-        e.device_time_total for e in kernels
-        if "flash_attention_tc_lse_kernel" in e.name) / 1e3}
-    names = {"flash_bwd": "plain flash backward", "fused_xent": "fused loss",
-             "adamw": "optimizer"}
-    for mark in TRAIN_MARKS:
-        split[names[mark]] = sum(e.device_time_total for e in events
-                                 if e.device_type != cuda
-                                 and e.name == mark) / 1e3
-    split["the rest (GEMMs, norms, rope, embedding)"] = \
-        total - sum(split.values())
-    return total, split
+    parts["flash forward kernel"] = sum(
+        e.device_time_total for e in kernels if FLASH_LSE in e.name) / 1e3
+    for e in host:
+        ms = sum(k.duration for k in e.kernels if FLASH_LSE not in k.name)
+        part = owner(e) if ms else None
+        if part:
+            parts[part] += ms / 1e3
+    split = {k: v for k, v in parts.items() if v}
+    split[TRAIN_REST] = total - sum(split.values())
+    host_ms = {"step": step_ms}
+    for part in split:
+        spent = sum(e.cpu_time_total for e in host if e.name == part)
+        if spent:
+            host_ms[part] = spent / 1e3
+    return total, split, host_ms
 
 
 def train_phase(torch):
@@ -4820,7 +4958,7 @@ def train_phase(torch):
                            microbatches=TRAIN_MICRO)
     batch = batch_to_device(tr.pipeline.batch_at(TRAIN_STEPS), cfg, "cuda")
     t0 = time.perf_counter()
-    dev_total, split = train_split(torch, step, params, opt, batch)
+    dev_total, split, _ = train_split(torch, step, params, opt, batch)
     parts["profiled step"] = time.perf_counter() - t0
     del params, opt, batch, tr, tr2
     gc.collect()
@@ -4856,6 +4994,338 @@ def train_phase(torch):
                     "shape", "ms", "device_ms", "plain_ms", "library_ms",
                     "library_device_ms", "bound_ms", "bound_by")},
                 grad_err=grad_err)
+
+
+# ---------------------------------------------------------------------------
+# train-families: whisper, Mamba1, the hybrid and the reduced archs trained
+# ---------------------------------------------------------------------------
+
+FAM_WHISPER = "whisper-large-v3"
+FAM_S, FAM_B, FAM_MICRO, FAM_STEPS = AUDIO_FRAMES, 8, 2, 5
+FAM_GRAD_S = 512                  # whisper's grads at 2 + 2 layers
+# whisper's schedule: the launchers' own for a run of FAM_STEPS steps,
+# cosine_with_warmup(3e-4, 100, steps) (lr 0, 3e-6, ..., 1.2e-5).  A
+# constant lr without warmup overshoots at S 1500, in the JAX package as
+# in the port: the first Adam step moves every element by lr, and the
+# loss jumps (1e-3 and 1.75e-4, whisper large's published peak: 11.10 ->
+# 14.19 and 13.10 at step 1 on the H100; PERF.md)
+FAM_WHISPER_LR = (3e-4, 100)
+FAM_MAMBA = "falcon-mamba-7b"
+FAM_MAMBA_GRAD = (2, 256, 2)      # layers, S, B
+FAM_MAMBA_STEPS = (4, 512, 4, 3)  # layers, S, batch, steps
+FAM_HYBRID = "zamba2-7b"
+FAM_HYBRID_GRAD = (6, 512, 2)     # one application of the shared block
+FAM_HYBRID_STEPS = (12, 1024, 4, 3)   # two applications
+FAM_PARITY = ("llama4-scout-17b-a16e", "grok-1-314b", "qwen2-vl-72b",
+              "whisper-large-v3", "falcon-mamba-7b", "zamba2-7b")
+
+
+def fam_trainer(cfg, S, B, micro, steps, seed=0, warmup=None):
+    """The port's Trainer for one run of the phase: bf16 weights from
+    ``seed``, the synthetic pipeline at S and B (frames or embeddings as
+    the launcher asks), a constant lr of TRAIN_LR or, with ``warmup`` =
+    (peak, warmup steps), ``cosine_with_warmup`` over the run, f32
+    moments, ``micro`` microbatches, no checkpoint."""
+    from repro_torch.models.model import get_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import constant, cosine_with_warmup
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    lr = constant(TRAIN_LR) if warmup is None else cosine_with_warmup(
+        *warmup, steps)
+    return Trainer(
+        get_model(cfg),
+        AdamWConfig(lr=lr, moment_dtype="float32"),
+        data_config(cfg, S, B),
+        TrainerConfig(steps=steps, log_every=1, microbatches=micro,
+                      seed=seed, device="cuda"))
+
+
+def fam_run(torch, tag, trainer, kernel, want):
+    """Runs ``trainer`` with ``kernel``'s launches counted a step.  Hard:
+    finite losses and grad norms, ``want`` launches every step.  Returns
+    (history, run s, peak GiB, params, opt state)."""
+    per_step = counted_steps(trainer, kernel)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = trainer.run()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = trainer.history
+    for h in hist:
+        log(f"[{tag}] step {h['step']}: loss {h['loss']:.6f} grad_norm "
+            f"{h['grad_norm']:.6f} {h['time_s'] * 1e3:.1f} ms")
+    vals = [h["loss"] for h in hist] + [h["grad_norm"] for h in hist]
+    if not all(map(math.isfinite, vals)):
+        raise AssertionError(f"{tag}: a loss or grad norm is not finite "
+                             f"({vals})")
+    if per_step != [want] * len(hist):
+        raise AssertionError(f"{tag}: {kernel.symbol} launches a step "
+                             f"{per_step}, not {want}")
+    return hist, run_s, peak, out["params"], out["opt"]
+
+
+def median_step_ms(hist):
+    import statistics
+    return statistics.median(h["time_s"] for h in hist[1:]) * 1e3
+
+
+def held_loss(torch, trainer, params, micro):
+    """The loss of the trainer's first batch (step 0's, in ``micro``
+    microbatches, as the step takes it) under its initial weights (drawn
+    again from its seed) and under ``params``, by one evaluation without
+    grad: a control for the loss check that holds the batch fixed, since
+    each step reads a new batch.  A run that does not change its weights
+    (lr 0) gives two equal losses.  Returns (initial, trained)."""
+    from repro_torch.train.train_step import split_batch
+    from repro_torch.train.trainer import batch_to_device
+    batch = batch_to_device(trainer.pipeline.batch_at(0), trainer.model.cfg,
+                            "cuda")
+    init = trainer.model.init(torch.Generator(device="cuda").manual_seed(
+        trainer.cfg.seed), "cuda")
+    with torch.no_grad():
+        out = tuple(sum(trainer.model.loss(p, mb).item()
+                        for mb in split_batch(batch, micro)) / micro
+                    for p in (init, params))
+    del init, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_whisper(torch):
+    """(a) whisper-large-v3 at full width and depth through the Trainer:
+    S 1500 frames and tokens, batch 8 in 2 microbatches, 5 steps; flash
+    384 launches a step; the last loss below the first, and the first
+    batch's loss after the steps below its loss under the initial
+    weights (``held_loss``).  Readings: the
+    median step, decoder tokens/s, ``model_flops`` (6 N D, D the decoder
+    tokens) over the step and its share of the bf16 peak, a profiled
+    step's device split, peak memory; then the kernel with L at the
+    encoder's shape, the routes' grads at 2 + 2 layers, and
+    ``launch.train --arch whisper-large-v3 --steps 1 --batch 4``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import get_model
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import batch_to_device
+    parts = {}
+    cfg = dataclasses.replace(configs.get(FAM_WHISPER), remat="block",
+                              attn_chunk_q=WHISPER_CHUNK,
+                              attn_chunk_kv=WHISPER_CHUNK)
+    E, L = cfg.encoder_layers, cfg.n_layers
+    n = cfg.n_params()
+    log(f"[train-families] {FAM_WHISPER}: {E} + {L} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} tied, "
+        f"{n:.4g} parameters, bf16, remat per block, attn chunks "
+        f"{WHISPER_CHUNK} (the audio phase's one change); S {FAM_S} frames "
+        f"and tokens, batch {FAM_B} in {FAM_MICRO} microbatches; states "
+        f"{n * 16 / 1e9:.2f} GB (bf16 params and grads, f32 accumulator "
+        f"and moments); lr cosine_with_warmup{FAM_WHISPER_LR + (FAM_STEPS,)}"
+        f" (the launchers' schedule); on {gpu_line()}")
+    t0 = time.perf_counter()
+    tr = fam_trainer(cfg, FAM_S, FAM_B, FAM_MICRO, FAM_STEPS,
+                     warmup=FAM_WHISPER_LR)
+    want = 2 * (E + 2 * L) * FAM_MICRO
+    hist, run_s, peak, params, opt = fam_run(
+        torch, "train-families whisper", tr, flash.KERNEL, want)
+    parts["steps"] = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train-families whisper: the last loss "
+                             f"{losses[-1]} is not below the first "
+                             f"{losses[0]}")
+    t0 = time.perf_counter()
+    held = held_loss(torch, tr, params, FAM_MICRO)
+    parts["held batch"] = time.perf_counter() - t0
+    log(f"[train-families] whisper's first batch, one evaluation: loss "
+        f"{held[0]:.6f} under the initial weights, {held[1]:.6f} after "
+        f"{FAM_STEPS} steps ({held[1] - held[0]:+.6f})")
+    if not held[1] < held[0]:
+        raise AssertionError(f"train-families whisper: the first batch's "
+                             f"loss {held[1]} after the steps is not below "
+                             f"its {held[0]} under the initial weights")
+    step_ms = median_step_ms(hist)
+    tok_s = FAM_B * FAM_S / (step_ms / 1e3)
+    flops = get_model(cfg).model_flops(ShapeConfig("train", FAM_S, FAM_B,
+                                                   "train"))
+    tflops = flops / (step_ms / 1e3) / 1e12
+    t0 = time.perf_counter()
+    step = make_train_step(get_model(cfg), tr.optimizer,
+                           microbatches=FAM_MICRO)
+    batch = batch_to_device(tr.pipeline.batch_at(FAM_STEPS), cfg, "cuda")
+    dev_total, split, _ = train_split(torch, step, params, opt, batch)
+    parts["profiled step"] = time.perf_counter() - t0
+    del params, opt, batch, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train-families] whisper {FAM_STEPS} steps in {run_s:.1f} s; "
+        f"median step after the first {step_ms:.1f} ms, {tok_s:.1f} decoder "
+        f"tokens/s; model_flops {flops:.4g} a step (6 N D, D the decoder's "
+        f"{FAM_B * FAM_S} tokens: the encoder's {FAM_B * FAM_S} frames are "
+        f"not counted, as in the JAX package), {tflops:.2f} TFLOP/s, "
+        f"{100 * tflops / (BF16_FLOPS_PER_S / 1e12):.2f}% of the 989 TFLOP/s "
+        f"bf16 peak; peak memory {peak:.2f} GiB (max_memory_allocated); "
+        f"flash {want} launches a step; on {gpu_line()}")
+    log(f"[train-families] whisper one step's device time (torch.profiler) "
+        f"{dev_total:.1f} ms of {step_ms:.1f} ms: " + ", ".join(
+            f"{k} {v:.1f} ms ({100 * v / dev_total:.1f}%)"
+            for k, v in split.items()))
+    t0 = time.perf_counter()
+    lse = lse_timing(torch, f"{FAM_WHISPER} encoder, train", 4, FAM_S,
+                     cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, False,
+                     WHISPER_CHUNK, 93)
+    parts["flash timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grad_err = route_grads(
+        torch, "train-families", dataclasses.replace(
+            configs.get(FAM_WHISPER), encoder_layers=2, n_layers=2),
+        FAM_GRAD_S, 2, flash.KERNEL, 2 * (2 + 2 * 2))
+    parts["route grads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = launch_train.main(["--arch", FAM_WHISPER, "--steps", "1",
+                            "--batch", "4"])
+    parts["launcher"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"launch.train --arch {FAM_WHISPER} exited {rc}")
+    log(f"[train-families] launch.train --arch {FAM_WHISPER} --steps 1 "
+        f"--batch 4 (train_4k: 4096 frames and tokens): "
+        f"{parts['launcher']:.1f} s in process (weights, 1 step)")
+    return dict(losses=losses, held=held, step_ms=step_ms, tok_s=tok_s,
+                tflops=tflops, peak_share=tflops * 1e12 / BF16_FLOPS_PER_S,
+                split=split, dev_ms=dev_total, peak_gib=peak,
+                launches_per_step=want,
+                lse_timing={k: lse[k] for k in (
+                    "shape", "ms", "device_ms", "plain_ms", "library_ms",
+                    "library_device_ms", "bound_ms", "bound_by")},
+                grad_err=grad_err, parts=parts)
+
+
+def fam_mamba(torch):
+    """(b) falcon-mamba-7b at its published widths: the routes' grads at
+    2 layers (S 256, B 2; the scan twice a layer), then 3 steps at 4
+    layers (S 512, batch 4): finite losses, the scan twice a layer a
+    step, the step ms, and one profiled step (``train_split``): its
+    device split and the plain scan backward's host ms."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.ssm_scan import scan
+    from repro_torch.models.model import get_model
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import batch_to_device
+    base = dataclasses.replace(configs.get(FAM_MAMBA), remat="block")
+    lg, sg, bg = FAM_MAMBA_GRAD
+    t0 = time.perf_counter()
+    grad_err = route_grads(torch, "train-families",
+                           dataclasses.replace(base, n_layers=lg), sg, bg,
+                           scan.KERNEL, 2 * lg)
+    grads_s = time.perf_counter() - t0
+    ls, S, B, steps = FAM_MAMBA_STEPS
+    cfg = dataclasses.replace(base, n_layers=ls)
+    tr = fam_trainer(cfg, S, B, 1, steps, seed=1)
+    hist, run_s, peak, params, opt = fam_run(
+        torch, "train-families falcon-mamba", tr, scan.KERNEL, 2 * ls)
+    step_ms = median_step_ms(hist)
+    step = make_train_step(get_model(cfg), tr.optimizer)
+    batch = batch_to_device(tr.pipeline.batch_at(steps), cfg, "cuda")
+    dev_ms, split, host = train_split(torch, step, params, opt, batch)
+    del params, opt, batch, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd = "plain scan backward"
+    log(f"[train-families] {FAM_MAMBA} at published widths, {ls} of 64 "
+        f"layers, bf16, S {S}, batch {B}: {steps} steps in {run_s:.1f} s, "
+        f"median step after the first {step_ms:.1f} ms "
+        f"({B * S / (step_ms / 1e3):.1f} tokens/s), peak {peak:.2f} GiB; "
+        f"the scan {2 * ls} launches a step; a profiled step "
+        f"{host['step']:.1f} ms of host time, its plain scan backwards "
+        f"{host[bwd]:.1f} ms of it ({100 * host[bwd] / host['step']:.1f}%), "
+        f"{dev_ms:.1f} ms of device time: " + ", ".join(
+            f"{k} {v:.1f} ms ({100 * v / dev_ms:.1f}%)"
+            for k, v in split.items())
+        + f"; grads checked in {grads_s:.1f} s; on {gpu_line()}")
+    return dict(step_ms=step_ms, peak_gib=peak, launches_per_step=2 * ls,
+                host=host, dev_ms=dev_ms, split=split, grad_err=grad_err)
+
+
+def fam_hybrid(torch):
+    """(c) zamba2-7b at its published widths: the routes' grads at 6
+    layers (S 512, B 2; one application, flash twice), then 3 steps at
+    12 layers (S 1024, batch 4): finite losses, flash 4 launches a step,
+    the step ms, one step's device split (``train_split``) with the SSD
+    scans' share of it."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.models.model import get_model
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import batch_to_device
+    base = dataclasses.replace(configs.get(FAM_HYBRID), remat="block")
+    lg, sg, bg = FAM_HYBRID_GRAD
+    t0 = time.perf_counter()
+    grad_err = route_grads(torch, "train-families",
+                           dataclasses.replace(base, n_layers=lg), sg, bg,
+                           flash.KERNEL, 2 * (lg // base.attn_every))
+    grads_s = time.perf_counter() - t0
+    ls, S, B, steps = FAM_HYBRID_STEPS
+    cfg = dataclasses.replace(base, n_layers=ls)
+    G = ls // cfg.attn_every
+    tr = fam_trainer(cfg, S, B, 1, steps, seed=2)
+    hist, run_s, peak, params, opt = fam_run(
+        torch, "train-families zamba2", tr, flash.KERNEL, 2 * G)
+    step_ms = median_step_ms(hist)
+    step = make_train_step(get_model(cfg), tr.optimizer)
+    batch = batch_to_device(tr.pipeline.batch_at(steps), cfg, "cuda")
+    dev_ms, split, _ = train_split(torch, step, params, opt, batch)
+    del params, opt, batch, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_ms = split.get("SSD scans", 0.0)
+    log(f"[train-families] {FAM_HYBRID} at published widths, {ls} of 81 "
+        f"layers ({G} applications), bf16, S {S}, batch {B}: {steps} steps "
+        f"in {run_s:.1f} s, median step after the first {step_ms:.1f} ms "
+        f"({B * S / (step_ms / 1e3):.1f} tokens/s), one step's device time "
+        f"{dev_ms:.1f} ms (torch.profiler), peak {peak:.2f} GiB; flash "
+        f"{2 * G} launches a step; the SSD scans {ssd_ms:.1f} ms of it "
+        f"({100 * ssd_ms / dev_ms:.1f}%: their forwards, remat recomputes "
+        f"and backwards); grads checked in {grads_s:.1f} s; on "
+        f"{gpu_line()}")
+    log(f"[train-families] zamba2 one step's device split: " + ", ".join(
+        f"{k} {v:.1f} ms ({100 * v / dev_ms:.1f}%)"
+        for k, v in split.items()))
+    return dict(step_ms=step_ms, dev_ms=dev_ms, ssd_ms=ssd_ms, split=split,
+                peak_gib=peak, launches_per_step=2 * G, grad_err=grad_err)
+
+
+def train_families_phase(torch):
+    """See the module docstring's ``train-families``."""
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    whisper = fam_whisper(torch)
+    parts["whisper"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mamba = fam_mamba(torch)
+    parts["falcon-mamba"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hybrid = fam_hybrid(torch)
+    parts["zamba2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parity = {arch: train_reduced_parity(torch, arch, "train-families parity")
+              for arch in FAM_PARITY}
+    parts["reduced parity"] = time.perf_counter() - t0
+    log(f"[train-families] phase {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + "; whisper's: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in whisper["parts"].items()))
+    return dict(whisper=whisper, mamba=mamba, hybrid=hybrid, parity=parity)
 
 
 # ---------------------------------------------------------------------------
@@ -5227,6 +5697,9 @@ def main() -> int:
     train = train_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    fam = train_families_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
     irm_phase(torch, res, clocks, gpu, listing, counter,
               points + sv["census"])
@@ -5277,10 +5750,15 @@ def main() -> int:
                                   "bound_ms", "bound_by")}
             kernels[-1]["train_launches"] = train["launches_per_step"]
             kernels[-1]["train_lse"] = train["lse_timing"]
+            kernels[-1]["train_families_launches"] = {
+                "whisper": fam["whisper"]["launches_per_step"],
+                "zamba2": fam["hybrid"]["launches_per_step"]}
+            kernels[-1]["whisper_train_lse"] = fam["whisper"]["lse_timing"]
     kernels.append({
         "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES, "launches": ssm["launches"],
-        "max_abs_err": ssm["err"], **ssm["timing"]})
+        "max_abs_err": ssm["err"], **ssm["timing"],
+        "train_launches": fam["mamba"]["launches_per_step"]})
     for name, line in STREAM_REPLACES.items():
         t = s_timing[name]
         kernels.append({
@@ -5367,6 +5845,29 @@ def main() -> int:
         + f"; peak {train['peak_gib']:.2f} GiB; loss {train['losses'][0]:.4f}"
         f" -> {train['losses'][-1]:.4f}; flash {train['launches_per_step']} "
         f"launches a step; on {gpu}")
+    w, m, h = fam["whisper"], fam["mamba"], fam["hybrid"]
+    log(f"[summary] train-families: {FAM_WHISPER} (32 + 32 layers, bf16, S "
+        f"{FAM_S}, batch {FAM_B} in {FAM_MICRO} microbatches) median step "
+        f"{w['step_ms']:.1f} ms, {w['tok_s']:.1f} decoder tokens/s, "
+        f"{w['tflops']:.2f} TFLOP/s by model_flops "
+        f"({100 * w['peak_share']:.2f}% of 989; D the decoder tokens); "
+        f"device split " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in w["split"].items())
+        + f"; peak {w['peak_gib']:.2f} GiB; loss {w['losses'][0]:.4f} -> "
+        f"{w['losses'][-1]:.4f}, the first batch {w['held'][0]:.4f} -> "
+        f"{w['held'][1]:.4f}; flash {w['launches_per_step']} launches a "
+        f"step.  {FAM_MAMBA} ({FAM_MAMBA_STEPS[0]} layers) step "
+        f"{m['step_ms']:.1f} ms, the plain scan backward "
+        f"{m['host']['plain scan backward']:.1f} ms of a profiled step's "
+        f"{m['host']['step']:.1f} ms of host time; {FAM_HYBRID} "
+        f"({FAM_HYBRID_STEPS[0]} layers) step {h['step_ms']:.1f} ms, device "
+        f"{h['dev_ms']:.1f} ms, SSD scans {h['ssd_ms']:.1f} ms; grads worst "
+        f"(f32 max err / max abs, bf16 rel norm err) whisper "
+        f"{w['grad_err']}, falcon-mamba {m['grad_err']}, zamba2 "
+        f"{h['grad_err']}; reduced f32 parity (loss diff, param diff / max "
+        f"abs) " + ", ".join(f"{a} {l:.1e}/{q:.1e}"
+                             for a, (l, q) in fam["parity"].items())
+        + f"; on {gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

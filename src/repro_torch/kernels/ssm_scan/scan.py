@@ -10,6 +10,16 @@ back.  Unlike the Pallas kernel it takes any S >= 1 and any d_in (the
 Pallas block plan needs S % chunk == 0 and d_in % block_d == 0, which is
 TPU tiling), and B and C may be strided views with unit stride along N —
 the model passes column slices of the x_proj output.
+
+Under autograd (grad mode on and an input that needs a gradient) a CUDA
+call goes through ``SelectiveScan``, the design the JAX wrapper states
+(its forward the kernel, its backward the plain sequential scan's
+autodiff): the forward launches the kernel and saves its inputs; the
+backward recomputes ``mamba1_scan`` from them and takes its
+vector-Jacobian product.  The final state ``h_fin`` is not
+differentiated: training reads only ``y``.  The plain scan steps over
+the tokens from the host, so this backward is slow; a CUDA backward is
+later work.
 """
 from __future__ import annotations
 
@@ -19,7 +29,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
+from repro_torch.kernels.build import DTYPE_CODES, Kernel
 from repro_torch.kernels.decode_attention.paged import on_cpu
 from repro_torch.kernels.ssm_scan.ref import mamba1_scan
 from repro_torch.kernels.trips import (
@@ -95,10 +105,20 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dt (B, S, d_in); A (d_in, N); Bc, Cc (B, S, N).  Returns (y
     (B, S, d_in) in x's dtype, h_final (B, d_in, N) f32), as
-    ``mamba1_scan`` from a zero state."""
+    ``mamba1_scan`` from a zero state.  Under autograd on the card the
+    call is differentiable in y (``SelectiveScan``); h_final never is."""
     if on_cpu(x, dt, A, Bc, Cc):
         return mamba1_scan(x, dt, A, Bc, Cc)
-    refuse_grad("the selective scan", x, dt, A, Bc, Cc)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bc, Cc)):
+        return SelectiveScan.apply(x, dt, A, Bc, Cc)
+    return run(x, dt, A, Bc, Cc)
+
+
+def run(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        Bc: torch.Tensor, Cc: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel: (y, h_final)."""
     B, S, d_in, N = check_scan(x, dt, A, Bc, Cc)
     y = torch.empty_like(x)
     h = torch.empty((B, d_in, N), dtype=torch.float32, device=x.device)
@@ -109,6 +129,30 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                LANES, int(copies_16_bytes(x, dt)), DTYPE_CODES[x.dtype],
                torch.cuda.current_stream(x.device).cuda_stream)
     return y, h
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The kernel's training route: the kernel forward, the plain scan's
+    backward.  Saves (x, dt, A, Bc, Cc) as given (Bc and Cc strided views
+    of the x_proj output, so their gradients reach it); h_final is marked
+    non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bc, Cc):
+        y, h = run(x, dt, A, Bc, Cc)
+        ctx.save_for_backward(x, dt, A, Bc, Cc)
+        ctx.mark_non_differentiable(h)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, _dh):
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wrt = [t for t in ins if t.requires_grad]
+        with torch.enable_grad():
+            y, _ = mamba1_scan(*ins)
+            got = iter(torch.autograd.grad(y, wrt, dy))
+        return tuple(next(got) if t.requires_grad else None for t in ins)
 
 
 THREADS, STEPS_A_TILE = 128, 32          # csrc/selective_scan.cu: kThreads, kT

@@ -14,9 +14,12 @@ that decode can start from the prompt.
 
 ``plain=False`` (the serving path) runs the Mamba1 scan through the
 selective-scan kernel wrapper, which launches the CUDA kernel for CUDA
-tensors and runs ``mamba1_scan`` for CPU tensors; ``plain=True`` runs
+tensors and runs ``mamba1_scan`` for CPU tensors; under autograd the
+kernel's training route (``SelectiveScan``: the kernel forward, the plain
+scan's backward) keeps y differentiable.  ``plain=True`` runs
 ``mamba1_scan`` on any device.  The SSD scan is plain PyTorch on both
-routes: the JAX package's is plain jnp too, no Pallas kernel.
+routes, differentiated by autograd: the JAX package's is plain jnp too,
+no Pallas kernel.
 """
 from __future__ import annotations
 

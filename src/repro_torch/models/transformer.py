@@ -16,12 +16,17 @@ becomes a Python loop over the layer index; caches and pools are
 updated IN PLACE where the JAX functions return updated copies, so the
 returned cache holds the same tensors it was given.  The sharding
 constraints have no counterpart on one card and are dropped.  Remat is
-kept where it acts, in a training pass: with grad enabled, the dense
-family's ``lm_forward`` checkpoints each block (``cfg.remat`` "block" or
-"full") or each group of ``cfg.remat_group`` layers with
-``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
-each layer once from its group's saved input; the values and gradients
-are those of the pass without it.
+kept where it acts, in a training pass (``remat_on``), with
+``torch.utils.checkpoint`` (non-reentrant), where the JAX package puts
+its ``jax.checkpoint``: the dense family's ``lm_forward`` checkpoints
+each block (``cfg.remat`` "block" or "full") or each group of
+``cfg.remat_group`` layers; the SSM family each layer; the hybrid each
+group of ``attn_every`` Mamba2 layers with its application of the shared
+block (the tail layers are not checkpointed); whisper each encoder layer
+and each decoder layer (self-attention, the cross K/V of the encoder
+output and cross-attention).  The backward recomputes each checkpointed
+layer once from its saved input; the values and gradients are those of
+the pass without it, bit for bit.
 
 Attention: ``plain=False`` (the default, and the serving path) calls the
 kernel wrappers, which launch the CUDA kernels for CUDA tensors and run
@@ -45,7 +50,7 @@ stepping over the prompt — and decode starts from it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -623,28 +628,49 @@ def _needs_grad(tree) -> bool:
     return any(_needs_grad(v) for v in tree.values())
 
 
+def remat_on(cfg: ArchConfig, mode: str, *trees) -> bool:
+    """Whether a pass checkpoints its layers: a training pass (grad mode
+    on, parameters in ``trees`` that need a gradient, not a prefill) with
+    ``cfg.remat`` "block" or "full".  Serving passes run without it."""
+    return (torch.is_grad_enabled() and mode != "prefill"
+            and cfg.remat in ("block", "full")
+            and any(_needs_grad(t) for t in trees))
+
+
 def remat_span(cfg: ArchConfig, mode: str, blocks) -> int:
     """Layers per checkpoint of the dense family's ``lm_forward``: 0 (no
-    remat) outside a training pass (grad mode off, block parameters that
-    need no gradient, or a prefill) or with ``cfg.remat`` "none"; else
-    ``remat_group`` where it divides the layers (the JAX package's
-    layer-grouped remat), else 1 (per block)."""
-    if (not torch.is_grad_enabled() or mode == "prefill"
-            or cfg.remat not in ("block", "full") or not _needs_grad(blocks)):
+    remat) where ``remat_on`` says so; else ``remat_group`` where it
+    divides the layers (the JAX package's layer-grouped remat, the dense
+    family's alone), else 1 (per block)."""
+    if not remat_on(cfg, mode, blocks):
         return 0
     g = cfg.remat_group
     return g if g > 1 and cfg.n_layers % g == 0 else 1
 
 
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``, checkpointed (non-reentrant) when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _ssm_forward(params, cfg: ArchConfig, h, mode: str, plain: bool):
-    """``lm_forward`` of the SSM family (h the embedded inputs)."""
+    """``lm_forward`` of the SSM family (h the embedded inputs); a
+    training pass checkpoints each layer."""
     convs, ssms = [], []
-    for li in range(cfg.n_layers):
-        p = layer_params(params["blocks"], li)
-        h, state = mamba_block_apply(h, p, cfg, plain=plain)
+    remat = remat_on(cfg, mode, params["blocks"])
+
+    def layer(h, li: int):
+        h, state = mamba_block_apply(h, layer_params(params["blocks"], li),
+                                     cfg, plain=plain)
         if mode == "prefill":
             convs.append(state.conv)
             ssms.append(state.ssm)
+        return h
+
+    for li in range(cfg.n_layers):
+        h = _run(remat, layer, h, li)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mode == "hidden":
         return apply_norm(h, params["ln_f"], cfg), aux, None
@@ -695,38 +721,55 @@ def lm_decode(params, cfg: ArchConfig, tokens, cache, plain: bool = False):
 # the zamba2 hybrid: attn_every Mamba2 layers, then the shared block
 # ---------------------------------------------------------------------------
 
-def _hybrid_split(cfg: ArchConfig) -> List[Tuple[str, int]]:
+def _hybrid_trunk(cfg: ArchConfig, h, mamba, attn, remat: bool = False):
     """The hybrid trunk in order, as the JAX ``_hybrid_split`` cuts the
-    stack: ("mamba", li) for each Mamba2 layer by its absolute index (the
-    conv and ssm states' index), and ("attn", g) after every k =
-    ``attn_every`` of them, the g-th application of the shared block (its
-    attention cache's index): G = L // k applications, then the R = L - G
-    k tail layers."""
+    stack: G = L // k groups of k = ``attn_every`` Mamba2 layers, each
+    followed by the g-th application of the shared block (``attn(h, g)``,
+    g its attention cache's index) and checkpointed with it when
+    ``remat``; then the R = L - G k tail layers, never checkpointed.
+    ``mamba(h, li)`` takes each layer's absolute index (the conv and ssm
+    states' index)."""
     k = cfg.attn_every
-    order = []
-    for li in range(cfg.n_layers):
-        order.append(("mamba", li))
-        if (li + 1) % k == 0:
-            order.append(("attn", li // k))
-    return order
+    G = cfg.n_layers // k
+
+    def group(h, g: int):
+        for li in range(g * k, g * k + k):
+            h = mamba(h, li)
+        return attn(h, g)
+
+    for g in range(G):
+        h = _run(remat, group, h, g)
+    for li in range(G * k, cfg.n_layers):
+        h = mamba(h, li)
+    return h
 
 
 def _hybrid_forward(params, cfg: ArchConfig, h, rope, mode: str,
                     plain: bool):
-    """``lm_forward`` of the hybrid (h the embedded inputs)."""
+    """``lm_forward`` of the hybrid (h the embedded inputs); a training
+    pass checkpoints each group of ``attn_every`` Mamba2 layers with its
+    application of the shared block, and not the tail layers, as the JAX
+    function does."""
     parts = {"attn_k": [], "attn_v": [], "conv": [], "ssm": []}
-    for kind, i in _hybrid_split(cfg):
-        if kind == "attn":
-            h, kv = shared_attn_block(h, params["shared_attn"], cfg, rope,
-                                      plain)
-            new = dict(zip(("attn_k", "attn_v"), kv))
-        else:
-            h, state = mamba_block_apply(
-                h, layer_params(params["blocks"], i), cfg)
-            new = state._asdict()
+
+    def mamba(h, li: int):
+        h, state = mamba_block_apply(h, layer_params(params["blocks"], li),
+                                     cfg)
         if mode == "prefill":
-            for name, t in new.items():
-                parts[name].append(t)
+            parts["conv"].append(state.conv)
+            parts["ssm"].append(state.ssm)
+        return h
+
+    def attn(h, g: int):
+        h, (attn_k, attn_v) = shared_attn_block(h, params["shared_attn"],
+                                                cfg, rope, plain)
+        if mode == "prefill":
+            parts["attn_k"].append(attn_k)
+            parts["attn_v"].append(attn_v)
+        return h
+
+    h = _hybrid_trunk(cfg, h, mamba, attn, remat_on(
+        cfg, mode, params["blocks"], params["shared_attn"]))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mode == "hidden":
         return apply_norm(h, params["ln_f"], cfg), aux, None
@@ -740,18 +783,22 @@ def _hybrid_decode(params, cfg: ArchConfig, h, rope, cache, plain: bool):
     """``lm_decode`` of the hybrid: every layer's state and every
     application's cache updated in place."""
     pos, start = cache["pos"], cache.get("start")
-    for kind, i in _hybrid_split(cfg):
-        if kind == "attn":
-            h = shared_attn_decode(h, params["shared_attn"], cfg, rope,
-                                   cache["attn_k"][i], cache["attn_v"][i],
-                                   pos, start, plain)
-            continue
-        state = ssm_mod.Mamba2State(conv=cache["conv"][i],
-                                    ssm=cache["ssm"][i])
-        h, new = mamba_block_apply(h, layer_params(params["blocks"], i), cfg,
-                                   state)
-        cache["conv"][i].copy_(new.conv)
-        cache["ssm"][i].copy_(new.ssm)
+
+    def mamba(h, li: int):
+        state = ssm_mod.Mamba2State(conv=cache["conv"][li],
+                                    ssm=cache["ssm"][li])
+        h, new = mamba_block_apply(h, layer_params(params["blocks"], li),
+                                   cfg, state)
+        cache["conv"][li].copy_(new.conv)
+        cache["ssm"][li].copy_(new.ssm)
+        return h
+
+    def attn(h, g: int):
+        return shared_attn_decode(h, params["shared_attn"], cfg, rope,
+                                  cache["attn_k"][g], cache["attn_v"][g],
+                                  pos, start, plain)
+
+    h = _hybrid_trunk(cfg, h, mamba, attn)
     cache["pos"] = pos + 1
     return _logits_exact(params, cfg, h)[:, 0], cache
 
@@ -843,19 +890,25 @@ def lm_verify_paged(params, cfg: ArchConfig, tokens, cache, grants,
 # whisper: the encoder-decoder
 # ---------------------------------------------------------------------------
 
-def whisper_encode(params, cfg: ArchConfig, frames, plain: bool = False):
+def whisper_encode(params, cfg: ArchConfig, frames, plain: bool = False,
+                   remat: bool = False):
     """frames (B, S, d): the frontend's precomputed frame embeddings.
     Adds sinusoidal positions and runs the encoder stack (non-causal
-    attention, the gelu MLP); returns the ``ln_enc``-normed (B, S, d)."""
+    attention, the gelu MLP); returns the ``ln_enc``-normed (B, S, d).
+    With ``remat`` (a training pass of ``whisper_forward``, ``remat_on``)
+    each layer is checkpointed."""
     S = frames.shape[1]
     pos = torch.arange(S, device=frames.device)[None]
     h = frames.to(cfg.param_dtype) + sinusoidal_positions(
         pos, cfg.d_model).to(cfg.param_dtype)
-    for li in range(cfg.encoder_layers):
+
+    def layer(h, li: int):
         p = layer_params(params["encoder"], li)
-        out, _ = attn_apply(h, p, cfg, None, causal=False, plain=plain)
-        h = h + out
-        h = h + ffn_apply(h, p, cfg)
+        h = h + attn_apply(h, p, cfg, None, causal=False, plain=plain)[0]
+        return h + ffn_apply(h, p, cfg)
+
+    for li in range(cfg.encoder_layers):
+        h = _run(remat, layer, h, li)
     return apply_norm(h, params["ln_enc"], cfg)
 
 
@@ -888,16 +941,21 @@ def whisper_forward(params, cfg: ArchConfig, frames, tokens,
     over the encoder output, the gelu MLP.  Returns (logits_or_hidden,
     aux (0), cache_parts or None); prefill returns the last position's
     logits (B, 1, V) at f32 and {"k", "v" (L, B, S, KV, hd), "cross_k",
-    "cross_v" (L, B, S_enc, KV, hd)}."""
+    "cross_v" (L, B, S_enc, KV, hd)}.  A training pass checkpoints each
+    encoder and each decoder layer, the decoder's closing over the
+    encoder output."""
     assert mode in ("train", "prefill", "hidden")
     check_supported(cfg)
-    enc = whisper_encode(params, cfg, frames, plain)
+    enc = whisper_encode(params, cfg, frames, plain,
+                         remat_on(cfg, mode, params["encoder"]))
     S = tokens.shape[1]
     pos = torch.arange(S, device=tokens.device)[None]
     h = embed(tokens, params["embed"]).to(cfg.param_dtype)
     h = h + sinusoidal_positions(pos, cfg.d_model).to(cfg.param_dtype)
     parts = {"k": [], "v": [], "cross_k": [], "cross_v": []}
-    for li in range(cfg.n_layers):
+    remat = remat_on(cfg, mode, params["decoder"])
+
+    def layer(h, li: int):
         p = layer_params(params["decoder"], li)
         out, (k, v) = attn_apply(h, p, cfg, None, causal=True, plain=plain)
         h = h + out
@@ -907,6 +965,10 @@ def whisper_forward(params, cfg: ArchConfig, frames, tokens,
         if mode == "prefill":
             for name, t in zip(parts, (k, v, ck, cv)):
                 parts[name].append(t)
+        return h
+
+    for li in range(cfg.n_layers):
+        h = _run(remat, layer, h, li)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mode == "hidden":
         return apply_norm(h, params["ln_f"], cfg), aux, None

@@ -82,6 +82,9 @@ class Trainer:
         state = self.init_state()
         start_step, state = self._maybe_restore(state)
         params, opt_state = state["params"], state["opt"]
+        # the step is functional: a reference kept here would hold the
+        # initial weights and moments for the whole run
+        del state
         losses = []
         t_start = time.time()
         for step in range(start_step, self.cfg.steps):

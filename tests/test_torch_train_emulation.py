@@ -12,10 +12,12 @@ CPU as ``test_torch_kernel_emulation`` compiles them (its fixtures).
     gradients, and a reduced qwen2's ``Model.loss`` and every gradient
     leaf with the flash kernel launched twice a layer (forward and remat
     recompute).
-  * No kernel route drops a gradient: dense decode, paged decode, paged
-    prefill and the selective scan raise on a call whose inputs need a
-    gradient (each returned a result with no ``grad_fn`` before), and
-    run as before under ``torch.no_grad()`` or on inputs that need none.
+  * No kernel route drops a gradient: dense decode, paged decode and
+    paged prefill raise on a call whose inputs need a gradient (each
+    returned a result with no ``grad_fn`` before), and run as before
+    under ``torch.no_grad()`` or on inputs that need none; the selective
+    scan, which has a training route (``SelectiveScan``), returns a
+    result with a ``grad_fn`` from one launch.
 
 Tolerances: a kernel's output as in the emulation file (f32 2e-5, bf16
 1e-2); L in f32 within 2e-5, in bf16 within 1e-4 (the scores' f32
@@ -197,19 +199,8 @@ def _paged_prefill_call(needs_grad):
         q, kp, vp, tbl, base, new, layer), prefill_paged.KERNEL)
 
 
-def _scan_call(needs_grad):
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.standard_normal((1, 9, 32), np.float32))
-    dt = torch.full((1, 9, 32), 0.1)
-    A = -torch.ones(32, 8)
-    Bc = torch.from_numpy(rng.standard_normal((1, 9, 8), np.float32))
-    Cc = torch.from_numpy(rng.standard_normal((1, 9, 8), np.float32))
-    dt.requires_grad_(needs_grad)
-    return lambda: scan.selective_scan(x, dt, A, Bc, Cc), scan.KERNEL
-
-
 GUARDED = {"decode": _decode_call, "paged_decode": _paged_decode_call,
-           "paged_prefill": _paged_prefill_call, "scan": _scan_call}
+           "paged_prefill": _paged_prefill_call}
 
 
 @pytest.mark.parametrize("name", sorted(GUARDED))
@@ -228,3 +219,21 @@ def test_emulated_kernel_without_backward_refuses_grad(name,
     plain_call, _ = GUARDED[name](False)
     plain_call()
     assert kernel.launches == n0 + 2
+
+
+def test_emulated_scan_under_autograd_keeps_its_gradient(cuda_path_on_cpu):
+    """The selective scan has a backward: a call whose inputs need a
+    gradient launches the kernel once and returns y with a ``grad_fn``
+    that reaches dt."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1, 9, 32), np.float32))
+    dt = torch.full((1, 9, 32), 0.1, requires_grad=True)
+    A = -torch.ones(32, 8)
+    Bc = torch.from_numpy(rng.standard_normal((1, 9, 8), np.float32))
+    Cc = torch.from_numpy(rng.standard_normal((1, 9, 8), np.float32))
+    n0 = scan.KERNEL.launches
+    y, h = scan.selective_scan(x, dt, A, Bc, Cc)
+    assert scan.KERNEL.launches == n0 + 1
+    assert y.grad_fn is not None and not h.requires_grad
+    y.sum().backward()
+    assert dt.grad is not None and dt.grad.abs().max() > 0
