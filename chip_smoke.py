@@ -353,6 +353,21 @@ Phases, each failing loudly (non-zero exit, no result line):
                zamba2 reduced in f32 through 3 ``make_train_step`` steps
                on both routes (losses within 1e-4, params within 1e-4 of
                their max abs).
+     mesh    — the multi-device path at world size 1: an NCCL process
+               group of one rank over a local store, ``make_host_mesh(1)``
+               ((1, 1) "data", "model"), the dry-run's train rules
+               (``rules_for``).  qwen2-0.5b at full width and depth
+               (bf16, remat per block) through the ``Trainer``: 2
+               unsharded steps, then 2 steps on the DTensor state that
+               ``reshard`` placed, from the same weights (seed 0) on the
+               same batches (S 4096, batch 4, constant lr 1e-3).  Hard:
+               ``full_tensor()`` of the placed initial state equals the
+               unplaced state byte for byte; flash exactly 2 x 24
+               launches a sharded step (forward and recompute, inside
+               the attention island); the sharded losses and grad norms
+               within TRAIN_RESUME_TOL of the unsharded ones (and
+               printed: bitwise equal or not).  Prints both runs' step
+               ms beside the card's name and power limit.
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
                shapes that exercise the bounds guards, ragged last
@@ -405,8 +420,9 @@ bound taken against the data sheet's 3.35 TB/s (``bound_ms``), and
 ``device_ms`` for the attention kernels and the scan.  The log
 also gives each kernel's time at the measured ceiling (``copy_rate_ms``):
 the paper's roof, but the rate of the port's own copy kernel, which
-other kernels may beat, so it is no lower bound.  The last line is
-``{"ok": true, "device": {...}}``.
+other kernels may beat, so it is no lower bound.  A summary line gives
+the seconds each phase took after the build (the limit is 1200 s in all).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import gc
@@ -4997,6 +5013,109 @@ def train_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# mesh: the training step on a one-rank device mesh
+# ---------------------------------------------------------------------------
+
+MESH_B, MESH_STEPS = 4, 2
+
+
+def mesh_trainer():
+    """The phase's Trainer: qwen2-0.5b bf16 (remat per block), the
+    synthetic pipeline at S 4096 and batch 4 (seed 0) in one microbatch,
+    constant lr 1e-3, f32 moments, weights from seed 0."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import get_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = train_config()
+    return Trainer(
+        get_model(cfg),
+        AdamWConfig(lr=constant(TRAIN_LR), moment_dtype="float32"),
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                   global_batch=MESH_B, seed=0),
+        TrainerConfig(steps=MESH_STEPS, log_every=1, microbatches=1, seed=0,
+                      device="cuda"))
+
+
+def mesh_phase(torch):
+    """See the module docstring's ``mesh``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.elastic import gather, reshard
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    runs = {}
+    tr = mesh_trainer()
+    per_step = counted_steps(tr)
+    tr.run()
+    runs["unsharded"] = (tr.history, per_step)
+    del tr
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1)
+        tr = mesh_trainer()
+        rules = rules_for(tr.model, SHAPES["train_4k"], multi_pod=False)
+        with use_mesh(mesh, rules):
+            state = tr.init_state()
+            placed = reshard(state, tr.state_pspecs(rules), mesh)
+            leaves = tree_leaves(placed)
+            n_leaves = len(leaves)
+            sharded = sum(any(p.is_shard() for p in x.placements)
+                          for x in leaves)
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(state), tree_leaves(gather(placed))))
+            del state, placed, leaves
+            if not same:
+                raise AssertionError("mesh: full_tensor() of the placed "
+                                     "state differs from the unplaced state")
+            per_step = counted_steps(tr)
+            tr.run()
+            runs["sharded"] = (tr.history, per_step)
+        log(f"[mesh] {TRAIN_ARCH} on {mesh} under {rules}: {n_leaves} "
+            f"state leaves, {sharded} sharded on a size-1 axis; "
+            f"full_tensor() of the "
+            f"placed state equal to the unplaced state byte for byte")
+        del tr
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want = 2 * cfg.n_layers
+    (h0, n0), (h1, n1) = runs["unsharded"], runs["sharded"]
+    if n1 != [want] * MESH_STEPS or n0 != [want] * MESH_STEPS:
+        raise AssertionError(f"mesh: flash launches a step {n1} sharded, "
+                             f"{n0} unsharded, not {want} (layers x forward "
+                             f"and recompute)")
+    bitwise = True
+    for a, b in zip(h1, h0):
+        for k in ("loss", "grad_norm"):
+            if not math.isfinite(a[k]) or abs(a[k] - b[k]) > \
+                    TRAIN_RESUME_TOL * (1 + abs(b[k])):
+                raise AssertionError(f"mesh: step {a['step']} {k} "
+                                     f"{a[k]} sharded, {b[k]} unsharded")
+            bitwise &= a[k] == b[k]
+    ms = {k: [h["time_s"] * 1e3 for h in hist]
+          for k, (hist, _) in runs.items()}
+    log(f"[mesh] losses sharded {[h['loss'] for h in h1]}, unsharded "
+        f"{[h['loss'] for h in h0]}; grad norms "
+        f"{[h['grad_norm'] for h in h1]}, "
+        f"{[h['grad_norm'] for h in h0]}; bitwise equal: {bitwise}")
+    log(f"[mesh] step ms sharded {[round(x, 1) for x in ms['sharded']]}, "
+        f"unsharded {[round(x, 1) for x in ms['unsharded']]} (S {TRAIN_S}, "
+        f"batch {MESH_B}, the first step with warm-up); flash {want} "
+        f"launches a step; phase {time.perf_counter() - t_phase:.1f} s; on "
+        f"{gpu_line()}")
+    return dict(launches_per_step=n1[0], step_ms=ms, bitwise=bitwise)
+
+
+# ---------------------------------------------------------------------------
 # train-families: whisper, Mamba1, the hybrid and the reduced archs trained
 # ---------------------------------------------------------------------------
 
@@ -5630,6 +5749,18 @@ def irm_phase(torch, res, clocks, gpu, listing, counter, points):
         f"{model.hw.peak_gips():.2f} GIPS; on {gpu}")
 
 
+class Laps:
+    """Seconds between successive marks of the run, by phase name."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = now - self.t
+        self.t = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5652,57 +5783,85 @@ def main() -> int:
     log(f"[build] card: {gpu}; python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    laps = Laps()
     listing, counter, points = irm_points_phase(torch)
+    laps.mark("irm points")
     errs = kernel_phase(torch)
+    laps.mark("kernels")
     d_errs = dense_checks(torch)
+    laps.mark("dense checks")
     launches, tok_s, sv, cfg, params = serve_phase(torch, paged.KERNEL,
                                                    prefill_paged.KERNEL,
                                                    counter)
+    laps.mark("serve")
     by_decode = by_decode_phase(torch, cfg, params, sv, paged.KERNEL,
                                 prefill_paged.KERNEL)
+    laps.mark("by-decode")
     spec = spec_phase(torch, cfg, params, sv, paged.KERNEL,
                       prefill_paged.KERNEL)
+    laps.mark("spec")
     share = share_phase(torch, cfg, params, paged.KERNEL,
                         prefill_paged.KERNEL)
+    laps.mark("share")
     recover = recover_phase(torch, cfg, params, share, paged.KERNEL,
                             prefill_paged.KERNEL)
+    laps.mark("recover")
     over = overload_phase(torch, cfg, params, paged.KERNEL,
                           prefill_paged.KERNEL)
+    laps.mark("overload")
     wb = whole_batch_phase(torch, cfg, params)
+    laps.mark("whole-batch")
     del params
     torch.cuda.empty_cache()
     timing = timing_phase(torch, sv["lens"], sv["base"], sv["max_blocks"],
                           sv["n_layers"])
+    laps.mark("timing")
     d_timing = dense_timing(torch, wb["S"])
+    laps.mark("dense timing")
     parity_phase(torch)
+    laps.mark("parity")
     whole_batch_parity(torch)
+    laps.mark("whole-batch parity")
     ssm = ssm_phase(torch)
+    laps.mark("ssm")
     # the engines' wrapped methods close over their engines (reference
     # cycles): collect them, and the weights they hold, before the moe
     # phase's 54 GB
     gc.collect()
     torch.cuda.empty_cache()
     moe = moe_phase(torch, paged.KERNEL, prefill_paged.KERNEL)
+    laps.mark("moe")
     gc.collect()
     torch.cuda.empty_cache()
     vlm = vlm_phase(torch, paged.KERNEL, prefill_paged.KERNEL)
+    laps.mark("vlm")
     gc.collect()
     torch.cuda.empty_cache()
     audio = audio_phase(torch)
+    laps.mark("audio")
     gc.collect()
     torch.cuda.empty_cache()
     hybrid = hybrid_phase(torch)
+    laps.mark("hybrid")
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(torch)
+    laps.mark("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(torch)
+    laps.mark("mesh")
     gc.collect()
     torch.cuda.empty_cache()
     fam = train_families_phase(torch)
+    laps.mark("train-families")
     gc.collect()
     torch.cuda.empty_cache()
     res, s_errs, s_launches, s_timing, clocks = stream_phase(torch, gpu)
+    laps.mark("stream")
     irm_phase(torch, res, clocks, gpu, listing, counter,
               points + sv["census"])
+    laps.mark("irm")
     ceiling = res.copy_gbs() * 1e9
 
     kernels = []
@@ -5749,6 +5908,7 @@ def main() -> int:
                                   "library_ms", "library_device_ms",
                                   "bound_ms", "bound_by")}
             kernels[-1]["train_launches"] = train["launches_per_step"]
+            kernels[-1]["mesh_launches"] = mesh["launches_per_step"]
             kernels[-1]["train_lse"] = train["lse_timing"]
             kernels[-1]["train_families_launches"] = {
                 "whisper": fam["whisper"]["launches_per_step"],
@@ -5845,6 +6005,12 @@ def main() -> int:
         + f"; peak {train['peak_gib']:.2f} GiB; loss {train['losses'][0]:.4f}"
         f" -> {train['losses'][-1]:.4f}; flash {train['launches_per_step']} "
         f"launches a step; on {gpu}")
+    log(f"[summary] mesh ({TRAIN_ARCH}, 24 layers, bf16, S {TRAIN_S}, batch "
+        f"{MESH_B}, a (1, 1) NCCL mesh): step ms sharded "
+        f"{mesh['step_ms']['sharded']}, unsharded "
+        f"{mesh['step_ms']['unsharded']}; losses bitwise equal: "
+        f"{mesh['bitwise']}; flash {mesh['launches_per_step']} launches a "
+        f"step; on {gpu}")
     w, m, h = fam["whisper"], fam["mamba"], fam["hybrid"]
     log(f"[summary] train-families: {FAM_WHISPER} (32 + 32 layers, bf16, S "
         f"{FAM_S}, batch {FAM_B} in {FAM_MICRO} microbatches) median step "
@@ -5868,6 +6034,9 @@ def main() -> int:
         f"abs) " + ", ".join(f"{a} {l:.1e}/{q:.1e}"
                              for a, (l, q) in fam["parity"].items())
         + f"; on {gpu}")
+    log("[summary] seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.s.items())
+        + f"; {sum(laps.s.values()):.1f} after the build; on {gpu}")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

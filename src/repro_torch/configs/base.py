@@ -11,7 +11,7 @@ attention block, whole-batch serving), qwen2-vl-72b (M-RoPE, embedding
 inputs; paged serving of text prompts) and whisper-large-v3 (the
 encoder-decoder, at the Model level).
 ``n_params`` / ``active_params`` (the 6ND count of ``model_flops``) and
-``ShapeConfig`` / ``SHAPES`` are copied too.
+``ShapeConfig`` / ``SHAPES`` and ``shape_applicable`` are copied too.
 ``attention_impl`` is mirrored for equality only: in the port the DEVICE
 of the tensors picks the paged-attention implementation (CUDA tensors
 always reach the hand-written kernels, CPU tensors the plain version),
@@ -20,7 +20,7 @@ never this field.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -95,6 +95,10 @@ class ArchConfig:
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
                              f"got {self.kv_dtype!r}")
         return self.kv_dtype == "int8"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
 
     def n_params(self) -> float:
         """Approximate parameter count (embedding + blocks), for 6ND."""
@@ -183,6 +187,15 @@ SHAPES: Dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else the reason it is
+    skipped, the JAX package's."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return ("long_500k requires sub-quadratic attention (skip: pure "
+                "full-attention arch)")
+    return None
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}

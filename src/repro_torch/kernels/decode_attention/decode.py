@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
 from repro_torch.kernels.decode_attention.paged import (
     SPLIT_THREADS, SPLIT_TILE, TARGET_BLOCKS, combine_launch, on_cpu,
-    split_attend_trips)
+    refuse_dtensors, split_attend_trips)
 from repro_torch.kernels.trips import Launch, mangled
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -81,6 +81,7 @@ def check_dense(kind: str, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
     """``dense_layout``, with every tensor on q's CUDA device."""
     ts = (q, k, v)
+    refuse_dtensors(kind, *ts)
     if q.device.type != "cuda" or any(t.device != q.device for t in ts):
         raise ValueError(f"{kind}: all tensors must lie on one CUDA device "
                          f"(got {sorted({str(t.device) for t in ts})})")

@@ -87,7 +87,21 @@ def block_smem_bytes(kind: str, q_dtype, kv_dtype, D: int, page: int,
     return smem_bytes(D, PREFILL_ROWS, page)
 
 
+def refuse_dtensors(kind: str, *tensors) -> None:
+    """Raises TypeError on a DTensor: a kernel takes raw pointers of
+    local tensors, so under a device mesh it runs inside a
+    ``dist.sharding.island``, never on a DTensor."""
+    from repro_torch.dist.sharding import is_dtensor
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{kind}: a kernel wrapper takes local tensors, "
+                        f"not DTensors: under a device mesh call it inside "
+                        f"dist.sharding.island")
+
+
 def on_cpu(*tensors) -> bool:
+    """Do the tensors lie on the CPU (the plain version's route)?  A
+    DTensor is refused (``refuse_dtensors``)."""
+    refuse_dtensors("kernel wrapper", *tensors)
     return all(t.device.type == "cpu" for t in tensors if t is not None)
 
 
@@ -108,6 +122,7 @@ def check_args(kind: str, q, k_pool, v_pool, block_table, lens,
     page, NB).  Raises ValueError on anything the kernel does not take."""
     tensors = [t for t in (q, k_pool, v_pool, block_table, *lens, k_scale,
                            v_scale) if t is not None]
+    refuse_dtensors(kind, *tensors)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(f"{kind}: all tensors must lie on one CUDA device "
                          f"(got {sorted({str(t.device) for t in tensors})})")

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
-from repro_torch.kernels.decode_attention.paged import on_cpu
+from repro_torch.kernels.decode_attention.paged import (
+    on_cpu, refuse_dtensors)
 from repro_torch.kernels.ssm_scan.ref import mamba1_scan
 from repro_torch.kernels.trips import (
     Launch, cdiv, mangled, strided, warps_of)
@@ -86,6 +87,7 @@ def scan_layout(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def check_scan(x, dt, A, Bc, Cc) -> Tuple[int, int, int, int]:
     """``scan_layout``, with every tensor on x's CUDA device."""
     ts = (x, dt, A, Bc, Cc)
+    refuse_dtensors("selective scan", *ts)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError(f"selective scan: all tensors must lie on one CUDA "
                          f"device (got {sorted({str(t.device) for t in ts})})")

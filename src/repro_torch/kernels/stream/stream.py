@@ -32,7 +32,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, Kernel
-from repro_torch.kernels.decode_attention.paged import on_cpu
+from repro_torch.kernels.decode_attention.paged import (
+    on_cpu, refuse_dtensors)
 from repro_torch.kernels.stream import ref
 
 _P, _I, _N, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -76,6 +77,7 @@ def check_layout(name: str, *tensors: Optional[torch.Tensor]) -> None:
 
 def check_device(name: str, *tensors: Optional[torch.Tensor]) -> None:
     ts = [t for t in tensors if t is not None]
+    refuse_dtensors(name, *ts)
     if ts[0].device.type != "cuda" or any(t.device != ts[0].device
                                           for t in ts):
         raise ValueError(f"{name}: all arrays must lie on one CUDA device "

@@ -1,6 +1,6 @@
 """Training launcher of the port: an arch at a training shape, restored
 from the newest checkpoint if there is one, through the port's trainer on
-one device.
+one device, or on every rank of a multi-host run.
 
     python -m repro_torch.launch.train                 # qwen2-0.5b, cuda
     python -m repro_torch.launch.train --arch qwen2-0.5b --steps 2 --batch 8
@@ -17,8 +17,21 @@ and batch 4, the schedule is ``cosine_with_warmup(3e-4, 100, steps)``
 weights) and the moments are bf16 above 2e11 parameters, else f32.  On
 one card the global batch runs as accumulated microbatches of 4
 sequences, and ``--batch`` may cut it.
-The multi-host flags (``--coordinator``, ``--num-hosts``, ``--host-id``)
-need a device mesh, which the port does not have yet, and are refused.
+
+The multi-host flags, as in the JAX launcher: every rank runs
+
+    python -m repro_torch.launch.train --arch grok-1-314b \
+        --coordinator HOST:PORT --num-hosts N --host-id i
+
+which joins the process group (NCCL with ``--device cuda``, one rank a
+card; gloo with ``--device cpu``) and, without ``--local-smoke``, trains
+on the production mesh (16 x 16, 256 ranks) under the dry-run's
+``rules_for`` rules, installed with ``set_context``; a world of another
+size is refused by name.  Under the mesh every rank draws the global
+batch and the trainer places it; a data shard's rows run as
+microbatches of 4.  With ``--local-smoke`` no mesh is built, as in the
+JAX launcher: each rank trains the reduced config on its own shard of
+the batch.  Without the flags the launcher trains on one device.
 """
 import argparse
 import sys
@@ -45,11 +58,10 @@ def main(argv=None) -> int:
     ap.add_argument("--host-id", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.coordinator or args.num_hosts != 1 or args.host_id != 0:
-        ap.error("--coordinator, --num-hosts and --host-id need the "
-                 "production mesh (the JAX launcher's rules_for and "
-                 "make_production_mesh): the port trains on one device "
-                 "until its multi-device slice")
+    multi_host = bool(args.coordinator) or args.num_hosts != 1 \
+        or args.host_id != 0
+    if multi_host and not args.coordinator:
+        ap.error("--num-hosts and --host-id need --coordinator HOST:PORT")
 
     import torch
 
@@ -76,7 +88,31 @@ def main(argv=None) -> int:
             ap.error(f"--shape {args.shape} is a {shape.kind} shape")
         seq_len, global_batch = shape.seq_len, shape.global_batch
     global_batch = args.batch or global_batch
-    micro = max(1, global_batch // MICROBATCH)
+    n_dp, hosts = 1, (args.num_hosts, args.host_id)
+    if multi_host:
+        import torch.distributed as dist
+        if args.device == "cuda":
+            torch.cuda.set_device(args.host_id % torch.cuda.device_count())
+        dist.init_process_group(
+            "nccl" if args.device == "cuda" else "gloo",
+            init_method=f"tcp://{args.coordinator}",
+            world_size=args.num_hosts, rank=args.host_id)
+        if not args.local_smoke:
+            from repro_torch.dist.sharding import set_context
+            from repro_torch.launch.dryrun import rules_for
+            from repro_torch.launch.mesh import make_production_mesh
+            try:
+                mesh = make_production_mesh()
+            except ValueError as e:
+                dist.destroy_process_group()
+                print(f"[launch.train] {e}", file=sys.stderr)
+                return 2
+            rules = rules_for(get_model(cfg), shape, multi_pod=False)
+            set_context(mesh, rules)
+            for a in rules.batch_axes:
+                n_dp *= dict(zip(mesh.mesh_dim_names, mesh.shape))[a]
+            hosts = (1, 0)          # every rank draws the global batch
+    micro = max(1, global_batch // n_dp // MICROBATCH)
 
     model = get_model(cfg)
     trainer = Trainer(
@@ -86,6 +122,7 @@ def main(argv=None) -> int:
                     else "float32"),
         DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                    global_batch=global_batch,
+                   num_hosts=hosts[0], host_index=hosts[1],
                    emit_embeddings=not cfg.embed_inputs
                    and not cfg.is_encoder_decoder,
                    emit_frames=cfg.is_encoder_decoder,
@@ -101,6 +138,8 @@ def main(argv=None) -> int:
           f"{len(out['losses'])} steps in {time.time() - t0:.2f} s")
     print(f"[launch.train] done: loss {out['first_loss']:.4f} -> "
           f"{out['last_loss']:.4f}")
+    if multi_host:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -3,6 +3,12 @@ attention with a direct (materialized-score) path for decode and short
 shapes, the chunked online-softmax reference for long ones, and the
 dispatch between them and the flash kernel.
 
+Under a device mesh (q a DTensor, ``dist.sharding``) ``attention`` runs
+on each rank's local shards, inside an ``island``: the rows of its batch
+shard, the heads of its model-axis shard with the kv heads they read —
+the flash kernel takes raw device pointers, and the plain path's masks
+are local tensors.
+
 Layout: q (B, S, H, D); k, v (B, T, KV, D).  ``direct_attention`` never
 repeats KV heads: q is grouped to (B, S, KV, G, D) and the einsums run
 per group.  Masked scores take the finite ``NEG_INF`` (not -inf), so a
@@ -15,6 +21,8 @@ import math
 from typing import Optional, Union
 
 import torch
+
+from repro_torch.dist import sharding
 
 NEG_INF = -1e30
 
@@ -154,6 +162,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     JAX package."""
     B, S, H, D = q.shape
     T = k.shape[1]
+    if sharding.on_mesh(q, k, v):
+        if S == 1 or kv_len is not None or q_offset is not None:
+            raise NotImplementedError(
+                "attention under a device mesh runs the training and prefill "
+                "shapes (S > 1, no kv_len or q_offset); the port serves on "
+                "one device, as the JAX launcher does")
+        return _mesh_attention(q, k, v, causal, chunk_q, chunk_kv, plain)
     if not plain and on_card(q) and S > 1 and kv_len is None:
         from repro_torch.kernels.flash_attention import flash
         check_reference_shape(S, T, chunk_q, chunk_kv)
@@ -163,3 +178,39 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.models.flash import flash_attention_ref
     return flash_attention_ref(q, repeat_kv(k, H), repeat_kv(v, H),
                                causal, chunk_q, chunk_kv)
+
+
+def _mesh_attention(q, k, v, causal: bool, chunk_q: int, chunk_kv: int,
+                    plain: bool):
+    """``attention`` on the local shards of q (B, S, H, D) and k, v (B,
+    T, KV, D), placed as the JAX ``_qkv`` constrains them: the batch dim
+    over the batch axes, q's heads over the model axis, k and v
+    replicated over it.  Each rank attends its rows and heads against
+    the kv heads they read (a slice when its heads cover whole groups,
+    else one kv head gathered per q head); the kv gradients of a rank
+    cover its slice and sum over the model axis."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = sharding.current_mesh()
+    q = sharding.constrain(q, "batch", None, "model", None)
+    k = sharding.constrain(k, "batch", None, None, None)
+    v = sharding.constrain(v, "batch", None, None, None)
+    q_pl = tuple(q.placements)
+    head_dims = [m for m, p in enumerate(q_pl) if p == Shard(2)]
+    kv_pl = tuple(Replicate() if m in head_dims else p
+                  for m, p in enumerate(q_pl))
+    G = q.shape[2] // k.shape[2]
+
+    def local(ql, kl, vl):
+        if head_dims:
+            Hl = ql.shape[2]
+            h0 = sharding.mesh_coordinate(mesh, head_dims) * Hl
+            if Hl % G == 0:
+                kl = kl[:, :, h0 // G:(h0 + Hl) // G]
+                vl = vl[:, :, h0 // G:(h0 + Hl) // G]
+            else:
+                heads = torch.arange(h0, h0 + Hl, device=kl.device) // G
+                kl, vl = kl.index_select(2, heads), vl.index_select(2, heads)
+        return attention(ql, kl, vl, causal, chunk_q, chunk_kv, plain=plain)
+
+    return sharding.island(local, mesh, (q, k, v), (q_pl, kv_pl, kv_pl),
+                           q_pl)

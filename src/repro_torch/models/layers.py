@@ -42,7 +42,28 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Under a device mesh (a DTensor table) the
+    gather runs on each rank's token rows against the whole table, in an
+    island: DTensor does not propagate the indexing."""
+    from repro_torch.dist import sharding
+    if sharding.on_mesh(tokens, table):
+        return _mesh_embed(tokens, table)
     return table[tokens]
+
+
+def _mesh_embed(tokens, table):
+    """The embedding gather under a mesh: the tokens batch-sharded, the
+    table gathered whole (its gradient comes back Partial over the batch
+    axes and is reduced to the table's own placements)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.dist import sharding
+    mesh = sharding.current_mesh()
+    tokens = sharding.place(tokens, "batch", *([None] * (tokens.dim() - 1)))
+    tok_pl = tuple(tokens.placements)
+    out_pl = tuple(Shard(0) if p == Shard(0) else Replicate()
+                   for p in tok_pl)
+    return sharding.island(lambda t, e: e[t], mesh, (tokens, table),
+                           (tok_pl, (Replicate(),) * mesh.ndim), out_pl)
 
 
 def unembed(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,19 @@ is not built: 1.0 is taken from the softmax at each gold index, the same
 arithmetic.  These are plain large matrix products (the JAX function
 computes them in jnp, outside any Pallas kernel), so ``torch.matmul`` is
 their counterpart here.
+
+Under a device mesh the loss runs on each rank's batch rows against the
+whole table, in an island: each rank's share of the mean is its rows'
+mean times its share of the rows, a Partial value summed over the batch
+axes.  The table's gradient leaves the island Partial over those axes
+and is reduced to the table's own ("model", "fsdp") placements: the JAX
+backward's ``constrain(dE, "model", "fsdp")``.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.dist import sharding
 
 
 def _chunk_logits(h_c: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -81,4 +90,27 @@ def fused_unembed_xent(h: torch.Tensor, table: torch.Tensor,
     """Mean token NLL of softmax(h @ table^T) against labels, computed
     without materializing full logits.  h (B, S, d); table (V, d); labels
     (B, S) int.  Returns a 0-d f32 tensor."""
-    return _FusedXent.apply(h, table, labels, chunk_size(h.shape[1], chunk))
+    chunk = chunk_size(h.shape[1], chunk)
+    if sharding.on_mesh(h, table):
+        return _mesh_xent(h, table, labels, chunk)
+    return _FusedXent.apply(h, table, labels, chunk)
+
+
+def _mesh_xent(h, table, labels, chunk: int):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = sharding.current_mesh()
+    h = sharding.constrain(h, "batch", None, None)
+    labels = sharding.place(labels, "batch", None)
+    h_pl = tuple(h.placements)
+    rows_pl = tuple(Shard(0) if p == Shard(0) else Replicate()
+                    for p in h_pl)
+    B = h.shape[0]
+
+    def local(hl, tl, ll):
+        return _FusedXent.apply(hl, tl, ll, chunk) * (hl.shape[0] / B)
+
+    loss = sharding.island(
+        local, mesh, (h, table, labels),
+        (h_pl, (Replicate(),) * mesh.ndim, rows_pl),
+        tuple(Partial() if p == Shard(0) else Replicate() for p in h_pl))
+    return sharding.constrain(loss)

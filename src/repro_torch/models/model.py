@@ -1,13 +1,16 @@
 """Model facade — port of ``repro/models/model.py`` (every family: dense,
 MoE, VLM, Mamba1, the Mamba2 hybrid and the encoder-decoder).
 
-``Model(cfg)`` exposes init, the training loss (``loss``, through the
-fused unembed cross-entropy) and ``model_flops``, the whole-batch cache
-and its steps (``prefill``, ``decode_step``, ``decode_many``), and the
-paged cache and its steps.  The JAX cells are ``lax.scan``s jitted with
-donated caches; here they are Python loops over steps, updating the
-cache in place, with sampling on the device.  Randomness comes from an
-explicit ``torch.Generator``.
+``Model(cfg)`` exposes init, the abstract parameter tree and its
+partition specs, the training loss (``loss``, through the fused unembed
+cross-entropy) and ``model_flops``, the whole-batch cache and its steps
+(``prefill``, ``decode_step``, ``decode_many``), the paged cache and its
+steps, and each cache's abstract tree and specs, with ``input_specs``
+and ``batch_pspecs`` for a step's inputs.  The abstract trees are
+tensors on the ``meta`` device (shapes and dtypes, no storage).  The
+JAX cells are ``lax.scan``s jitted with donated caches; here they are
+Python loops over steps, updating the cache in place, with sampling on
+the device.  Randomness comes from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -18,9 +21,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.dist.sharding import MeshRules, P
 from repro_torch.models import transformer as T
 from repro_torch.models.losses import fused_unembed_xent
-from repro_torch.models.params import init_from_schema, init_params
+from repro_torch.models.params import (
+    abstract_params, init_from_schema, init_params, param_pspecs)
 
 
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -69,6 +74,105 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda"):
         return init_params(self.cfg, generator, device)
 
+    # -- parameters and caches, abstract and as specs -------------------
+
+    def schema(self):
+        return T.schema(self.cfg)
+
+    def abstract_params(self):
+        return abstract_params(self.schema(), self.cfg.param_dtype)
+
+    def param_pspecs(self, rules: MeshRules):
+        return param_pspecs(self.schema(), rules)
+
+    def abstract_cache(self, batch: int, max_seq: int):
+        return abstract_params(self.cache_decls(batch, max_seq),
+                               self.cfg.param_dtype)
+
+    def cache_pspecs(self, batch: int, max_seq: int, rules: MeshRules):
+        return param_pspecs(self.cache_decls(batch, max_seq), rules)
+
+    def paged_cache_decls(self, batch: int, max_blocks: int, page_size: int,
+                          num_pages: int):
+        return T.paged_cache_decls(self.cfg, batch, max_blocks, page_size,
+                                   num_pages)
+
+    def abstract_paged_cache(self, batch: int, max_blocks: int,
+                             page_size: int, num_pages: int):
+        return abstract_params(
+            self.paged_cache_decls(batch, max_blocks, page_size, num_pages),
+            self.cfg.param_dtype)
+
+    def paged_cache_pspecs(self, batch: int, max_blocks: int, page_size: int,
+                           num_pages: int, rules: MeshRules):
+        return param_pspecs(
+            self.paged_cache_decls(batch, max_blocks, page_size, num_pages),
+            rules)
+
+    def prefill_cache_pspecs(self, shape: ShapeConfig, rules: MeshRules):
+        """Specs of the cache parts ``prefill`` returns: the JAX
+        package's (k/v, whisper's cross k/v, the hybrid's attention
+        caches) and the SSM and hybrid families' per-layer states, which
+        the port's prefill returns too (see ``models/transformer.py``)."""
+        full = self.cache_pspecs(shape.global_batch, shape.seq_len, rules)
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            keys = ["attn_k", "attn_v", "conv", "ssm"]
+        elif cfg.mamba_version:
+            keys = ["conv", "ssm"]
+        else:
+            keys = ["k", "v"]
+            if cfg.is_encoder_decoder:
+                keys += ["cross_k", "cross_v"]
+        return {k: full[k] for k in keys}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Meta tensors standing in for every step input (no storage)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32, bf = torch.int32, cfg.param_dtype
+
+        def sds(shp, dt):
+            return torch.empty(shp, dtype=dt, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            batch: Dict[str, Any] = {"labels": sds((B, S), i32)}
+            if cfg.is_encoder_decoder:
+                batch["frames"] = sds((B, S, cfg.d_model), bf)
+                batch["tokens"] = sds((B, S), i32)
+            elif cfg.embed_inputs:
+                batch["tokens"] = sds((B, S), i32)
+            else:
+                batch["embeds"] = sds((B, S, cfg.d_model), bf)
+                if cfg.mrope_sections:
+                    batch["positions"] = sds((3, B, S), i32)
+            if shape.kind == "prefill":
+                batch.pop("labels")
+            return batch
+        return {"tokens": sds((B, 1), i32),
+                "cache": self.abstract_cache(B, S)}
+
+    def batch_pspecs(self, shape: ShapeConfig, rules: MeshRules):
+        cfg = self.cfg
+        specs: Dict[str, Any] = {}
+        b = rules.resolve("batch")
+        if shape.kind in ("train", "prefill"):
+            if shape.kind == "train":
+                specs["labels"] = P(b, None)
+            if cfg.is_encoder_decoder:
+                specs["frames"] = P(b, None, None)
+                specs["tokens"] = P(b, None)
+            elif cfg.embed_inputs:
+                specs["tokens"] = P(b, None)
+            else:
+                specs["embeds"] = P(b, None, None)
+                if cfg.mrope_sections:
+                    specs["positions"] = P(None, b, None)
+            return specs
+        return {"tokens": P(b, None),
+                "cache": self.cache_pspecs(shape.global_batch, shape.seq_len,
+                                           rules)}
+
     # -- training -------------------------------------------------------
 
     def loss(self, params, batch: Dict[str, Any]) -> torch.Tensor:
@@ -78,7 +182,8 @@ class Model:
         when absent).  The hidden states of ``lm_forward(mode="hidden")``
         through the fused unembed cross-entropy against the tied or
         untied table, plus ``router_aux_weight`` x the MoE load-balance
-        loss."""
+        loss.  Under a device mesh (DTensor parameters) the loss is a
+        replicated 0-d DTensor."""
         cfg = self.cfg
         labels = batch["labels"]
         if cfg.is_encoder_decoder:
@@ -196,8 +301,7 @@ class Model:
     def init_paged_cache(self, batch: int, max_blocks: int, page_size: int,
                          num_pages: int, device="cuda") -> Dict[str, Any]:
         return init_from_schema(
-            T.paged_cache_decls(self.cfg, batch, max_blocks, page_size,
-                                num_pages),
+            self.paged_cache_decls(batch, max_blocks, page_size, num_pages),
             None, device, self.cfg.param_dtype)
 
     def decode_step_paged(self, params, tokens, cache, active=None):

@@ -1,9 +1,19 @@
 """Mixture-of-Experts FFN: router and capacity-bounded expert blocks.
 
-Port of ``repro/models/moe.py``, its local branch: one card is world size
-1, so the JAX package's ``shard_map`` island (expert blocks sharded over
-the mesh's model axis, combined by a psum) has no counterpart here; it
-waits for the multi-device port.
+Port of ``repro/models/moe.py``: the local branch, and under a device
+mesh (``dist.sharding``) the expert-parallel island of the JAX
+``shard_map``.  When the ep axes of the active rules span ``tp_ep > 1``
+ranks and ``G % tp_ep == 0``, each rank takes the token rows of its
+batch shard and its ``G // tp_ep`` weight blocks (picked by its
+row-major combined ep rank), the fsdp-sharded weight dims that EP does
+not use gathered whole; capacity counts the LOCAL rows, ``n_local = (B
+// n_dp) * S``, as in JAX; the partial outputs are summed over the ep
+axes (a Partial value reduced by ``constrain``: an all-reduce over each
+ep axis's process group).  Under a mesh without such an EP split the
+local branch runs on every rank over ALL the rows (gathered), so its
+capacity and token order are the unsharded call's, as GSPMD runs it.
+The router (its top-k by ``sort``, which DTensor does not propagate)
+runs on each rank's rows in an island of its own.
 
 Expert weights keep the JAX block layout ``(G, d, ffp)``: ``G =
 cfg.ep_shards`` blocks partition the ``E x d_ff`` expert volume,
@@ -33,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 from repro_torch.models.layers import dense
 
 
@@ -84,16 +95,24 @@ def _expert_block_compute(xf, gates, experts, w1g, w2g, w3g, e: int,
     return torch.zeros_like(xf).index_add_(0, order, y)
 
 
+def _capacity(cfg: ArchConfig, n: int) -> int:
+    """Switch capacity of each expert over n rows."""
+    return max(1, int(cfg.capacity_factor * n * cfg.experts_per_token
+                      / cfg.n_experts))
+
+
 def _moe_blocks_local(xf, gates, experts, w1, w2, w3, cfg: ArchConfig,
-                      capacity: int) -> torch.Tensor:
-    """All G blocks in order, their outputs summed in the activation
-    dtype."""
+                      capacity: int, blocks: Optional[range] = None
+                      ) -> torch.Tensor:
+    """Blocks ``blocks`` (all G by default) in order, ``w1[bi]`` holding
+    block ``blocks[bi]``; their outputs summed in the activation dtype."""
+    blocks = range(cfg.ep_shards) if blocks is None else blocks
     shards_per_e = max(1, cfg.ep_shards // cfg.n_experts)
     out = torch.zeros_like(xf)
-    for g in range(cfg.ep_shards):
-        w3g = w3[g] if w3 is not None else None
+    for bi, g in enumerate(blocks):
+        w3g = w3[bi] if w3 is not None else None
         out = out + _expert_block_compute(
-            xf, gates, experts, w1[g], w2[g], w3g, g // shards_per_e,
+            xf, gates, experts, w1[bi], w2[bi], w3g, g // shards_per_e,
             capacity, cfg.ffn_kind)
     return out
 
@@ -105,12 +124,74 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
 
     w1 (G, d, ffp); w2 (G, ffp, d); w3 (G, d, ffp), or None for gelu
     experts."""
+    if sharding.on_mesh(x, w1):
+        return _moe_ffn_mesh(x, router_w, w1, w2, w3, cfg)
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     gates, experts, probs = route(xf, router_w, cfg)
     aux = aux_loss(experts, probs, cfg.n_experts)
-    n = B * S
-    capacity = max(1, int(cfg.capacity_factor * n * cfg.experts_per_token
-                          / cfg.n_experts))
-    out = _moe_blocks_local(xf, gates, experts, w1, w2, w3, cfg, capacity)
+    out = _moe_blocks_local(xf, gates, experts, w1, w2, w3, cfg,
+                            _capacity(cfg, B * S))
     return out.reshape(B, S, d), aux
+
+
+def _moe_ffn_mesh(x, router_w, w1, w2, w3, cfg: ArchConfig):
+    """``moe_ffn`` under a device mesh (see the module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, rules = sharding.current_mesh(), sharding.active_rules()
+    names = list(mesh.mesh_dim_names)
+    sizes = sharding.mesh_shape(mesh)
+    B, S, d = x.shape
+    xf = sharding.constrain(x, "batch", None, None).reshape(B * S, d)
+    xf = sharding.constrain(xf, "batch", None)
+    rows = tuple(xf.placements)
+    repl = (Replicate(),) * mesh.ndim
+
+    def _route(xl, rw):
+        gates, experts, probs = route(xl, rw, cfg)
+        top1 = F.one_hot(experts[..., 0], cfg.n_experts).to(torch.float32)
+        return gates, experts, probs, top1
+
+    gates, experts, probs, top1 = sharding.island(
+        _route, mesh, (xf, router_w), (rows, repl), (rows,) * 4)
+    # aux_loss over every row: E * sum_e f_e P_e of the global means
+    f = sharding.constrain(top1.mean(dim=0), None)
+    aux = cfg.n_experts * torch.sum(f * sharding.constrain(
+        probs.mean(dim=0), None))
+
+    ep_axes = tuple(a for a in rules.ep_axes if a in sizes)
+    tp_ep = 1
+    for a in ep_axes:
+        tp_ep *= sizes[a]
+    if tp_ep > 1 and cfg.ep_shards % tp_ep == 0:
+        # the expert-parallel island: each rank its batch shard's rows and
+        # its ep shard's blocks; the outputs Partial over the ep axes
+        batch_axes = tuple(a for a in rules.batch_axes if a in sizes)
+        n_dp = 1
+        for a in batch_axes:
+            n_dp *= sizes[a]
+        n = (B // max(1, n_dp)) * S
+        ep_dims = sorted(names.index(a) for a in ep_axes)   # DTensor's order
+        tok_pl = tuple(Shard(0) if a in batch_axes else Replicate()
+                       for a in names)
+        w_pl = tuple(Shard(0) if a in ep_axes else Replicate()
+                     for a in names)
+        out_pl = tuple(Partial() if a in ep_axes else p
+                       for a, p in zip(names, tok_pl))
+    else:
+        # the local branch, on every rank over all the rows
+        n, ep_dims, tok_pl, w_pl, out_pl = B * S, [], repl, repl, repl
+    capacity = _capacity(cfg, n)
+    per_rank = cfg.ep_shards // (tp_ep if ep_dims else 1)
+
+    def _blocks(xl, gl, el, w1l, w2l, w3l=None):
+        r = sharding.mesh_coordinate(mesh, ep_dims)   # combined ep rank
+        return _moe_blocks_local(xl, gl, el, w1l, w2l, w3l, cfg, capacity,
+                                 range(r * per_rank, (r + 1) * per_rank))
+
+    ws = (w1, w2) if w3 is None else (w1, w2, w3)
+    out = sharding.island(_blocks, mesh, (xf, gates, experts, *ws),
+                          (tok_pl,) * 3 + (w_pl,) * len(ws), out_pl)
+    out = sharding.constrain(out, "batch", None)     # the sum over ep
+    out = sharding.constrain(out.reshape(B, S, d), "batch", None, None)
+    return out.to(x.dtype), aux

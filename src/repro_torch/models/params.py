@@ -1,10 +1,14 @@
-"""Parameter schema: every leaf declared once (shape, init kind, dtype);
-initialization and the JAX weight bridge both walk the same declaration.
+"""Parameter schema: every leaf declared once (shape, logical axes, init
+kind, dtype); initialization, the abstract tree, the partition specs and
+the JAX weight bridge all walk the same declaration.
 
-Port of ``repro/models/params.py``.  The JAX declaration also carries
-logical sharding axes; one card shards nothing, so the port drops them.
-Stacked per-layer parameters get a leading layer dim, as in the JAX tree,
-so a parameter tree here is the same nested dict of the same shapes.
+Port of ``repro/models/params.py``.  ``axes`` are the logical sharding
+names per dim ("fsdp" | "model" | "ep" | ... | None), the JAX
+declaration's, resolved by the active ``MeshRules`` (``param_pspecs``).
+Stacked per-layer parameters get a leading layer dim with axis None, as
+in the JAX tree, so a parameter tree here is the same nested dict of the
+same shapes.  ``abstract_params`` gives tensors on the ``meta`` device:
+shapes and dtypes, no storage (``jax.ShapeDtypeStruct``'s counterpart).
 """
 from __future__ import annotations
 
@@ -19,19 +23,38 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"             # normal (fan-in) | zeros | ones | embed
                                      # | ssm_a | ssm_a_scalar | ssm_dt
     dtype: Optional[torch.dtype] = None   # None -> the config's param dtype
 
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
 
 def stacked(decl: ParamDecl, n: int) -> ParamDecl:
-    return ParamDecl((n,) + decl.shape, decl.init, decl.dtype)
+    return ParamDecl((n,) + decl.shape, (None,) + decl.axes, decl.init,
+                     decl.dtype)
 
 
 def map_schema(fn: Callable[[ParamDecl], Any], tree) -> Any:
     if isinstance(tree, ParamDecl):
         return fn(tree)
     return {k: map_schema(fn, tree[k]) for k in sorted(tree)}
+
+
+def abstract_params(schema, default_dtype: torch.dtype):
+    """The tree as ``meta`` tensors of the declared shapes and dtypes."""
+    return map_schema(lambda d: torch.empty(
+        d.shape, dtype=d.dtype or default_dtype, device="meta"), schema)
+
+
+def param_pspecs(schema, rules):
+    """The tree of partition specs: each leaf's logical axes resolved by
+    ``rules`` (a ``dist.sharding.MeshRules``)."""
+    from repro_torch.dist.sharding import P
+    return map_schema(lambda d: P(*(rules.resolve(a) for a in d.axes)),
+                      schema)
 
 
 def _init_leaf(d: ParamDecl, generator: torch.Generator,

@@ -14,8 +14,11 @@ forward and decode step (``whisper_*``).
 Port of ``repro/models/transformer.py``.  The ``lax.scan`` over stacked layers
 becomes a Python loop over the layer index; caches and pools are
 updated IN PLACE where the JAX functions return updated copies, so the
-returned cache holds the same tensors it was given.  The sharding
-constraints have no counterpart on one card and are dropped.  Remat is
+returned cache holds the same tensors it was given.  The JAX sharding
+constraints stand at the same points, by the same logical names
+(``dist.sharding.constrain``): no-ops on plain tensors, a DTensor
+``redistribute`` under a device mesh, where the schema's ``axes`` place
+the parameters (``train.elastic.reshard``).  Remat is
 kept where it acts, in a training pass (``remat_on``), with
 ``torch.utils.checkpoint`` (non-reentrant), where the JAX package puts
 its ``jax.checkpoint``: the dense family's ``lm_forward`` checkpoints
@@ -56,6 +59,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import constrain, place
 from repro_torch.kernels.decode_attention import (
     decode_attention, paged_decode_attention, paged_prefill_attention)
 from repro_torch.kernels.decode_attention.ref import (
@@ -119,44 +123,48 @@ def apply_norm(h, p, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def _norm_decl(d: int) -> Dict[str, ParamDecl]:
-    return {"scale": ParamDecl((d,), "ones"), "bias": ParamDecl((d,), "zeros")}
+    return {"scale": ParamDecl((d,), (None,), "ones"),
+            "bias": ParamDecl((d,), (None,), "zeros")}
 
 
 def _attn_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
     d, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     decls = {
-        "wq": ParamDecl((d, H * hd)),
-        "wk": ParamDecl((d, KV * hd)),
-        "wv": ParamDecl((d, KV * hd)),
-        "wo": ParamDecl((H * hd, d)),
+        "wq": ParamDecl((d, H * hd), ("fsdp", "model")),
+        "wk": ParamDecl((d, KV * hd), ("fsdp", None)),
+        "wv": ParamDecl((d, KV * hd), ("fsdp", None)),
+        "wo": ParamDecl((H * hd, d), ("model", "fsdp")),
     }
     if cfg.qkv_bias:
-        decls["bq"] = ParamDecl((H * hd,), "zeros")
-        decls["bk"] = ParamDecl((KV * hd,), "zeros")
-        decls["bv"] = ParamDecl((KV * hd,), "zeros")
+        decls["bq"] = ParamDecl((H * hd,), ("model",), "zeros")
+        decls["bk"] = ParamDecl((KV * hd,), (None,), "zeros")
+        decls["bv"] = ParamDecl((KV * hd,), (None,), "zeros")
     return decls
 
 
 def _ffn_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.ffn_kind == "swiglu":
-        return {"w_gate": ParamDecl((d, ff)), "w_up": ParamDecl((d, ff)),
-                "w_down": ParamDecl((ff, d))}
-    return {"w_up": ParamDecl((d, ff)), "b_up": ParamDecl((ff,), "zeros"),
-            "w_down": ParamDecl((ff, d)), "b_down": ParamDecl((d,), "zeros")}
+        return {"w_gate": ParamDecl((d, ff), ("fsdp", "model")),
+                "w_up": ParamDecl((d, ff), ("fsdp", "model")),
+                "w_down": ParamDecl((ff, d), ("model", "fsdp"))}
+    return {"w_up": ParamDecl((d, ff), ("fsdp", "model")),
+            "b_up": ParamDecl((ff,), ("model",), "zeros"),
+            "w_down": ParamDecl((ff, d), ("model", "fsdp")),
+            "b_down": ParamDecl((d,), (None,), "zeros")}
 
 
 def _moe_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
-    """The router and the (G, d, ffp) expert blocks (``models/moe.py``);
-    gelu experts have no ``w3``."""
+    """The router and the (G, d, ffp) expert blocks (``models/moe.py``),
+    the blocks sharded over the ep axes; gelu experts have no ``w3``."""
     d, ff, E, G = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.ep_shards
     ffp = E * ff // G
-    decls = {"router": ParamDecl((d, E)),
-             "w1": ParamDecl((G, d, ffp)),
-             "w2": ParamDecl((G, ffp, d))}
+    decls = {"router": ParamDecl((d, E), ("fsdp", None)),
+             "w1": ParamDecl((G, d, ffp), ("ep", "moe_fsdp", None)),
+             "w2": ParamDecl((G, ffp, d), ("ep", None, "moe_fsdp"))}
     if cfg.ffn_kind == "swiglu":
-        decls["w3"] = ParamDecl((G, d, ffp))
+        decls["w3"] = ParamDecl((G, d, ffp), ("ep", "moe_fsdp", None))
     return decls
 
 
@@ -169,28 +177,28 @@ def _mamba_decls(cfg: ArchConfig) -> Dict[str, ParamDecl]:
     if cfg.mamba_version == 1:
         dt_rank = max(1, d // 16)
         return {
-            "in_proj": ParamDecl((d, 2 * d_in)),
-            "conv_w": ParamDecl((d_in, K)),
-            "conv_b": ParamDecl((d_in,), "zeros"),
-            "x_proj": ParamDecl((d_in, dt_rank + 2 * N)),
-            "dt_proj": ParamDecl((dt_rank, d_in)),
-            "dt_bias": ParamDecl((d_in,), "ssm_dt"),
-            "A_log": ParamDecl((d_in, N), "ssm_a"),
-            "D": ParamDecl((d_in,), "ones"),
-            "out_proj": ParamDecl((d_in, d)),
+            "in_proj": ParamDecl((d, 2 * d_in), ("fsdp", "model")),
+            "conv_w": ParamDecl((d_in, K), ("model", None)),
+            "conv_b": ParamDecl((d_in,), ("model",), "zeros"),
+            "x_proj": ParamDecl((d_in, dt_rank + 2 * N), ("model", None)),
+            "dt_proj": ParamDecl((dt_rank, d_in), (None, "model")),
+            "dt_bias": ParamDecl((d_in,), ("model",), "ssm_dt"),
+            "A_log": ParamDecl((d_in, N), ("model", None), "ssm_a"),
+            "D": ParamDecl((d_in,), ("model",), "ones"),
+            "out_proj": ParamDecl((d_in, d), ("model", "fsdp")),
         }
     H = d_in // cfg.ssm_head_dim
     return {
-        "w_zx": ParamDecl((d, 2 * d_in)),
-        "w_bc": ParamDecl((d, 2 * N)),
-        "w_dt": ParamDecl((d, H)),
-        "conv_w": ParamDecl((d_in, K)),
-        "conv_b": ParamDecl((d_in,), "zeros"),
-        "dt_bias": ParamDecl((H,), "ssm_dt"),
-        "A_log": ParamDecl((H,), "ssm_a_scalar"),
-        "D": ParamDecl((H,), "ones"),
-        "norm": ParamDecl((d_in,), "ones"),
-        "out_proj": ParamDecl((d_in, d)),
+        "w_zx": ParamDecl((d, 2 * d_in), ("fsdp", "model")),
+        "w_bc": ParamDecl((d, 2 * N), ("fsdp", None)),
+        "w_dt": ParamDecl((d, H), ("fsdp", "model")),
+        "conv_w": ParamDecl((d_in, K), ("model", None)),
+        "conv_b": ParamDecl((d_in,), ("model",), "zeros"),
+        "dt_bias": ParamDecl((H,), ("model",), "ssm_dt"),
+        "A_log": ParamDecl((H,), ("model",), "ssm_a_scalar"),
+        "D": ParamDecl((H,), ("model",), "ones"),
+        "norm": ParamDecl((d_in,), ("model",), "ones"),
+        "out_proj": ParamDecl((d_in, d), ("model", "fsdp")),
     }
 
 
@@ -203,9 +211,10 @@ def schema(cfg: ArchConfig) -> Dict[str, Any]:
     text tokens through it."""
     check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
-    sch: Dict[str, Any] = {"embed": ParamDecl((V, d), "embed")}
+    sch: Dict[str, Any] = {
+        "embed": ParamDecl((V, d), ("model", "fsdp"), "embed")}
     if not cfg.tie_embeddings:
-        sch["unembed"] = ParamDecl((V, d), "embed")
+        sch["unembed"] = ParamDecl((V, d), ("model", "fsdp"), "embed")
     sch["ln_f"] = _norm_decl(d)
     if cfg.is_encoder_decoder:
         enc = {"ln1": _norm_decl(d), "ln2": _norm_decl(d),
@@ -251,27 +260,34 @@ def cache_decls(cfg: ArchConfig, batch: int, max_seq: int
     ``whisper_decode``)."""
     check_supported(cfg)
     hd, KV, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
-    decls = {"pos": ParamDecl((), "zeros", torch.int32),
-             "start": ParamDecl((batch,), "zeros", torch.int32)}
+    # KV caches are sequence-sharded over the "cache_seq" axes, as in the
+    # JAX package (flash-decoding style)
+    kv_axes = (None, "batch", "cache_seq", None, None)
+    decls = {"pos": ParamDecl((), (), "zeros", torch.int32),
+             "start": ParamDecl((batch,), ("batch",), "zeros", torch.int32)}
     if cfg.mamba_version:
         d_in = cfg.d_model * cfg.ssm_expand
         decls["conv"] = ParamDecl((L, batch, cfg.ssm_conv - 1, d_in),
-                                  "zeros")
+                                  (None, "batch", None, "model"), "zeros")
         if cfg.family != "hybrid":
             decls["ssm"] = ParamDecl((L, batch, d_in, cfg.ssm_state),
+                                     (None, "batch", "model", None),
                                      "zeros", torch.float32)
             return decls
         sh = cfg.ssm_head_dim
         decls["ssm"] = ParamDecl((L, batch, d_in // sh, sh, cfg.ssm_state),
+                                 (None, "batch", "model", None, None),
                                  "zeros", torch.float32)
         G = cfg.n_layers // cfg.attn_every
         for name in ("attn_k", "attn_v"):
-            decls[name] = ParamDecl((G, batch, max_seq, KV, hd), "zeros")
+            decls[name] = ParamDecl((G, batch, max_seq, KV, hd), kv_axes,
+                                    "zeros")
         return decls
     names = ("k", "v", "cross_k", "cross_v") if cfg.is_encoder_decoder \
         else ("k", "v")
     for name in names:
-        decls[name] = ParamDecl((L, batch, max_seq, KV, hd), "zeros")
+        decls[name] = ParamDecl((L, batch, max_seq, KV, hd), kv_axes,
+                                "zeros")
     return decls
 
 
@@ -283,15 +299,22 @@ def paged_cache_decls(cfg: ArchConfig, batch: int, max_blocks: int,
     check_supported(cfg, paged=True)
     hd, KV, L = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
     pool_dt = torch.int8 if cfg.kv_quantized else cfg.param_dtype
+    # the pool is sharded over its page axis ("cache_seq"), as in the JAX
+    # package
+    pool_axes = (None, "cache_seq", None, None, None)
     decls = {
-        "k": ParamDecl((L, num_pages, page_size, KV, hd), "zeros", pool_dt),
-        "v": ParamDecl((L, num_pages, page_size, KV, hd), "zeros", pool_dt),
-        "table": ParamDecl((batch, max_blocks), "zeros", torch.int32),
-        "length": ParamDecl((batch,), "zeros", torch.int32),
+        "k": ParamDecl((L, num_pages, page_size, KV, hd), pool_axes, "zeros",
+                       pool_dt),
+        "v": ParamDecl((L, num_pages, page_size, KV, hd), pool_axes, "zeros",
+                       pool_dt),
+        "table": ParamDecl((batch, max_blocks), ("batch", None), "zeros",
+                           torch.int32),
+        "length": ParamDecl((batch,), ("batch",), "zeros", torch.int32),
     }
     if cfg.kv_quantized:
         for name in ("k_scale", "v_scale"):
-            decls[name] = ParamDecl((L, num_pages, page_size, KV), "zeros",
+            decls[name] = ParamDecl((L, num_pages, page_size, KV),
+                                    (None, "cache_seq", None, None), "zeros",
                                     torch.float32)
     return decls
 
@@ -313,9 +336,12 @@ def _rope(cfg: ArchConfig, positions) -> Optional[Tuple]:
     if not cfg.rope_theta:
         return None
     if cfg.mrope_sections:
-        return mrope_angles(positions, cfg.head_dim, cfg.rope_theta,
-                            cfg.mrope_sections)
-    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = mrope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                                cfg.mrope_sections)
+    else:
+        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    # under a mesh, placed over the batch axes as q and k are
+    return (place(cos, "batch", None, None), place(sin, "batch", None, None))
 
 
 def _streams(cfg: ArchConfig, positions):
@@ -327,7 +353,11 @@ def _streams(cfg: ArchConfig, positions):
     return positions
 
 
-def _qkv(hn, p, cfg: ArchConfig, rope):
+def _qkv(hn, p, cfg: ArchConfig, rope, decode: bool = False):
+    """q (B, S, H, hd), k and v (B, S, KV, hd), rope applied; q sharded
+    over its heads on the model axis (replicated there in a decode or
+    paged step, which attends a sequence-sharded cache), k and v
+    replicated over it."""
     B, S, _ = hn.shape
     hd = cfg.head_dim
     q = dense(hn, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, hd)
@@ -337,6 +367,12 @@ def _qkv(hn, p, cfg: ArchConfig, rope):
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if decode:
+        q = constrain(q, "batch", None, None, None)
+    else:
+        q = constrain(q, "batch", None, "model", None)
+    k = constrain(k, "batch", None, None, None)
+    v = constrain(v, "batch", None, None, None)
     return q, k, v
 
 
@@ -374,9 +410,16 @@ def _write_rows(cache, layer: int, phys, off, k, v,
         cache["v"][layer, phys, off] = vq
         cache["k_scale"][layer, phys, off] = ks
         cache["v_scale"][layer, phys, off] = vs
+        cache["k_scale"] = constrain(cache["k_scale"], None, "cache_seq",
+                                     None, None)
+        cache["v_scale"] = constrain(cache["v_scale"], None, "cache_seq",
+                                     None, None)
     else:
         cache["k"][layer, phys, off] = k.to(cache["k"].dtype)
         cache["v"][layer, phys, off] = v.to(cache["v"].dtype)
+    # keep the pool page-sharded through the in-place update
+    cache["k"] = constrain(cache["k"], None, "cache_seq", None, None, None)
+    cache["v"] = constrain(cache["v"], None, "cache_seq", None, None, None)
 
 
 def attn_apply(h, p, cfg: ArchConfig, rope, causal: bool = True,
@@ -390,7 +433,8 @@ def attn_apply(h, p, cfg: ArchConfig, rope, causal: bool = True,
     out = attention(q, k, v, causal=causal, chunk_q=cfg.attn_chunk_q,
                     chunk_kv=cfg.attn_chunk_kv, plain=plain)
     B, S = out.shape[:2]
-    return dense(out.reshape(B, S, -1), a["wo"]), (k, v)
+    out = dense(out.reshape(B, S, -1), a["wo"])
+    return constrain(out, "batch", None, None), (k, v)
 
 
 def attn_decode(h, p, cfg: ArchConfig, rope, k_cache, v_cache, pos,
@@ -403,10 +447,13 @@ def attn_decode(h, p, cfg: ArchConfig, rope, k_cache, v_cache, pos,
     v_cache)."""
     hn = apply_norm(h, p["ln1"], cfg)
     a = p["attn"]
-    q, k, v = _qkv(hn, a, cfg, rope)
+    q, k, v = _qkv(hn, a, cfg, rope, decode=True)
     row = torch.clamp(pos, 0, k_cache.shape[1] - 1).reshape(1).long()
     k_cache.index_copy_(1, row, k.to(k_cache.dtype))
     v_cache.index_copy_(1, row, v.to(v_cache.dtype))
+    # keep the cache sequence-sharded through the in-place update
+    k_cache = constrain(k_cache, "batch", "cache_seq", None, None)
+    v_cache = constrain(v_cache, "batch", "cache_seq", None, None)
     if plain:
         out = direct_attention(q, k_cache, v_cache, causal=True,
                                q_offset=pos, kv_len=pos + 1, kv_start=start)
@@ -426,7 +473,7 @@ def attn_decode_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
     slots write the null page 0) and attends positions [0, lengths[b]]."""
     hn = apply_norm(h, p["ln1"], cfg)
     a = p["attn"]
-    q, k, v = _qkv(hn, a, cfg, rope)
+    q, k, v = _qkv(hn, a, cfg, rope, decode=True)
     B = h.shape[0]
     table = cache["table"]
     page, nb = cache["k"].shape[2], table.shape[1]
@@ -454,7 +501,7 @@ def attn_prefill_paged(h, p, cfg: ArchConfig, rope, cache, layer: int,
     positions <= base[b] + t and < new_len[b]."""
     hn = apply_norm(h, p["ln1"], cfg)
     a = p["attn"]
-    q, k, v = _qkv(hn, a, cfg, rope)
+    q, k, v = _qkv(hn, a, cfg, rope, decode=True)
     B, T, _ = h.shape
     table = cache["table"]
     page, nb = cache["k"].shape[2], table.shape[1]
@@ -480,8 +527,10 @@ def ffn_apply(h, p, cfg: ArchConfig):
     hn = apply_norm(h, p["ln2"], cfg)
     f = p["ffn"]
     if cfg.ffn_kind == "swiglu":
-        return swiglu(hn, f["w_gate"], f["w_up"], f["w_down"])
-    return gelu_mlp(hn, f["w_up"], f["b_up"], f["w_down"], f["b_down"])
+        out = swiglu(hn, f["w_gate"], f["w_up"], f["w_down"])
+    else:
+        out = gelu_mlp(hn, f["w_up"], f["b_up"], f["w_down"], f["b_down"])
+    return constrain(out, "batch", None, None)
 
 
 def moe_apply(h, p, cfg: ArchConfig):
@@ -508,9 +557,11 @@ def dense_block(h, p, cfg: ArchConfig, rope, plain: bool = False):
     h = h + out
     if cfg.n_experts:
         out, aux = moe_apply(h, p, cfg)
-        return h + out, aux, kv
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h + ffn_apply(h, p, cfg), aux, kv
+        h = h + out
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        h = h + ffn_apply(h, p, cfg)
+    return constrain(h, "batch", None, None), aux, kv
 
 
 def mamba_block_apply(h, p, cfg: ArchConfig, state=None,
@@ -524,7 +575,7 @@ def mamba_block_apply(h, p, cfg: ArchConfig, state=None,
                                               plain)
     else:
         out, new_state = ssm_mod.mamba2_block(hn, p["mixer"], cfg, state)
-    return h + out, new_state
+    return constrain(h + out, "batch", None, None), new_state
 
 
 def shared_attn_block(h, p, cfg: ArchConfig, rope, plain: bool = False):
@@ -532,7 +583,7 @@ def shared_attn_block(h, p, cfg: ArchConfig, rope, plain: bool = False):
     attention, then the FFN.  Returns (h, (k, v))."""
     out, kv = attn_apply(h, p, cfg, rope, causal=True, plain=plain)
     h = h + out
-    return h + ffn_apply(h, p, cfg), kv
+    return constrain(h + ffn_apply(h, p, cfg), "batch", None, None), kv
 
 
 def shared_attn_decode(h, p, cfg: ArchConfig, rope, k_c, v_c, pos,
@@ -549,22 +600,25 @@ def _embed_in(params, cfg: ArchConfig, inputs):
     arch (``embed_inputs`` False) the precomputed (B, S, d) embeddings
     themselves; either in the param dtype."""
     if cfg.embed_inputs:
-        return embed(inputs, params["embed"]).to(cfg.param_dtype)
-    return inputs.to(cfg.param_dtype)
+        h = embed(inputs, params["embed"]).to(cfg.param_dtype)
+    else:
+        h = inputs.to(cfg.param_dtype)
+    return constrain(h, "batch", None, None)
 
 
 def _logits_exact(params, cfg: ArchConfig, h):
     """f32 unembed for the positions whose logits decide a token."""
     h = apply_norm(h, params["ln_f"], cfg)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return unembed(h.to(torch.float32), table.to(torch.float32))
+    logits = unembed(h.to(torch.float32), table.to(torch.float32))
+    return constrain(logits, "batch", None, "model")
 
 
 def _logits(params, cfg: ArchConfig, h):
     """Logits in the activation dtype (training's full-sequence logits)."""
     h = apply_norm(h, params["ln_f"], cfg)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return unembed(h, table)
+    return constrain(unembed(h, table), "batch", None, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -712,6 +766,9 @@ def lm_decode(params, cfg: ArchConfig, tokens, cache, plain: bool = False):
         p = layer_params(params["blocks"], li)
         out, _, _ = attn_decode(h, p, cfg, rope, cache["k"][li],
                                 cache["v"][li], pos, start, plain)
+        for name in ("k", "v"):
+            cache[name] = constrain(cache[name], None, "batch", "cache_seq",
+                                    None, None)
         h = decode_ffn(h + out, p, cfg)
     cache["pos"] = pos + 1
     return _logits_exact(params, cfg, h)[:, 0], cache
@@ -901,11 +958,12 @@ def whisper_encode(params, cfg: ArchConfig, frames, plain: bool = False,
     pos = torch.arange(S, device=frames.device)[None]
     h = frames.to(cfg.param_dtype) + sinusoidal_positions(
         pos, cfg.d_model).to(cfg.param_dtype)
+    h = constrain(h, "batch", None, None)
 
     def layer(h, li: int):
         p = layer_params(params["encoder"], li)
         h = h + attn_apply(h, p, cfg, None, causal=False, plain=plain)[0]
-        return h + ffn_apply(h, p, cfg)
+        return constrain(h + ffn_apply(h, p, cfg), "batch", None, None)
 
     for li in range(cfg.encoder_layers):
         h = _run(remat, layer, h, li)
@@ -952,6 +1010,7 @@ def whisper_forward(params, cfg: ArchConfig, frames, tokens,
     pos = torch.arange(S, device=tokens.device)[None]
     h = embed(tokens, params["embed"]).to(cfg.param_dtype)
     h = h + sinusoidal_positions(pos, cfg.d_model).to(cfg.param_dtype)
+    h = constrain(h, "batch", None, None)
     parts = {"k": [], "v": [], "cross_k": [], "cross_v": []}
     remat = remat_on(cfg, mode, params["decoder"])
 
@@ -961,7 +1020,7 @@ def whisper_forward(params, cfg: ArchConfig, frames, tokens,
         h = h + out
         ck, cv = _cross_kv(enc, p["cross"], cfg)
         h = h + _cross_attend(h, p, cfg, ck, cv, plain)
-        h = h + ffn_apply(h, p, cfg)
+        h = constrain(h + ffn_apply(h, p, cfg), "batch", None, None)
         if mode == "prefill":
             for name, t in zip(parts, (k, v, ck, cv)):
                 parts[name].append(t)

@@ -14,8 +14,20 @@ parameters and a new state.  ``moment_dtype``:
 The global-norm clip, the bias corrections and the update run in f32;
 weight decay applies to every leaf, norms and biases included, as in the
 JAX package.  ``torch.round`` rounds half to even, as ``jnp.round``
-does.  The JAX class's ``abstract_state`` and ``state_pspecs`` lay the
-state out over a device mesh and have no counterpart on one card.
+does.  ``abstract_state`` (meta tensors) and ``state_pspecs`` lay the
+state out over a device mesh as the JAX class does: f32 and bf16 moments
+take their parameter's spec; int8 moments shard their (n_blocks, 256)
+block dim over every mesh axis the parameter used.
+
+Under a mesh (DTensor parameters, placed by ``train.elastic.reshard``)
+each gradient is first reduced to its parameter's placements (a Partial
+data-parallel gradient all-reduced or reduce-scattered: GSPMD's implicit
+reduction), the global norm sums every leaf's shards, and the update
+runs on each rank's local shards of the parameter, gradient and f32/bf16
+moments, elementwise, so it is the unsharded update's arithmetic.  An
+int8 moment's blocks follow the flattened parameter, not its shards, so
+that leaf is updated whole on every rank and placed back: the JAX
+package's GSPMD replicates the same dequantize reshape.
 """
 from __future__ import annotations
 
@@ -23,6 +35,8 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.dist.sharding import P, entry_axes, is_dtensor
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -119,13 +133,53 @@ class AdamW:
         return {"m": tree_map(mk, params), "v": tree_map(mk, params),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
+    def abstract_state(self, abstract_params) -> Dict[str, Any]:
+        """The state's tree as meta tensors (shapes and dtypes)."""
+        def mk(p):
+            if self.cfg.moment_dtype == "int8":
+                nb = -(-p.numel() // _QBLOCK)
+                return {"q": torch.empty((nb, _QBLOCK), dtype=torch.int8,
+                                         device="meta"),
+                        "scale": torch.empty((nb, 1), dtype=torch.float32,
+                                             device="meta")}
+            dt = (torch.bfloat16 if self.cfg.moment_dtype == "bfloat16"
+                  else torch.float32)
+            return torch.empty(p.shape, dtype=dt, device="meta")
+        return {"m": tree_map(mk, abstract_params),
+                "v": tree_map(mk, abstract_params),
+                "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+    def state_pspecs(self, param_pspecs) -> Dict[str, Any]:
+        """The state's partition specs from the parameters' (a tree of
+        ``P``, as ``Model.param_pspecs`` gives)."""
+        def mk(spec):
+            if self.cfg.moment_dtype == "int8":
+                # the (n_blocks, 256) quantized layout shards its block dim
+                # over every mesh axis the parameter itself used
+                axes = [a for e in spec for a in entry_axes(e)]
+                blk = tuple(axes) if len(axes) > 1 else (
+                    axes[0] if axes else None)
+                return {"q": P(blk, None), "scale": P(blk, None)}
+            return spec
+
+        def walk(t):
+            if isinstance(t, P):
+                return mk(t)
+            return {k: walk(t[k]) for k in sorted(t)}
+        return {"m": walk(param_pspecs), "v": walk(param_pspecs),
+                "step": P()}
+
     def update(self, grads, state, params) -> Tuple[Any, dict, dict]:
         """Returns (new params, new state, {"grad_norm", "lr"})."""
         cfg = self.cfg
-        step = state["step"] + 1
+        step = _full(state["step"]) + 1
         lr = cfg.lr_at(step)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in tree_leaves(grads)))
+        if any(is_dtensor(p) for p in tree_leaves(params)):
+            # the data-parallel reduction: each gradient to its
+            # parameter's placements before anything reads it
+            grads = tree_map(lambda g, p: g.redistribute(
+                p.device_mesh, p.placements), grads, params)
+        gnorm = torch.sqrt(sum(_sum_squares(g) for g in tree_leaves(grads)))
         scale = None
         if cfg.grad_clip_norm is not None:
             scale = torch.clamp(cfg.grad_clip_norm
@@ -137,6 +191,11 @@ class AdamW:
                                            device=stepf.device), stepf)
 
         def one(p, g, m, v):
+            if is_dtensor(p):
+                return self._one_sharded(one_local, p, g, m, v)
+            return one_local(p, g, m, v)
+
+        def one_local(p, g, m, v):
             g = g.to(torch.float32)          # clipped leaf by leaf: no
             if scale is not None:            # second copy of every grad
                 g = g * scale
@@ -150,5 +209,45 @@ class AdamW:
 
         outs = tree_map(one, params, grads, state["m"], state["v"])
         pick = lambda i: tree_map(lambda _, o: o[i], params, outs)  # noqa
+        if is_dtensor(state["step"]):
+            from torch.distributed.tensor import DTensor
+            old = state["step"]
+            step = DTensor.from_local(step, old.device_mesh, old.placements,
+                                      run_check=False)
         new_state = {"m": pick(1), "v": pick(2), "step": step}
         return pick(0), new_state, {"grad_norm": gnorm, "lr": lr}
+
+    def _one_sharded(self, one_local, p, g, m, v):
+        """One leaf's update on DTensors: f32/bf16 moments share the
+        parameter's placements, so the update runs on the local shards;
+        int8 moments are read and written whole (see the module
+        docstring)."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        def back(x, like):
+            return DTensor.from_local(x, like.device_mesh, like.placements,
+                                      run_check=False, shape=like.shape,
+                                      stride=like.stride())
+
+        if self.cfg.moment_dtype != "int8":
+            new_p, nm, nv = one_local(p.to_local(), g.to_local(),
+                                      m.to_local(), v.to_local())
+            return back(new_p, p), back(nm, m), back(nv, v)
+        new_p, nm, nv = one_local(p.full_tensor(), g.full_tensor(),
+                                  tree_map(_full, m), tree_map(_full, v))
+
+        def again(new, old):
+            return distribute_tensor(new, old.device_mesh, old.placements)
+        return (again(new_p, p), tree_map(again, nm, m),
+                tree_map(again, nv, v))
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """sum(g^2) in f32, a DTensor's over all its shards (a plain 0-d
+    tensor either way)."""
+    s = torch.sum(torch.square(g.to(torch.float32)))
+    return s.full_tensor() if is_dtensor(s) else s
+
+
+def _full(x):
+    return x.full_tensor() if is_dtensor(x) else x

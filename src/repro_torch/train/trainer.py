@@ -6,6 +6,14 @@ asked), with weights drawn from a ``torch.Generator`` seeded with
 ``TrainerConfig.seed``.  Each step takes the pipeline's batch for its
 step number (a pure function of (seed, step)), so a run restored from a
 checkpoint at step n sees the batches a straight run sees from n on.
+
+Under an active device mesh (``dist.sharding.set_context``, as
+``launch/train.py``'s multi-host flags install it) every rank draws the
+same weights and the same global batch; the state is placed by
+``train.elastic.reshard`` under the schema's specs and each batch by
+``Model.batch_pspecs``, and the step runs on the DTensors.  A checkpoint
+is gathered whole and written by rank 0; a restore reads it whole and
+places it again, so a run may resume on another mesh.
 """
 from __future__ import annotations
 
@@ -15,10 +23,13 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+from repro_torch.dist import sharding
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, AdamWConfig
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.elastic import gather, reshard
 from repro_torch.train.straggler import StragglerMonitor
 from repro_torch.train.train_step import make_train_step
 
@@ -66,6 +77,27 @@ class Trainer:
         params = self.model.init(gen, self.device)
         return {"params": params, "opt": self.optimizer.init(params)}
 
+    def state_pspecs(self, rules):
+        p_specs = self.model.param_pspecs(rules)
+        return {"params": p_specs,
+                "opt": self.optimizer.state_pspecs(p_specs)}
+
+    def _place(self, state):
+        """The state placed on the active mesh (as it is without one)."""
+        mesh, rules = sharding.current_mesh(), sharding.active_rules()
+        if mesh is None:
+            return state
+        return reshard(state, self.state_pspecs(rules), mesh)
+
+    def _place_batch(self, batch):
+        mesh, rules = sharding.current_mesh(), sharding.active_rules()
+        if mesh is None:
+            return batch
+        B, S = batch["labels"].shape
+        specs = self.model.batch_pspecs(ShapeConfig("step", S, B, "train"),
+                                        rules)
+        return reshard(batch, {k: specs[k] for k in batch}, mesh)
+
     def _maybe_restore(self, state):
         d = self.cfg.checkpoint_dir
         if not d:
@@ -77,10 +109,25 @@ class Trainer:
         print(f"[trainer] restored checkpoint at step {step}")
         return int(extra.get("data_step", step)), state
 
+    def _checkpoint(self, step: int, params, opt_state) -> None:
+        """Save the state after ``step`` steps; under a mesh gathered whole
+        (a collective: every rank takes part) and written by rank 0."""
+        st = {"params": params, "opt": opt_state}
+        if sharding.current_mesh() is not None:
+            st = gather(st)
+            if _rank() != 0:
+                return
+        if self.cfg.async_checkpoint:
+            self.checkpointer.save(self.cfg.checkpoint_dir, step, st,
+                                   {"data_step": step})
+        else:
+            ckpt.save(self.cfg.checkpoint_dir, step, st, {"data_step": step})
+
     # -- loop -----------------------------------------------------------
     def run(self) -> Dict[str, Any]:
         state = self.init_state()
         start_step, state = self._maybe_restore(state)
+        state = self._place(state)
         params, opt_state = state["params"], state["opt"]
         # the step is functional: a reference kept here would hold the
         # initial weights and moments for the whole run
@@ -89,8 +136,8 @@ class Trainer:
         t_start = time.time()
         for step in range(start_step, self.cfg.steps):
             t0 = time.time()
-            batch = batch_to_device(self.pipeline.batch_at(step),
-                                    self.model.cfg, self.device)
+            batch = self._place_batch(batch_to_device(
+                self.pipeline.batch_at(step), self.model.cfg, self.device))
             params, opt_state, metrics = self.step_fn(params, opt_state,
                                                       batch)
             loss = float(metrics["loss"])          # waits for the step
@@ -100,18 +147,12 @@ class Trainer:
             self.monitor.update({self.pipeline.cfg.host_index: dt})
             self.history.append({"step": step, "loss": loss, "time_s": dt,
                                  "grad_norm": gnorm})
-            if step % self.cfg.log_every == 0:
+            if step % self.cfg.log_every == 0 and _rank() == 0:
                 print(f"[trainer] step {step} loss {loss:.4f} "
                       f"gnorm {gnorm:.3f} {dt * 1e3:.0f} ms")
             if (self.cfg.checkpoint_dir
                     and (step + 1) % self.cfg.checkpoint_every == 0):
-                st = {"params": params, "opt": opt_state}
-                if self.cfg.async_checkpoint:
-                    self.checkpointer.save(self.cfg.checkpoint_dir, step + 1,
-                                           st, {"data_step": step + 1})
-                else:
-                    ckpt.save(self.cfg.checkpoint_dir, step + 1, st,
-                              {"data_step": step + 1})
+                self._checkpoint(step + 1, params, opt_state)
         self.checkpointer.wait()
         return {
             "losses": losses,
@@ -121,3 +162,8 @@ class Trainer:
             "params": params,
             "opt": opt_state,
         }
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0

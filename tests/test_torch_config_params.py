@@ -14,6 +14,7 @@ from repro import configs as jconfigs
 from repro.models import get_model as jget_model
 from repro_torch import configs as tconfigs
 from repro_torch.models.params import init_params, params_from_jax
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 # the archs the port runs, and all ten whose configs it mirrors
 ARCHS = ["granite-8b", "qwen2-0.5b", "falcon-mamba-7b", "granite-20b",

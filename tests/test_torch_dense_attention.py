@@ -32,6 +32,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import flash
 from repro_torch.models import attention as tattn
 from repro_torch.models.flash import _pairs_by_i, flash_attention_ref
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 KTOL = dict(rtol=2e-5, atol=2e-5)
 LTOL = dict(rtol=1e-5, atol=1e-5)

@@ -35,6 +35,7 @@ from repro_torch.models.model import get_model as tget_model
 from repro_torch.models.params import map_schema, params_from_jax
 from repro_torch.serve.engine import ServeConfig as TServeConfig
 from repro_torch.serve.engine import ServingEngine as TServingEngine
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)

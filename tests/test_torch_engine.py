@@ -30,6 +30,7 @@ from repro_torch.models.model import get_model as tget_model
 from repro_torch.models.params import params_from_jax
 from repro_torch.serve.engine import PagedEngine as TPagedEngine
 from repro_torch.serve.engine import ServeConfig as TServeConfig
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SERVE = dict(max_batch=3, max_seq=48, max_new_tokens=6, page_size=4,

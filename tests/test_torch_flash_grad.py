@@ -18,20 +18,10 @@ from repro.models.attention import attention as j_attention
 from repro.models.flash import flash_attention_ref as j_flash
 from repro_torch.models.attention import attention
 from repro_torch.models.flash import _flash_fwd, flash_attention_ref, flash_bwd
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 GRAD = dict(rtol=2e-4, atol=2e-4)
 FWD = dict(rtol=2e-5, atol=2e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tensors here are small, and on a machine
-    whose test workers share the cores more threads only oversubscribe
-    them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _qkv(B, S, T, H, KV, D, seed):

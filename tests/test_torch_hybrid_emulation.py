@@ -37,7 +37,7 @@ from repro_torch.models.flash import flash_attention_ref
 from repro_torch.models.model import get_model
 
 from test_torch_kernel_emulation import (  # noqa: F401  (fixtures)
-    TOL, _dense, cuda_path_on_cpu, emulated)
+    TOL, _dense, cuda_path_on_cpu, emulated, _one_thread)
 from test_torch_stream_scan_emulation import _check_trips
 
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)

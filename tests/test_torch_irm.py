@@ -25,6 +25,7 @@ from repro_torch.core import sass_counters as sc
 from repro_torch.kernels.stream import stream
 from repro_torch.launch import babelstream
 from repro_torch.launch import irm as launch_irm
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 REL = 1e-12

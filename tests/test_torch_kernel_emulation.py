@@ -29,13 +29,22 @@ table) and their combine, fragment layouts, online softmax, the dot
 reduction chain and its ragged tail, and the scan's lanes, strided B/C
 and ragged tiles before they reach the card; what
 nvcc accepts, and the kernels' speed, only ``chip_smoke.py`` on the card
-can show.  The stream, scan and trip-model cases are in
-``test_torch_stream_scan_emulation.py``, and other slices' geometries in
-``test_torch_{stub,hybrid}_emulation.py``: each imports this file's
-fixtures and runs on a worker of its own.
+can show.  This file holds the paged kernels' cases; the paged decode
+kernel's are in ``test_torch_paged_decode_emulation.py``, dense decode,
+flash and the attention routes in ``test_torch_dense_emulation.py``,
+the stream kernels in ``test_torch_stream_scan_emulation.py``, the scan
+in ``test_torch_scan_emulation.py``, the trip models in
+``test_torch_trip_model_emulation.py``, and other slices' geometries in
+``test_torch_{stub,hybrid,train,train_families,mesh}_emulation.py``:
+each imports this file's fixtures and runs on a worker of its own.  The
+library is built once per hash of its sources for the whole run
+(``build_emulated``), whichever file's worker asks first.
 """
 import contextlib
 import ctypes
+import fcntl
+import hashlib
+import os
 import re
 import shutil
 import subprocess
@@ -48,15 +57,13 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import decode, paged, prefill_paged
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_ref, paged_decode_attention_ref,
-    paged_prefill_attention_ref)
+    paged_decode_attention_ref, paged_prefill_attention_ref)
 from repro_torch.kernels.flash_attention import flash
 from repro_torch.kernels.ssm_scan import scan
 from repro_torch.models import attention as attention_mod
-from repro_torch.models.attention import repeat_kv
-from repro_torch.models.flash import flash_attention_ref
 from repro_torch.kernels.stream import stream
 from repro_torch.models.kv_quant import quantize_rows
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 CUDA_RUNTIME = r"""
 #pragma once
@@ -356,26 +363,58 @@ def _rewrite(src: str) -> str:
                   src)
 
 
+GXX_FLAGS = ("-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+             "-pthread")
+
+
+def _emulation_sources():
+    """{file name: text} of the library: the rewritten CUDA sources and
+    headers, the stub headers, the PTX stand-in and the probes."""
+    files = {"cuda_runtime.h": CUDA_RUNTIME, "cuda_bf16.h": CUDA_BF16}
+    for f in sorted(build.CSRC.glob("*.cu*")):
+        out = f.name.replace(".cu", ".cpp") if f.suffix == ".cu" else f.name
+        files[out] = _rewrite(f.read_text())
+    files["tc_ptx.cuh"] = TC_PTX                 # the PTX, emulated
+    files["mma_probe.cpp"] = _rewrite(MMA_PROBE)
+    files["emu_trips.cpp"] = EMU_TRIPS
+    return files
+
+
+def build_emulated(root, gxx: str):
+    """The emulated library, built once per hash of its sources and
+    flags under ``root`` and shared by every file and xdist worker of a
+    run: the first to take the lock builds it into a private directory
+    and renames it into place; the others wait and load it."""
+    files = _emulation_sources()
+    h = hashlib.sha256(repr((GXX_FLAGS, sorted(files.items()))).encode())
+    final = root / f"cuda_emu_{h.hexdigest()[:16]}"
+    lib = final / "libemu.so"
+    with open(root / f"{final.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            work = root / f"{final.name}.{os.getpid()}"
+            shutil.rmtree(work, ignore_errors=True)
+            work.mkdir()
+            for name, text in files.items():
+                (work / name).write_text(text)
+            subprocess.run([gxx, *GXX_FLAGS, f"-I{work}", "-o",
+                            str(work / "libemu.so"),
+                            *map(str, sorted(work.glob("*.cpp")))],
+                           check=True)
+            os.rename(work, final)
+    return ctypes.CDLL(str(lib))
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not installed: the CPU build of the CUDA sources "
                     "needs it")
-    d = tmp_path_factory.mktemp("cuda_emu")
-    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME)
-    (d / "cuda_bf16.h").write_text(CUDA_BF16)
-    for f in build.CSRC.glob("*.cu*"):
-        out = f.name.replace(".cu", ".cpp") if f.suffix == ".cu" else f.name
-        (d / out).write_text(_rewrite(f.read_text()))
-    (d / "tc_ptx.cuh").write_text(TC_PTX)         # the PTX, emulated
-    (d / "mma_probe.cpp").write_text(_rewrite(MMA_PROBE))
-    (d / "emu_trips.cpp").write_text(EMU_TRIPS)
-    lib = d / "libemu.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-pthread", f"-I{d}", "-o", str(lib),
-                    *map(str, sorted(d.glob("*.cpp")))], check=True)
-    return ctypes.CDLL(str(lib))
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent            # the run's directory, every worker's
+    return build_emulated(root, gxx)
 
 
 @pytest.fixture
@@ -619,125 +658,6 @@ def _paged_decode_case(seed, B, H, KV, D, page, NB, q_dtype, pool, lens):
             ks, vs)
 
 
-@pytest.mark.parametrize("q_dtype,pool", PAGED_POOLS,
-                         ids=lambda x: str(x).replace("torch.", ""))
-@pytest.mark.parametrize("G", [4, 7, 48])
-def test_emulated_paged_decode_across_splits_and_pages(G, q_dtype, pool,
-                                                       cuda_path_on_cpu):
-    """B x KV = 12 leaves 22 splits of a 40-page table (page 4): kv_len
-    of one token, one page, one page and a token, 100 (25 live pages, one
-    or two a piece, pieces 13-21 empty) and the full table (two pages a
-    piece), against the plain version; a slot with kv_len == 0 gives
-    exact zeros.  G = 4 (granite-8b), 7 (qwen2-0.5b) and 48 (granite-20b:
-    three row tiles of 16, each reading the piece again)."""
-    B, KV, D, page, NB = 6, 2, 32, 4, 40
-    assert paged.splits(NB, B, KV) == 22
-    lens = [1, page, page + 1, 100, NB * page, 0]
-    q, kp, vp, tbl, kv_len, ks, vs = _paged_decode_case(
-        G + len(pool), B, G * KV, KV, D, page, NB, q_dtype, pool, lens)
-    tol = TOL[q_dtype]
-    n0 = paged.KERNEL.launches
-    got = paged.paged_decode_attention(q, kp, vp, tbl, kv_len, 1,
-                                       k_scale=ks, v_scale=vs)
-    want = paged_decode_attention_ref(q, kp, vp, tbl, kv_len, 1, ks, vs)
-    assert got.dtype == q_dtype and (got[-1] == 0).all()
-    torch.testing.assert_close(got[:-1].float(), want[:-1].float(),
-                               rtol=tol, atol=tol)
-    assert paged.KERNEL.launches == n0 + 1
-
-
-@pytest.mark.parametrize("q_dtype,pool", PAGED_POOLS,
-                         ids=lambda x: str(x).replace("torch.", ""))
-def test_emulated_paged_kernels_on_aliased_tables(q_dtype, pool,
-                                                  cuda_path_on_cpu):
-    """Prefix sharing maps one physical page into several tables: slot 1's
-    first 3 pages are slot 0's, and slot 2's first page is too.  Decode at
-    kv_len off the page edges and a prefill chunk from a base that is not
-    a page multiple (a sharer's first chunk after a mid-page share) read
-    the aliased pages as the plain version does."""
-    B, H, KV, D, page, NB, T = 3, 8, 2, 32, 4, 6, 5
-    q, kp, vp, tbl, _, _, _, ks, vs = _case(
-        17 + len(pool), B, T, H, KV, D, page, NB, 2,
-        torch.float32 if pool == "int8" else q_dtype, pool == "int8")
-    q = q.to(q_dtype)
-    tbl[1, :3] = tbl[0, :3]
-    tbl[2, :1] = tbl[0, :1]
-    tol = TOL[q_dtype]
-    kv_len = torch.tensor([13, 14, 7], dtype=torch.int32)
-    got = paged.paged_decode_attention(q[:, :1].contiguous(), kp, vp, tbl,
-                                       kv_len, 1, k_scale=ks, v_scale=vs)
-    want = paged_decode_attention_ref(q[:, :1], kp, vp, tbl, kv_len, 1, ks,
-                                      vs)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    base = torch.tensor([10, 10, 2], dtype=torch.int32)
-    new = base + torch.tensor([T, 3, T], dtype=torch.int32)
-    got = prefill_paged.paged_prefill_attention(
-        q, kp, vp, tbl, base, new, 1, k_scale=ks, v_scale=vs)
-    want = paged_prefill_attention_ref(q, kp, vp, tbl, base, new, 1, ks, vs)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_emulated_paged_decode_online_softmax_across_tiles(dtype,
-                                                           cuda_path_on_cpu):
-    """B x KV = 33 leaves 8 splits of a 56-page table (page 16): the full
-    table gives pieces of 7 pages, four 32-position tiles that straddle
-    pages, so the online softmax carries m, l and acc across tiles and
-    the 3-stage cp.async ring reuses its stages; 600 tokens give pieces
-    of 5 pages and a shorter last one, and 37 tokens leave pieces 3-7
-    empty."""
-    B, H, KV, D, page, NB = 3, 44, 11, 16, 16, 56
-    assert paged.splits(NB, B, KV) == 8
-    q, kp, vp, tbl, kv_len, _, _ = _paged_decode_case(
-        57, B, H, KV, D, page, NB, dtype, "f32" if dtype == torch.float32
-        else "bf16", [NB * page, 600, 37])
-    got = paged.paged_decode_attention(q, kp, vp, tbl, kv_len)
-    want = paged_decode_attention_ref(q, kp, vp, tbl, kv_len)
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
-
-
-def test_emulated_paged_decode_splits_follow_static_shapes(
-        cuda_path_on_cpu, monkeypatch):
-    """The split count and the scratch the wrapper hands the kernel depend
-    on (NB, B, KV) only: every kv_len, from all zeros to the full table,
-    launches the same grid."""
-    calls = []
-    monkeypatch.setattr(paged.KERNEL, "_fn",
-                        lambda *a: calls.append(a) or 0)
-    B, H, KV, D, page, NB = 4, 32, 8, 16, 16, 22
-    for lens in ([0] * B, [1, 80, 316, 200], [NB * page] * B):
-        q, kp, vp, tbl, kv_len, _, _ = _paged_decode_case(
-            3, B, H, KV, D, page, NB, torch.float32, "f32", lens)
-        paged.paged_decode_attention(q, kp, vp, tbl, kv_len)
-    assert paged.splits(NB, B, KV) == 8
-    assert {a[17] for a in calls} == {8}             # the splits argument
-    assert paged.block_smem_bytes("decode", torch.bfloat16, torch.bfloat16,
-                                  128, 16, 4) == \
-        paged.block_smem_bytes("decode", torch.bfloat16, torch.bfloat16,
-                               128, 1, 4)
-
-
-def test_emulated_paged_decode_refuses_misaligned_pool(cuda_path_on_cpu):
-    """The kernel copies K and V rows 16 bytes at a time: a pool view 4
-    bytes past a 16-byte boundary is refused, not read another way, and
-    the same values in an aligned pool go through."""
-    q, kp, vp, tbl, kv_len, _, _ = _paged_decode_case(
-        5, 2, 4, 2, 16, 4, 3, torch.float32, "f32", [5, 12])
-    shifted = torch.zeros(kp.numel() + 1)[1:].view(kp.shape)
-    shifted.copy_(kp)
-    n0 = paged.KERNEL.launches
-    for k, v in ((shifted, vp), (kp, shifted)):
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            paged.paged_decode_attention(q, k, v, tbl, kv_len)
-    assert paged.KERNEL.launches == n0
-    torch.testing.assert_close(
-        paged.paged_decode_attention(q, shifted.clone(), vp, tbl, kv_len),
-        paged_decode_attention_ref(q, kp, vp, tbl, kv_len),
-        rtol=2e-5, atol=2e-5)
-
-
 def _dense(seed, B, S, T, H, KV, D, dtype):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dtype)
@@ -753,91 +673,6 @@ DECODE_CASES = [(2, 24, 4, 2, 16, torch.float32),
                 (2, 9, 4, 4, 16, torch.float32),
                 (2, 40, 48, 1, 128, torch.bfloat16),
                 (2, 20, 24, 8, 128, torch.bfloat16)]
-
-
-@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(
-    str(x).replace("torch.", "") for x in c))
-def test_emulated_decode_attention_matches_plain(case, cuda_path_on_cpu):
-    """A scalar kv_len below T and kv_start > 0 in every slot but the
-    first; then no kv_start at all; then an empty window (kv_start >=
-    kv_len) in slot 1, which the kernel gives as exact zeros."""
-    B, T, H, KV, D, dtype = case
-    q, k, v = _dense(T + H, B, 1, T, H, KV, D, dtype)
-    tol = TOL[dtype]
-    kv_len = torch.tensor(T - 3, dtype=torch.int32)
-    start = torch.tensor([0] + [1 + 5 * b % (T - 4) for b in range(1, B)],
-                         dtype=torch.int32)           # all below kv_len
-    n0 = decode.KERNEL.launches
-    for s in (start, None):
-        got = decode.decode_attention(q, k, v, kv_len, s)
-        want = decode_attention_ref(q, k, v, kv_len, s)
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol)
-    empty = start.clone()
-    empty[1] = T - 3
-    got = decode.decode_attention(q, k, v, kv_len, empty)
-    want = decode_attention_ref(q, k, v, kv_len, empty)
-    assert (got[1] == 0).all()
-    keep = torch.arange(B) != 1
-    torch.testing.assert_close(got[keep].float(), want[keep].float(),
-                               rtol=tol, atol=tol)
-    assert decode.KERNEL.launches == n0 + 3
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_emulated_decode_attention_across_splits(dtype, cuda_path_on_cpu):
-    """A cache of 300 rows over 10 splits per kv head, each a whole number
-    of 32-position tiles of the slot's window: a full window (the last
-    piece 2 rows), kv_start = 37 (the pieces start inside a cache tile),
-    a window of 40 (pieces 2-9 empty while the window is not) and one of
-    a single row; then slot 3's window empty, which the kernel gives as
-    exact zeros.  The same tolerances as the single-split cases."""
-    B, T, H, KV, D = 4, 300, 8, 2, 32
-    assert decode.splits(T, B, KV) == 10
-    q, k, v = _dense(T, B, 1, T, H, KV, D, dtype)
-    tol = TOL[dtype]
-    kv_len = torch.tensor(290, dtype=torch.int32)
-    start = torch.tensor([0, 37, 250, 289], dtype=torch.int32)
-    n0 = decode.KERNEL.launches
-    got = decode.decode_attention(q, k, v, kv_len, start)
-    want = decode_attention_ref(q, k, v, kv_len, start)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    start[3] = 290
-    got = decode.decode_attention(q, k, v, kv_len, start)
-    want = decode_attention_ref(q, k, v, kv_len, start)
-    assert (got[3] == 0).all()
-    torch.testing.assert_close(got[:3].float(), want[:3].float(), rtol=tol,
-                               atol=tol)
-    assert decode.KERNEL.launches == n0 + 2
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_emulated_decode_online_softmax_across_tiles(dtype,
-                                                     cuda_path_on_cpu):
-    """B x KV = 33 leaves 8 splits, so a 1090-row window gives pieces of
-    five 32-position tiles: the online softmax carries m, l and acc
-    across tiles and the 3-stage cp.async ring reuses its stages; slot 1
-    starts mid-tile, slot 2's window is a single tile."""
-    B, T, H, KV, D = 3, 1100, 11, 11, 16
-    assert decode.splits(T, B, KV) == 8
-    q, k, v = _dense(T + 1, B, 1, T, H, KV, D, dtype)
-    kv_len = torch.tensor(1090, dtype=torch.int32)
-    start = torch.tensor([0, 45, 1070], dtype=torch.int32)
-    got = decode.decode_attention(q, k, v, kv_len, start)
-    want = decode_attention_ref(q, k, v, kv_len, start)
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
-
-
-def test_emulated_decode_refuses_misaligned_cache(cuda_path_on_cpu):
-    """The kernel copies K and V 16 bytes at a time: a cache view 4 bytes
-    past a 16-byte boundary is refused, not read another way."""
-    q, k, v = _dense(3, 2, 1, 8, 4, 2, 16, torch.float32)
-    shifted = torch.zeros(k.numel() + 1)[1:].view(k.shape)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        decode.decode_attention(q, shifted, v, 8)
 
 
 # (B, S, T, H, KV, D, causal, dtype): a ragged causal S with GQA; two
@@ -859,120 +694,3 @@ FLASH_CASES += [(2, 100, 100, 4, 2, 32, True, torch.bfloat16),
 # granite-20b (G = 48 over one KV head) and phi4-mini (G = 3) at D = 128
 FLASH_CASES += [(1, 20, 20, 48, 1, 128, True, torch.bfloat16),
                 (1, 33, 33, 24, 8, 128, True, torch.bfloat16)]
-
-
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
-    str(x).replace("torch.", "") for x in c))
-def test_emulated_flash_attention_matches_plain(case, cuda_path_on_cpu):
-    """k and v unrepeated (KV dividing H); the plain version runs on them
-    repeated to H heads."""
-    B, S, T, H, KV, D, causal, dtype = case
-    q, k, v = _dense(S + T + D, B, S, T, H, KV, D, dtype)
-    tol = TOL[dtype]
-    n0 = flash.KERNEL.launches
-    got = flash.flash_attention(q, k, v, causal=causal)
-    want = flash_attention_ref(q, repeat_kv(k, H), repeat_kv(v, H), causal,
-                               S, T)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    assert flash.KERNEL.launches == n0 + 1
-
-
-def test_emulated_attention_route_takes_what_the_reference_serves(
-        cuda_path_on_cpu):
-    """``attention()`` on the kernel route at S = T = 600 (chunks of 1024:
-    the reference's direct attention; 512 does not divide 600, so the JAX
-    Pallas wrapper's contract refuses it) and at S = T = 608 over chunks
-    of 32 (the reduced configs: the chunked reference, which 512 does not
-    divide either) through the emulated flash kernel, against the
-    reference dispatch, f32 within 2e-5.  The public wrapper keeps the
-    512-block contract, and a shape both dispatches refuse still raises,
-    with no launch."""
-    n0 = flash.KERNEL.launches
-    for S, chunk in ((600, 1024), (608, 32)):
-        q, k, v = _dense(S, 1, S, S, 4, 2, 16, torch.float32)
-        got = attention_mod.attention(q, k, v, True, chunk, chunk)
-        want = attention_mod.attention(q, k, v, True, chunk, chunk,
-                                       plain=True)
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-        if S == 600:
-            torch.testing.assert_close(
-                got, attention_mod.direct_attention(q, k, v, True),
-                rtol=2e-5, atol=2e-5)
-        with pytest.raises(ValueError, match="divide"):
-            flash.flash_attention(q, k, v)
-    assert flash.KERNEL.launches == n0 + 2
-    q, k, v = _dense(7, 1, 40, 40, 2, 2, 16, torch.float32)
-    for plain in (False, True):          # 32 * 32 < 40 * 40, 32 !| 40
-        with pytest.raises(AssertionError):
-            attention_mod.attention(q, k, v, True, 32, 32, plain=plain)
-    assert flash.KERNEL.launches == n0 + 2
-
-
-def test_emulated_moe_prefill_takes_the_pallas_routes_drops(
-        cuda_path_on_cpu):
-    """The MoE's capacity counts every row of a call, idle slots' among
-    them, and an idle prefill slot's attention is exact zeros on the
-    kernels (Pallas and CUDA) but a uniform softmax over its table's
-    pages in both references.  llama4-scout reduced in f32 (E 4, top-1,
-    capacity int(1.25 * 24 / 4) = 7 of 24 rows): one ``lm_prefill_paged``
-    over pools holding earlier rows, slot 0 idle and first by index,
-    slot 1 granted 8 rows from 0, slot 2 3 rows from 5 (5 pad rows).
-    The port's kernel route (the emulated CUDA kernels) is within 1e-4 of
-    the JAX package's ``attention_impl="pallas"`` route (interpret mode)
-    on the live slots' logits and pools, and both kernel routes differ
-    from both references (the JAX ``"reference"`` route and the port's
-    plain route, within 1e-4 of each other) on a real slot by far more:
-    the idle rows route differently and take other real rows'
-    capacity."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    from repro import configs as jconfigs
-    from repro.models import get_model as jget_model
-    from repro_torch import configs as tconfigs
-    from repro_torch.models.model import get_model as tget_model
-    from repro_torch.models.params import params_from_jax
-
-    arch = "llama4-scout-17b-a16e"
-    jcfg = dataclasses.replace(jconfigs.get(arch).reduced(), dtype="float32")
-    tcfg = dataclasses.replace(tconfigs.get(arch).reduced(), dtype="float32")
-    jp = jget_model(jcfg).init(jax.random.key(1))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
-    B, T, page, NB = 3, 8, 4, 8
-    P = B * NB + 1
-    rng = np.random.RandomState(0)
-    shape = (tcfg.n_layers, P, page, tcfg.n_kv_heads, tcfg.head_dim)
-    pools = {n: rng.randn(*shape).astype(np.float32) for n in ("k", "v")}
-    table = np.arange(B * NB, dtype=np.int32)[::-1].reshape(B, NB) + 1
-    length = np.array([0, 0, 5], np.int32)
-    toks = rng.randint(0, tcfg.vocab_size, (B, T)).astype(np.int32)
-    grants = np.array([0, 8, 3], np.int32)
-    live = grants > 0
-    out = {}
-    for impl in ("pallas", "reference"):
-        jm = jget_model(dataclasses.replace(jcfg, attention_impl=impl))
-        jc = dict(jm.init_paged_cache(B, NB, page, P),
-                  table=jnp.asarray(table), length=jnp.asarray(length),
-                  **{n: jnp.asarray(a) for n, a in pools.items()})
-        logits, jc = jm.prefill_step_paged(jp, jnp.asarray(toks), jc,
-                                           jnp.asarray(grants))
-        out["jax " + impl] = (np.asarray(logits)[live],
-                              np.asarray(jc["k"])[:, 1:])
-    n0 = prefill_paged.KERNEL.launches
-    for name, plain in (("port kernel", False), ("port plain", True)):
-        tc = tget_model(tcfg, plain).init_paged_cache(B, NB, page, P, "cpu")
-        tc.update(table=torch.from_numpy(table.copy()),
-                  length=torch.from_numpy(length.copy()),
-                  **{n: torch.from_numpy(a.copy()) for n, a in pools.items()})
-        logits, tc = tget_model(tcfg, plain).prefill_step_paged(
-            tp, torch.from_numpy(toks), tc, torch.from_numpy(grants))
-        out[name] = (logits.numpy()[live], tc["k"][:, 1:].numpy())
-    assert prefill_paged.KERNEL.launches == n0 + tcfg.n_layers
-    for got, want in (("port kernel", "jax pallas"),
-                      ("port plain", "jax reference")):
-        for a, b in zip(out[got], out[want]):
-            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
-    gap = np.abs(out["jax pallas"][0] - out["jax reference"][0]).max(-1)
-    assert gap.max() > 0.05, gap

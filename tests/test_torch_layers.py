@@ -13,6 +13,7 @@ from repro.models import layers as jl
 from repro_torch.models import attention as tattn
 from repro_torch.models import kv_quant as tq
 from repro_torch.models import layers as tl
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -19,20 +19,10 @@ from repro.models.losses import fused_unembed_xent as j_xent
 from repro.models.model import cross_entropy as j_ce
 from repro_torch.models.losses import chunk_size, fused_unembed_xent
 from repro_torch.models.model import cross_entropy
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 VALUE = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tensors here are small, and on a machine
-    whose test workers share the cores more threads only oversubscribe
-    them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(B, S, d, V, seed, dtype=np.float32):

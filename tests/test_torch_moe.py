@@ -41,6 +41,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tT
 from repro_torch.models.model import get_model as tget_model
 from repro_torch.models.params import init_params, map_schema, params_from_jax
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 LLAMA4, GROK = "llama4-scout-17b-a16e", "grok-1-314b"
 MOE_CFGS = {"llama4": (LLAMA4, {}), "grok": (GROK, {}),

@@ -38,6 +38,7 @@ from repro_torch.serve.engine import ServingEngine as TServingEngine
 from test_torch_moe import GROK, LLAMA4, _models
 from test_torch_overload import _engines, _finish, _step_both, _submit_both
 from test_torch_speculative import _lockstep as _spec_lockstep
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 ARCHS = [LLAMA4, GROK]

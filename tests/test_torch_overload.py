@@ -45,6 +45,7 @@ from repro_torch.serve.scheduler import PREEMPT_POLICIES
 from repro_torch.serve.scheduler import TickScheduler as TTickScheduler
 
 from test_paged_cache_props import _assert_drained_clean, _check_tick
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 BUDGETS = (3, 5)

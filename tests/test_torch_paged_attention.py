@@ -29,6 +29,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import paged, prefill_paged
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, paged_prefill_attention_ref)
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

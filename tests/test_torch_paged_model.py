@@ -22,6 +22,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.models.model import get_model as tget_model
 from repro_torch.models.model import sample_token
 from repro_torch.models.params import params_from_jax
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, T, PAGE, NB = 2, 8, 4, 6

@@ -36,6 +36,7 @@ from test_torch_overload import (_engines, _finish, _models, _rand,
                                  _step_both, _submit_both)
 from test_torch_paged_model import B, _caches, _pools_close
 from test_torch_paged_model import _models as _step_models
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 STEPS = 5

@@ -21,6 +21,7 @@ from repro_torch.launch import irm
 from test_torch_sass_listings import (
     PAGED_DECODE_BF16, PAGED_DECODE_BF16_NAME, SCAN_BF16, SCAN_BF16_NAME,
     parse)
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 
 def loops(*specs):

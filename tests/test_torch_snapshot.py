@@ -60,6 +60,7 @@ from test_paged_cache_props import _assert_drained_clean, _check_tick
 from test_snapshot_props import BUDGETS, _make_items, _run_schedule
 from test_torch_overload import _models
 from test_torch_speculative import _drafts
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 POOL_TOL = 1e-5                  # rtol = atol: f32 K/V of the two packages

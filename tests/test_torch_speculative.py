@@ -46,6 +46,7 @@ from repro_torch.serve.engine import ServeConfig as TServeConfig
 
 from test_paged_cache_props import _check_tick
 from test_torch_overload import SLOT_FIELDS, _models, _plans
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SPEC_COUNTERS = ("spec_proposed", "spec_accepted", "spec_trunc_tokens",

@@ -32,6 +32,7 @@ from repro_torch.kernels.ssm_scan import scan as tscan
 from repro_torch.models import ssm as tssm
 from repro_torch.models.params import params_from_jax
 from repro_torch.models.transformer import layer_params
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 SCAN_TOL = dict(rtol=2e-5, atol=2e-5)
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -40,6 +40,7 @@ from repro_torch.models.params import init_params, map_schema, \
 from repro_torch.serve.engine import PagedEngine as TPagedEngine
 from repro_torch.serve.engine import ServeConfig as TServeConfig
 from repro_torch.serve.engine import ServingEngine as TServingEngine
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)

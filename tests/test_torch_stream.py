@@ -33,6 +33,7 @@ from repro.kernels.stream import ref as jref
 from repro.kernels.stream import stream as jstream
 from repro_torch.kernels.stream import ref, stream
 from repro_torch.launch import babelstream
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 # tests/test_stream_kernels.py's shapes, and an odd one (3 rows of 1000)

@@ -1,23 +1,17 @@
-"""The stream kernels, the Mamba1 selective scan and the trip models,
-each CUDA source compiled for the CPU and run as
-``test_torch_kernel_emulation`` runs it (its fixtures and cases: g++
-against the stand-in CUDA headers, a block's threads as
-``std::thread``s), held against the plain versions.
+"""The stream kernels, each CUDA source compiled for the CPU and run as
+``test_torch_kernel_emulation`` runs it (its fixtures: g++ against the
+stand-in CUDA headers, a block's threads as ``std::thread``s), held
+against the plain versions: BabelStream's copy, mul, add, triad and
+dot, bit identity for the elementwise four (in place and with ``out=``
+each input), dot's ragged tails, the 16-byte vector layout at other
+block shapes (``map_vec``), and every kernel's refusal of a view off a
+16-byte boundary.
 
-  * BabelStream's copy, mul, add, triad and dot: bit identity for the
-    elementwise four (in place and with ``out=`` each input), dot's
-    ragged tails, the 16-byte vector layout at other block shapes
-    (``map_vec``), and every kernel's refusal of a view off a 16-byte
-    boundary.
-  * The selective scan at 1, 2 and 4 lanes a channel, over ragged tiles,
-    and its plain-load path for misaligned rows.
-  * The trip models (``kernels/trips.py``) against each emulated
-    kernel's own ``REPRO_TRIP`` counts, per warp: paged decode and
-    prefill, dense decode, flash and the scan.
-
-These sections were ``test_torch_kernel_emulation.py``'s last; they live
-in a file of their own so that the test runner's ``--dist loadfile``
-can give them a worker of their own.
+The selective scan's cases and the trip-model helpers live here too;
+their tests are in ``test_torch_scan_emulation.py`` and
+``test_torch_trip_model_emulation.py``, each on a worker of its own
+under ``--dist loadfile``.  These sections were
+``test_torch_kernel_emulation.py``'s last.
 """
 import ctypes
 import shutil
@@ -28,16 +22,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import decode, paged, prefill_paged
-from repro_torch.kernels.flash_attention import flash
 from repro_torch.kernels.ssm_scan import scan
 from repro_torch.kernels.stream import ref as stream_ref
 from repro_torch.kernels.stream import stream
 from repro_torch.models.ssm import mamba1_scan
 
 from test_torch_kernel_emulation import (  # noqa: F401  (fixtures)
-    CASES, CUDA_BF16, CUDA_RUNTIME, DECODE_CASES, FLASH_CASES, PAGED_POOLS,
-    _case, _dense, _paged_decode_case, _rewrite, cuda_path_on_cpu,
+    CUDA_BF16, CUDA_RUNTIME, _one_thread, _rewrite, cuda_path_on_cpu,
     emulated)
 
 
@@ -352,70 +343,6 @@ SCAN_LANE_CASES = [(2, 150, 72, 16, torch.float32, 1, True),
                    (1, 130, 48, 8, torch.float32, 4, True)]
 
 
-@pytest.mark.parametrize("case", SCAN_LANE_CASES, ids=lambda c: "-".join(
-    str(x).replace("torch.", "") for x in c))
-def test_emulated_selective_scan_lanes_and_tiles(case, cuda_path_on_cpu,
-                                                monkeypatch):
-    """Each channel's state split over 1, 2 and 4 lanes, y's sum over them
-    by __shfl_xor_sync; S not a multiple of the tile and d_in not a
-    multiple of the block; x and dt tiles by 16-byte cp.async or plain
-    loads; strided and contiguous B/C; the same tolerances."""
-    B, S, d_in, N, dtype, lanes, vec = case
-    monkeypatch.setattr(scan, "LANES", lanes)
-    x, dt, A, Bc, Cc = _scan_inputs(np.random.default_rng(S + d_in), B, S,
-                                    d_in, N, dtype)
-    assert scan.copies_16_bytes(x, dt) == vec
-    assert _check_scan(x, dt, A, Bc, Cc) == 2
-
-
-def test_emulated_selective_scan_misaligned_rows_take_plain_loads(
-        cuda_path_on_cpu, monkeypatch):
-    """x 4 bytes past a 16-byte boundary: its tiles cannot be copied 16
-    bytes at a time, so the kernel reads them with plain loads and gives
-    the same result; a lane count the kernel is not built for is refused
-    by the C entry, and nothing launches."""
-    x, dt, A, Bc, Cc = _scan_inputs(np.random.default_rng(6), 2, 40, 64, 16,
-                                    torch.float32)
-    shifted = torch.zeros(x.numel() + 1)[1:].view(x.shape)
-    shifted.copy_(x)
-    assert scan.copies_16_bytes(x, dt) and \
-        not scan.copies_16_bytes(shifted, dt)
-    assert _check_scan(shifted, dt, A, Bc, Cc) == 2
-    monkeypatch.setattr(scan, "LANES", 3)
-    n0 = scan.KERNEL.launches
-    with pytest.raises(RuntimeError, match="launch failed"):
-        scan.selective_scan(x, dt, A, Bc, Cc)
-    assert scan.KERNEL.launches == n0
-
-
-@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "-".join(
-    str(x).replace("torch.", "") for x in c))
-def test_emulated_selective_scan_matches_plain(case, cuda_path_on_cpu):
-    """B and C as strided column slices of one (B, S, 4 + 2N) tensor, as
-    the model passes them, and once made contiguous."""
-    B, S, d_in, N, dtype = case
-    rng = np.random.default_rng(S + d_in + N)
-    x = torch.from_numpy(rng.standard_normal((B, S, d_in), np.float32))
-    dt = torch.nn.functional.softplus(torch.from_numpy(
-        rng.standard_normal((B, S, d_in), np.float32)) * 0.5 - 1.0)
-    A = -torch.exp(torch.from_numpy(rng.standard_normal((d_in, N),
-                                                        np.float32)) * 0.3)
-    dbc = torch.from_numpy(rng.standard_normal((B, S, 4 + 2 * N),
-                                               np.float32)).to(dtype)
-    x, dt = x.to(dtype), dt.to(dtype)
-    Bc, Cc = dbc[..., 4:4 + N], dbc[..., 4 + N:]
-    rtol, atol = SCAN_TOL[dtype]
-    n0 = scan.KERNEL.launches
-    want_y, want_h = mamba1_scan(x, dt, A, Bc, Cc)
-    for b, c in ((Bc, Cc), (Bc.contiguous(), Cc.contiguous())):
-        y, h = scan.selective_scan(x, dt, A, b, c)
-        assert y.dtype == dtype and h.dtype == torch.float32
-        torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol,
-                                   atol=atol)
-        torch.testing.assert_close(h, want_h, rtol=2e-5, atol=2e-5)
-    assert scan.KERNEL.launches == n0 + 2
-
-
 # ---------------------------------------------------------------------------
 # The trip models (kernels/trips.py) against the emulated kernels' own
 # counts: every marked loop's REPRO_TRIP, per thread, reduced to each warp
@@ -464,84 +391,3 @@ def _check_trips(lib, launches, call):
             assert (emu == want).all(), (la.function, m, emu.tolist(),
                                          want.tolist())
     assert got, "no marked loop ran"
-
-
-@pytest.mark.parametrize("q_dtype,pool", PAGED_POOLS,
-                         ids=lambda x: str(x).replace("torch.", ""))
-@pytest.mark.parametrize("G", [4, 48])
-def test_trip_model_of_paged_decode(G, q_dtype, pool, emulated,
-                                    cuda_path_on_cpu):
-    """22 splits of a 40-page table (page 4): kv_len 0, one token, one
-    page, one page and a token, 100 (pieces ending mid-page, pieces 13-21
-    empty) and the full table; G = 48 walks three row tiles; int8 pools
-    copy their scales."""
-    B, KV, D, page, NB = 6, 2, 32, 4, 40
-    lens = [1, page, page + 1, 100, NB * page, 0]
-    q, kp, vp, tbl, kv_len, ks, vs = _paged_decode_case(
-        G + len(pool), B, G * KV, KV, D, page, NB, q_dtype, pool, lens)
-    model = paged.trip_model(B, G * KV, KV, D, page, NB, lens, q_dtype,
-                             kp.dtype)
-    _check_trips(emulated, model, lambda: paged.paged_decode_attention(
-        q, kp, vp, tbl, kv_len, 1, k_scale=ks, v_scale=vs))
-
-
-@pytest.mark.parametrize("case", [c for c in DECODE_CASES if c[4] >= 32],
-                         ids=lambda c: "-".join(
-                             str(x).replace("torch.", "") for x in c))
-def test_trip_model_of_dense_decode(case, emulated, cuda_path_on_cpu):
-    """kv_len below T, a kv_start in every slot but the first and an empty
-    window in the last (kv_start >= kv_len)."""
-    B, T, H, KV, D, dtype = case
-    q, k, v = _dense(T + H, B, 1, T, H, KV, D, dtype)
-    kv_len = T - 3
-    start = [0] + [kv_len] * (B - 1) if B == 2 else [0, 5, kv_len]
-    model = decode.trip_model(B, T, H, KV, D, kv_len, start, dtype)
-    _check_trips(emulated, model, lambda: decode.decode_attention(
-        q, k, v, kv_len, torch.tensor(start, dtype=torch.int32)))
-
-
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(
-    str(x).replace("torch.", "") for x in c))
-def test_trip_model_of_paged_prefill(case, emulated, cuda_path_on_cpu):
-    """bf16 q on the tensor-core body, f32 q on the CUDA-core one: causal
-    from random, unaligned bases, an empty slot, G up to 48 over several
-    row tiles, single-row pages, int8 pools."""
-    *geom, dtype, int8 = case
-    B, T, H, KV, D, page, NB, L = geom
-    q, kp, vp, tbl, base, new, layer, ks, vs = _case(sum(geom), *geom,
-                                                     dtype, int8, empty=True)
-    model = prefill_paged.trip_model(B, T, H, KV, D, page, NB,
-                                     base.tolist(), new.tolist(), kp.dtype,
-                                     q.dtype)
-    _check_trips(emulated, model, lambda: prefill_paged.
-                 paged_prefill_attention(q, kp, vp, tbl, base, new, layer,
-                                         k_scale=ks, v_scale=vs))
-
-
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
-    str(x).replace("torch.", "") for x in c))
-def test_trip_model_of_flash(case, emulated, cuda_path_on_cpu):
-    """bf16 on the tensor-core body, f32 on the CUDA-core one; causal and
-    not, S != T both ways."""
-    B, S, T, H, KV, D, causal, dtype = case
-    q, k, v = _dense(S + T + D, B, S, T, H, KV, D, dtype)
-    model = flash.trip_model(B, S, T, H, KV, D, causal, dtype)
-    _check_trips(emulated, model, lambda: flash.launch(q, k, v, causal))
-
-
-@pytest.mark.parametrize("case", SCAN_LANE_CASES + [
-    c + (scan.LANES, (c[2] * (2 if c[4] == torch.bfloat16 else 4)) % 16
-         == 0) for c in SCAN_CASES], ids=lambda c: "-".join(
-             str(x).replace("torch.", "") for x in c))
-def test_trip_model_of_the_scan(case, emulated, cuda_path_on_cpu,
-                                monkeypatch):
-    """The ragged last tile (S not a multiple of 32), 1, 2 and 4 lanes,
-    16-byte tiles and plain loads."""
-    B, S, d_in, N, dtype, lanes, vec = case
-    monkeypatch.setattr(scan, "LANES", lanes)
-    x, dt, A, Bc, Cc = _scan_inputs(np.random.default_rng(S + d_in), B, S,
-                                    d_in, N, dtype)
-    assert scan.copies_16_bytes(x, dt) == vec
-    model = scan.trip_model(B, S, d_in, N, dtype, lanes, vec)
-    _check_trips(emulated, model,
-                 lambda: scan.selective_scan(x, dt, A, Bc, Cc))

@@ -39,7 +39,7 @@ from repro_torch.models.flash import flash_attention_ref
 from repro_torch.models.model import get_model
 
 from test_torch_kernel_emulation import (  # noqa: F401  (fixtures)
-    TOL, _case, _dense, cuda_path_on_cpu, emulated)
+    TOL, _case, _dense, cuda_path_on_cpu, emulated, _one_thread)
 
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -29,7 +29,8 @@ values are of the size of lr.
 import dataclasses
 import io
 import os
-from contextlib import redirect_stdout
+import socket
+from contextlib import redirect_stderr, redirect_stdout
 
 import jax
 import jax.numpy as jnp
@@ -59,20 +60,10 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.straggler import StragglerConfig, StragglerMonitor
 from repro_torch.train.train_step import loss_and_grads, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 OPT = dict(rtol=1e-5, atol=1e-7)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tensors here are small, and on a machine
-    whose test workers share the cores more threads only oversubscribe
-    them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -511,5 +502,15 @@ def test_launcher_local_smoke_cpu(tmp_path):
     assert len(done) == 1
     first, last = (float(x) for x in done[0].split("loss ")[1].split(" -> "))
     assert np.isfinite([first, last]).all()
+    # the multi-host flags: --num-hosts needs --coordinator, and a world
+    # of one rank cannot form the 16 x 16 production mesh
     with pytest.raises(SystemExit):
-        launch.main(["--device", "cpu", "--coordinator", "localhost:1"])
+        launch.main(["--device", "cpu", "--num-hosts", "2"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    err = io.StringIO()
+    with redirect_stderr(err):
+        rc = launch.main(["--device", "cpu", "--coordinator",
+                          f"127.0.0.1:{port}"])
+    assert rc == 2 and "needs 256 ranks" in err.getvalue(), err.getvalue()

@@ -48,19 +48,9 @@ from repro_torch.train.train_step import loss_and_grads
 from test_torch_kernel_emulation import (  # noqa: F401  (fixtures)
     TOL, _case, _dense, cuda_path_on_cpu, emulated)
 from test_torch_stream_scan_emulation import _check_trips
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 L_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tensors here are small, and on a machine
-    whose test workers share the cores more threads only oversubscribe
-    them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ids(c):

@@ -66,22 +66,12 @@ from repro_torch.optim.adamw import AdamW, AdamWConfig, tree_leaves
 from repro_torch.train.train_step import loss_and_grads, make_train_step
 
 from test_torch_train import _close_leaves, _max_abs, _np
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ["llama4-scout-17b-a16e", "grok-1-314b", "qwen2-vl-72b",
          "whisper-large-v3", "falcon-mamba-7b", "zamba2-7b"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tensors here are small, and on a machine
-    whose test workers share the cores more threads only oversubscribe
-    them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _models(arch, seed=1, **kw):

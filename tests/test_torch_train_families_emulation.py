@@ -40,17 +40,7 @@ from repro_torch.train.train_step import loss_and_grads
 
 from test_torch_kernel_emulation import (  # noqa: F401  (fixtures)
     cuda_path_on_cpu, emulated)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tensors here are small, and on a machine
-    whose test workers share the cores more threads only oversubscribe
-    them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 
 def _scan_leaves(seed, B, S, d_in, N, dtype):

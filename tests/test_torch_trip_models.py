@@ -17,6 +17,7 @@ from repro_torch.kernels import trips
 from repro_torch.kernels.decode_attention import decode, paged, prefill_paged
 from repro_torch.kernels.flash_attention import flash
 from repro_torch.kernels.ssm_scan import scan
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("B,S,d_in,N", [(4, 454, 8192, 16), (2, 70, 128, 8),

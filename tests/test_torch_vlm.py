@@ -55,6 +55,7 @@ from repro_torch.serve.engine import ServeConfig as TServeConfig
 from repro_torch.serve.engine import ServingEngine as TServingEngine
 
 from test_torch_overload import _engines, _finish, _step_both, _submit_both
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 ARCH = "qwen2-vl-72b"

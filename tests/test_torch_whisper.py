@@ -52,6 +52,7 @@ from repro_torch.models.params import params_from_jax
 from repro_torch.serve.engine import PagedEngine as TPagedEngine
 from repro_torch.serve.engine import ServeConfig as TServeConfig
 from repro_torch.serve.engine import ServingEngine as TServingEngine
+from torch_one_thread import _one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 ARCH = "whisper-large-v3"
