@@ -366,8 +366,16 @@ Phases, each failing loudly (non-zero exit, no result line):
                launches a sharded step (forward and recompute, inside
                the attention island); the sharded losses and grad norms
                within TRAIN_RESUME_TOL of the unsharded ones (and
-               printed: bitwise equal or not).  Prints both runs' step
-               ms beside the card's name and power limit.
+               printed: bitwise equal or not).  Then falcon-mamba-7b at
+               its published widths (d_model 4096, d_in 8192, N 16;
+               bf16, remat per layer) at the train-families step shape
+               (4 layers, S 512, batch 4; weights from seed 1): the same
+               two runs on the same NCCL group, the same hard checks,
+               the selective scan exactly 2 x 4 launches a step in both
+               (forward and recompute; inside the scan island of
+               ``models/ssm.py`` when sharded).  Prints both archs' step
+               ms and the phase's seconds beside the card's name and
+               power limit.
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
                shapes that exercise the bounds guards, ragged last
@@ -5038,81 +5046,123 @@ def mesh_trainer():
                       device="cuda"))
 
 
+def mesh_mamba_trainer():
+    """falcon-mamba-7b at its published widths (bf16, remat per layer)
+    at the train-families phase's step shape (``FAM_MAMBA_STEPS``: 4
+    layers, S 512, batch 4), MESH_STEPS steps, weights from seed 1."""
+    import dataclasses
+
+    from repro_torch import configs
+    ls, S, B, _ = FAM_MAMBA_STEPS
+    cfg = dataclasses.replace(configs.get(FAM_MAMBA), remat="block",
+                              n_layers=ls)
+    return fam_trainer(cfg, S, B, 1, MESH_STEPS, seed=1)
+
+
+def mesh_held(tag, runs, kernel, want):
+    """Hard checks of one arch's two runs: ``want`` launches of
+    ``kernel`` every step of both, finite losses and grad norms within
+    TRAIN_RESUME_TOL of the unsharded ones.  Returns (step ms of each
+    run, bitwise equal or not)."""
+    (h0, n0), (h1, n1) = runs["unsharded"], runs["sharded"]
+    if n1 != [want] * MESH_STEPS or n0 != [want] * MESH_STEPS:
+        raise AssertionError(f"mesh: {tag}: {kernel.symbol} launches a step "
+                             f"{n1} sharded, {n0} unsharded, not {want} "
+                             f"(layers x forward and recompute)")
+    bitwise = True
+    for a, b in zip(h1, h0):
+        for k in ("loss", "grad_norm"):
+            if not math.isfinite(a[k]) or abs(a[k] - b[k]) > \
+                    TRAIN_RESUME_TOL * (1 + abs(b[k])):
+                raise AssertionError(f"mesh: {tag}: step {a['step']} {k} "
+                                     f"{a[k]} sharded, {b[k]} unsharded")
+            bitwise &= a[k] == b[k]
+    ms = {k: [h["time_s"] * 1e3 for h in hist]
+          for k, (hist, _) in runs.items()}
+    log(f"[mesh] {tag}: losses sharded {[h['loss'] for h in h1]}, "
+        f"unsharded {[h['loss'] for h in h0]}; grad norms "
+        f"{[h['grad_norm'] for h in h1]}, "
+        f"{[h['grad_norm'] for h in h0]}; bitwise equal: {bitwise}")
+    return ms, bitwise
+
+
 def mesh_phase(torch):
     """See the module docstring's ``mesh``."""
     import torch.distributed as dist
 
     from repro_torch.configs import SHAPES
     from repro_torch.dist.sharding import use_mesh
+    from repro_torch.kernels.flash_attention import flash
+    from repro_torch.kernels.ssm_scan import scan
     from repro_torch.launch.dryrun import rules_for
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train.elastic import gather, reshard
     t_phase = time.perf_counter()
-    cfg = train_config()
-    runs = {}
-    tr = mesh_trainer()
-    per_step = counted_steps(tr)
-    tr.run()
-    runs["unsharded"] = (tr.history, per_step)
-    del tr
-    torch.cuda.empty_cache()
+    cases = ((TRAIN_ARCH, mesh_trainer, flash.KERNEL,
+              2 * train_config().n_layers),
+             (FAM_MAMBA, mesh_mamba_trainer, scan.KERNEL,
+              2 * FAM_MAMBA_STEPS[0]))
+    runs = {arch: {} for arch, *_ in cases}
+    for arch, make, kernel, _ in cases:
+        tr = make()
+        per_step = counted_steps(tr, kernel)
+        tr.run()
+        runs[arch]["unsharded"] = (tr.history, per_step)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
         mesh = make_host_mesh(1)
-        tr = mesh_trainer()
-        rules = rules_for(tr.model, SHAPES["train_4k"], multi_pod=False)
-        with use_mesh(mesh, rules):
-            state = tr.init_state()
-            placed = reshard(state, tr.state_pspecs(rules), mesh)
-            leaves = tree_leaves(placed)
-            n_leaves = len(leaves)
-            sharded = sum(any(p.is_shard() for p in x.placements)
-                          for x in leaves)
-            same = all(torch.equal(a, b) for a, b in zip(
-                tree_leaves(state), tree_leaves(gather(placed))))
-            del state, placed, leaves
-            if not same:
-                raise AssertionError("mesh: full_tensor() of the placed "
-                                     "state differs from the unplaced state")
-            per_step = counted_steps(tr)
-            tr.run()
-            runs["sharded"] = (tr.history, per_step)
-        log(f"[mesh] {TRAIN_ARCH} on {mesh} under {rules}: {n_leaves} "
-            f"state leaves, {sharded} sharded on a size-1 axis; "
-            f"full_tensor() of the "
-            f"placed state equal to the unplaced state byte for byte")
-        del tr
+        for arch, make, kernel, _ in cases:
+            tr = make()
+            rules = rules_for(tr.model, SHAPES["train_4k"], multi_pod=False)
+            with use_mesh(mesh, rules):
+                state = tr.init_state()
+                placed = reshard(state, tr.state_pspecs(rules), mesh)
+                leaves = tree_leaves(placed)
+                n_leaves = len(leaves)
+                sharded = sum(any(p.is_shard() for p in x.placements)
+                              for x in leaves)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(state), tree_leaves(gather(placed))))
+                del state, placed, leaves
+                if not same:
+                    raise AssertionError(
+                        f"mesh: {arch}: full_tensor() of the placed state "
+                        f"differs from the unplaced state")
+                per_step = counted_steps(tr, kernel)
+                tr.run()
+                runs[arch]["sharded"] = (tr.history, per_step)
+            log(f"[mesh] {arch} on {mesh} under {rules}: {n_leaves} "
+                f"state leaves, {sharded} sharded on a size-1 axis; "
+                f"full_tensor() of the "
+                f"placed state equal to the unplaced state byte for byte")
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    torch.cuda.empty_cache()
-    want = 2 * cfg.n_layers
-    (h0, n0), (h1, n1) = runs["unsharded"], runs["sharded"]
-    if n1 != [want] * MESH_STEPS or n0 != [want] * MESH_STEPS:
-        raise AssertionError(f"mesh: flash launches a step {n1} sharded, "
-                             f"{n0} unsharded, not {want} (layers x forward "
-                             f"and recompute)")
-    bitwise = True
-    for a, b in zip(h1, h0):
-        for k in ("loss", "grad_norm"):
-            if not math.isfinite(a[k]) or abs(a[k] - b[k]) > \
-                    TRAIN_RESUME_TOL * (1 + abs(b[k])):
-                raise AssertionError(f"mesh: step {a['step']} {k} "
-                                     f"{a[k]} sharded, {b[k]} unsharded")
-            bitwise &= a[k] == b[k]
-    ms = {k: [h["time_s"] * 1e3 for h in hist]
-          for k, (hist, _) in runs.items()}
-    log(f"[mesh] losses sharded {[h['loss'] for h in h1]}, unsharded "
-        f"{[h['loss'] for h in h0]}; grad norms "
-        f"{[h['grad_norm'] for h in h1]}, "
-        f"{[h['grad_norm'] for h in h0]}; bitwise equal: {bitwise}")
-    log(f"[mesh] step ms sharded {[round(x, 1) for x in ms['sharded']]}, "
-        f"unsharded {[round(x, 1) for x in ms['unsharded']]} (S {TRAIN_S}, "
-        f"batch {MESH_B}, the first step with warm-up); flash {want} "
-        f"launches a step; phase {time.perf_counter() - t_phase:.1f} s; on "
+    out = {}
+    for arch, _, kernel, want in cases:
+        ms, bitwise = mesh_held(arch, runs[arch], kernel, want)
+        out[arch] = dict(launches_per_step=want, step_ms=ms, bitwise=bitwise)
+    q, m = out[TRAIN_ARCH], out[FAM_MAMBA]
+    ls, S, B, _ = FAM_MAMBA_STEPS
+    log(f"[mesh] step ms (the first step with warm-up): {TRAIN_ARCH} (S "
+        f"{TRAIN_S}, batch {MESH_B}) sharded "
+        f"{[round(x, 1) for x in q['step_ms']['sharded']]}, unsharded "
+        f"{[round(x, 1) for x in q['step_ms']['unsharded']]}, flash "
+        f"{q['launches_per_step']} launches a step; {FAM_MAMBA} ({ls} layers, "
+        f"S {S}, batch {B}) sharded "
+        f"{[round(x, 1) for x in m['step_ms']['sharded']]}, unsharded "
+        f"{[round(x, 1) for x in m['step_ms']['unsharded']]}, the selective "
+        f"scan {m['launches_per_step']} launches a step (inside its island "
+        f"when sharded); phase {time.perf_counter() - t_phase:.1f} s; on "
         f"{gpu_line()}")
-    return dict(launches_per_step=n1[0], step_ms=ms, bitwise=bitwise)
+    return dict(q, mamba=m)
 
 
 # ---------------------------------------------------------------------------
@@ -5918,7 +5968,8 @@ def main() -> int:
         "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES, "launches": ssm["launches"],
         "max_abs_err": ssm["err"], **ssm["timing"],
-        "train_launches": fam["mamba"]["launches_per_step"]})
+        "train_launches": fam["mamba"]["launches_per_step"],
+        "mesh_launches": mesh["mamba"]["launches_per_step"]})
     for name, line in STREAM_REPLACES.items():
         t = s_timing[name]
         kernels.append({
@@ -6005,12 +6056,17 @@ def main() -> int:
         + f"; peak {train['peak_gib']:.2f} GiB; loss {train['losses'][0]:.4f}"
         f" -> {train['losses'][-1]:.4f}; flash {train['launches_per_step']} "
         f"launches a step; on {gpu}")
+    mm = mesh["mamba"]
     log(f"[summary] mesh ({TRAIN_ARCH}, 24 layers, bf16, S {TRAIN_S}, batch "
         f"{MESH_B}, a (1, 1) NCCL mesh): step ms sharded "
         f"{mesh['step_ms']['sharded']}, unsharded "
         f"{mesh['step_ms']['unsharded']}; losses bitwise equal: "
         f"{mesh['bitwise']}; flash {mesh['launches_per_step']} launches a "
-        f"step; on {gpu}")
+        f"step.  {FAM_MAMBA} ({FAM_MAMBA_STEPS[0]} layers, S "
+        f"{FAM_MAMBA_STEPS[1]}, batch {FAM_MAMBA_STEPS[2]}): step ms sharded "
+        f"{mm['step_ms']['sharded']}, unsharded {mm['step_ms']['unsharded']};"
+        f" bitwise equal: {mm['bitwise']}; the scan "
+        f"{mm['launches_per_step']} launches a step; on {gpu}")
     w, m, h = fam["whisper"], fam["mamba"], fam["hybrid"]
     log(f"[summary] train-families: {FAM_WHISPER} (32 + 32 layers, bf16, S "
         f"{FAM_S}, batch {FAM_B} in {FAM_MICRO} microbatches) median step "

@@ -97,6 +97,10 @@ class ArchConfig:
         return self.kv_dtype == "int8"
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def sub_quadratic(self) -> bool:
         return self.family in ("ssm", "hybrid")
 

@@ -121,6 +121,24 @@ def refuse_grad(kind: str, *tensors: Optional[torch.Tensor]) -> None:
             f"torch.no_grad(), or take the plain route)")
 
 
+def refuse_dtensors(kind: str, *tensors) -> None:
+    """Raises TypeError on a DTensor: a kernel takes raw pointers of
+    local tensors, so under a device mesh it runs inside a
+    ``dist.sharding.island``, never on a DTensor."""
+    from repro_torch.dist.sharding import is_dtensor
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{kind}: a kernel wrapper takes local tensors, "
+                        f"not DTensors: under a device mesh call it inside "
+                        f"dist.sharding.island")
+
+
+def on_cpu(*tensors) -> bool:
+    """Do the tensors lie on the CPU (the plain version's route)?  A
+    DTensor is refused (``refuse_dtensors``)."""
+    refuse_dtensors("kernel wrapper", *tensors)
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
 class Kernel:
     """One C entry point of the library, with a count of its launches.
 

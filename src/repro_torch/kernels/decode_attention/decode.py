@@ -23,10 +23,11 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
+from repro_torch.kernels.build import (
+    DTYPE_CODES, Kernel, on_cpu, refuse_dtensors, refuse_grad)
 from repro_torch.kernels.decode_attention.paged import (
-    SPLIT_THREADS, SPLIT_TILE, TARGET_BLOCKS, combine_launch, on_cpu,
-    refuse_dtensors, split_attend_trips)
+    SPLIT_THREADS, SPLIT_TILE, TARGET_BLOCKS, combine_launch,
+    split_attend_trips)
 from repro_torch.kernels.trips import Launch, mangled
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 

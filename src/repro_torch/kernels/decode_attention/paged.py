@@ -22,7 +22,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
+from repro_torch.kernels.build import (
+    DTYPE_CODES, Kernel, on_cpu, refuse_dtensors, refuse_grad)
 from repro_torch.kernels.trips import (
     Launch, cdiv, mangled, strided, warps_of)
 from repro_torch.kernels.decode_attention.ref import (
@@ -85,24 +86,6 @@ def block_smem_bytes(kind: str, q_dtype, kv_dtype, D: int, page: int,
     if q_dtype == torch.bfloat16:
         return tc_smem_bytes(D, TC_ROWS, kv_dtype == torch.int8)
     return smem_bytes(D, PREFILL_ROWS, page)
-
-
-def refuse_dtensors(kind: str, *tensors) -> None:
-    """Raises TypeError on a DTensor: a kernel takes raw pointers of
-    local tensors, so under a device mesh it runs inside a
-    ``dist.sharding.island``, never on a DTensor."""
-    from repro_torch.dist.sharding import is_dtensor
-    if any(is_dtensor(t) for t in tensors):
-        raise TypeError(f"{kind}: a kernel wrapper takes local tensors, "
-                        f"not DTensors: under a device mesh call it inside "
-                        f"dist.sharding.island")
-
-
-def on_cpu(*tensors) -> bool:
-    """Do the tensors lie on the CPU (the plain version's route)?  A
-    DTensor is refused (``refuse_dtensors``)."""
-    refuse_dtensors("kernel wrapper", *tensors)
-    return all(t.device.type == "cpu" for t in tensors if t is not None)
 
 
 def promote(k_pool, v_pool, k_scale, v_scale):

@@ -23,9 +23,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel, refuse_grad
+from repro_torch.kernels.build import (
+    DTYPE_CODES, Kernel, on_cpu, refuse_grad)
 from repro_torch.kernels.decode_attention.paged import (
-    KV_TILE, PREFILL_ROWS, TC_ROWS, check_args, on_cpu, promote, ptr)
+    KV_TILE, PREFILL_ROWS, TC_ROWS, check_args, promote, ptr)
 from repro_torch.kernels.trips import (
     Launch, cdiv, mangled, strided, warps_of)
 from repro_torch.kernels.decode_attention.ref import (

@@ -33,9 +33,8 @@ from typing import List
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel
+from repro_torch.kernels.build import DTYPE_CODES, Kernel, on_cpu
 from repro_torch.kernels.decode_attention.decode import check_dense
-from repro_torch.kernels.decode_attention.paged import on_cpu
 from repro_torch.kernels.decode_attention.prefill_paged import (
     tc_attend_trips, tc_tiles)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref

@@ -29,9 +29,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel
-from repro_torch.kernels.decode_attention.paged import (
-    on_cpu, refuse_dtensors)
+from repro_torch.kernels.build import (
+    DTYPE_CODES, Kernel, on_cpu, refuse_dtensors)
 from repro_torch.kernels.ssm_scan.ref import mamba1_scan
 from repro_torch.kernels.trips import (
     Launch, cdiv, mangled, strided, warps_of)

@@ -31,9 +31,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, Kernel
-from repro_torch.kernels.decode_attention.paged import (
-    on_cpu, refuse_dtensors)
+from repro_torch.kernels.build import (
+    DTYPE_CODES, Kernel, on_cpu, refuse_dtensors)
 from repro_torch.kernels.stream import ref
 
 _P, _I, _N, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \

@@ -20,21 +20,64 @@ scan's backward) keeps y differentiable.  ``plain=True`` runs
 ``mamba1_scan`` on any device.  The SSD scan is plain PyTorch on both
 routes, differentiated by autograd: the JAX package's is plain jnp too,
 no Pallas kernel.
+
+Under a device mesh (the block's activations DTensors, ``dist.sharding``)
+the depthwise conv and each scan run on the local shards of their inputs,
+inside an ``island`` (``_on_local_shards``): the kernel takes raw device
+pointers, the SSD scan's chunk loop (dozens of ops a chunk, its masks
+local tensors) pays no DTensor dispatch there, and the conv's shifts
+(``F.pad``) need no DTensor backward.  The projections, ``D`` and the
+gate stay on DTensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding
 from repro_torch.models.layers import dense, rmsnorm
+
+
+def _on_local_shards(fn, x, args, arg_dims, out_dims):
+    """``fn(x, *args)`` on each rank's local shards, inside an ``island``.
+    x (B, S, C, ...) is placed as the JAX ``in_proj`` / ``w_zx`` leave it:
+    rows (dim 0) over the batch axes, channels C (dim 2: d_in, or the SSD
+    heads) over the model axis, each replicated where its axes do not
+    divide it.  Each of ``args`` and of the outputs follows x by its
+    (rows dim, channels dim) in ``arg_dims`` / ``out_dims``, None where
+    it has no such dim (replicated there).  The channels of the depthwise
+    conv and of the scans are independent of each other and the rows of
+    one another, so the split is exact; an argument replicated where x is
+    split (A over the batch axes; Bc and Cc, shared by every channel,
+    over the model axis) takes a Partial gradient, each rank's share,
+    summed by the reader (``island``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    x = sharding.constrain(x, "batch", None, "model",
+                           *[None] * (x.dim() - 3))
+    x_pl = tuple(x.placements)
+
+    def pl(rows, chans):
+        return tuple(Shard(rows) if p == Shard(0) and rows is not None
+                     else Shard(chans) if p == Shard(2) and chans is not None
+                     else Replicate() for p in x_pl)
+
+    outs = tuple(pl(*d) for d in out_dims)
+    return sharding.island(fn, sharding.current_mesh(), (x, *args),
+                           (x_pl, *[pl(*d) for d in arg_dims]),
+                           outs[0] if len(outs) == 1 else outs)
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
                 b: Optional[torch.Tensor]) -> torch.Tensor:
-    """x (B, S, C); w (C, K) depthwise causal; returns (B, S, C)."""
+    """x (B, S, C); w (C, K) depthwise causal; returns (B, S, C).  Under
+    a mesh on local shards (``_on_local_shards``: w and b by channels)."""
+    if sharding.on_mesh(x, w):
+        return _on_local_shards(causal_conv, x, (w, b),
+                                ((None, 0), (None, 0)), ((0, 2),))
     S = x.shape[1]
     K = w.shape[1]
     out = x * w[:, K - 1]
@@ -107,6 +150,22 @@ def mamba1_step(x_t, dt_t, A, B_t, C_t, h):
     return y.to(x_t.dtype), h_new
 
 
+def _mesh_scan(scan, x, dt, A, Bc, Cc):
+    """``scan(x, dt, A, Bc, Cc) -> (y, h_final)`` on local shards
+    (``_on_local_shards``): x (B, S, C, ...) and dt (B, S, C) by rows and
+    channels, A (C, ...) by channels, Bc and Cc (B, S, N) by rows and
+    replicated over the model axis; y placed as x, h_final (B, C, ...)
+    by rows and channels."""
+    def local(x, dt, A, Bc, Cc):
+        # a shard of the channel dim is a strided view, and the kernel
+        # takes contiguous x, dt and A
+        return scan(x.contiguous(), dt.contiguous(), A.contiguous(), Bc, Cc)
+
+    return _on_local_shards(local, x, (dt, A, Bc, Cc),
+                           ((0, 2), (None, 0), (0, None), (0, None)),
+                           ((0, 2), (0, 1)))
+
+
 def _dbc_split(dbc, dt_rank: int, N: int):
     return (dbc[..., :dt_rank], dbc[..., dt_rank:dt_rank + N],
             dbc[..., dt_rank + N:])
@@ -135,7 +194,10 @@ def mamba1_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         dt_r, Bc, Cc = _dbc_split(dense(xr, p["x_proj"]), dt_rank, N)
         dt = F.softplus(dense(dt_r, p["dt_proj"]) + p["dt_bias"])
         scan = mamba1_scan if plain else selective_scan
-        y, h_fin = scan(xr, dt, A, Bc, Cc)
+        if sharding.on_mesh(xr, dt, A, Bc, Cc):
+            y, h_fin = _mesh_scan(scan, xr, dt, A, Bc, Cc)
+        else:
+            y, h_fin = scan(xr, dt, A, Bc, Cc)
         y = y + xr * p["D"]
         out = dense(y * F.silu(z), p["out_proj"])
         return out, Mamba1State(conv=tail, ssm=h_fin)
@@ -249,7 +311,12 @@ def mamba2_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         xr = F.silu(causal_conv(xr, p["conv_w"], p["conv_b"]))
         dt = F.softplus(dt_raw + p["dt_bias"])
         xh = xr.reshape(Bsz, S, H, hd)
-        y, h_fin = ssd_scan(xh, dt, A, B_c, C_c, cfg.ssm_chunk)
+        if sharding.on_mesh(xh, dt, A, B_c, C_c):
+            y, h_fin = _mesh_scan(
+                functools.partial(ssd_scan, chunk=cfg.ssm_chunk),
+                xh, dt, A, B_c, C_c)
+        else:
+            y, h_fin = ssd_scan(xh, dt, A, B_c, C_c, cfg.ssm_chunk)
         y = (y + xh * p["D"][None, None, :, None]).reshape(Bsz, S, d_in)
         y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
         return dense(y, p["out_proj"]), Mamba2State(conv=tail, ssm=h_fin)

@@ -956,9 +956,10 @@ def whisper_encode(params, cfg: ArchConfig, frames, plain: bool = False,
     each layer is checkpointed."""
     S = frames.shape[1]
     pos = torch.arange(S, device=frames.device)[None]
-    h = frames.to(cfg.param_dtype) + sinusoidal_positions(
-        pos, cfg.d_model).to(cfg.param_dtype)
-    h = constrain(h, "batch", None, None)
+    # under a mesh, a replicated DTensor, as frames are DTensors there
+    table = place(sinusoidal_positions(pos, cfg.d_model).to(cfg.param_dtype),
+                  None, None, None)
+    h = constrain(frames.to(cfg.param_dtype) + table, "batch", None, None)
 
     def layer(h, li: int):
         p = layer_params(params["encoder"], li)
@@ -1009,7 +1010,8 @@ def whisper_forward(params, cfg: ArchConfig, frames, tokens,
     S = tokens.shape[1]
     pos = torch.arange(S, device=tokens.device)[None]
     h = embed(tokens, params["embed"]).to(cfg.param_dtype)
-    h = h + sinusoidal_positions(pos, cfg.d_model).to(cfg.param_dtype)
+    h = h + place(sinusoidal_positions(pos, cfg.d_model).to(cfg.param_dtype),
+                  None, None, None)
     h = constrain(h, "batch", None, None)
     parts = {"k": [], "v": [], "cross_k": [], "cross_v": []}
     remat = remat_on(cfg, mode, params["decoder"])

@@ -53,6 +53,16 @@ def test_config_equal_field_for_field(arch, reduced):
     assert t.head_dim == j.head_dim
 
 
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_family_properties_match_jax(arch):
+    """``is_attention_free`` (the SSM family alone) and ``sub_quadratic``
+    agree with the JAX config's properties."""
+    j, t = jconfigs.get(arch), tconfigs.get(arch)
+    assert t.is_attention_free == j.is_attention_free
+    assert t.is_attention_free == (arch == "falcon-mamba-7b")
+    assert t.sub_quadratic == j.sub_quadratic
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_bridge_bit_exact(dtype):
     cfg_j = dataclasses.replace(jconfigs.get("granite-8b").reduced(),

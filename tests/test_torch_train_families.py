@@ -397,3 +397,25 @@ def test_train_100m_example_cpu_smoke(tmp_path, monkeypatch):
     out = buf.getvalue()
     assert "llama-6m: ~6.0M params on cpu" in out, out
     assert "over 3 steps" in out and "OK — loss improved" in out, out
+
+
+def test_serve_demo_example_on_the_cpu(monkeypatch):
+    """The port's twin of examples/serve_demo.py with --device cpu: the
+    whole-batch engine at temperature 0.8 (4 requests of 12 tokens), the
+    paged engine's joins, and prefix sharing with copy-on-write; the
+    script imports nothing of the JAX package."""
+    script = REPO / "examples" / "serve_demo_torch.py"
+    src = script.read_text()
+    assert not any(line.split()[1].split(".")[0] in ("repro", "jax")
+                   for line in src.splitlines()
+                   if line.startswith(("import ", "from "))), src
+    monkeypatch.setattr(sys, "argv", [str(script), "--device", "cpu"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        runpy.run_path(str(script), run_name="__main__")
+    out = buf.getvalue()
+    assert out.count("-> [") == 4 and "48 tokens in" in out, out
+    assert "paged: 8 requests / 8 joins on 4 slots, 64 tokens" in out, out
+    shared = int(out.split("shared-prefix: 8 requests, ")[1].split()[0])
+    cow = int(out.split("served by page reference, ")[1].split()[0])
+    assert shared > 0 and cow > 0, out
