@@ -423,6 +423,24 @@ Phases, each failing loudly (non-zero exit, no result line):
                point's achieved GIPS passes the Eq. 3 peak by 5%.  A
                stream point above its roof is printed, not clamped.
 
+  7. profile — the dry run's profiling half (``core/step_census.py``,
+               ``profiler/session.py``): the train phase's step
+               (qwen2-0.5b, ``train_config()``, S 4096, batch 8 in
+               ``TRAIN_MICRO`` microbatches, f32 moments) traced once
+               with ``census_of_step`` on fake CPU tensors (the card is
+               not used; the plain route, as the dry run traces), its
+               three-term roofline and instruction profile on the card's
+               ``HardwareSpec`` with BabelStream's measured copy rate as
+               the HBM roof; one line with the modeled step (ms, dominant
+               term) beside the train phase's measured median step, MFU
+               at both, the tensor cores' padding efficiency, and the
+               census's device bytes beside the train phase's
+               ``max_memory_allocated``.  Then, in a subprocess (its fake
+               256-rank group never meets the mesh phase's NCCL group),
+               ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
+               --shape train_4k``: the production 16 x 16 cell, its
+               summary line printed.  Either part failing fails the run.
+
 The line before the last is the kernels summary (JSON), every kernel's
 bound taken against the data sheet's 3.35 TB/s (``bound_ms``), and
 ``device_ms`` for the attention kernels and the scan.  The log
@@ -5799,6 +5817,132 @@ def irm_phase(torch, res, clocks, gpu, listing, counter, points):
         f"{model.hw.peak_gips():.2f} GIPS; on {gpu}")
 
 
+PROFILE_CELL = ("qwen2-0.5b", "train_4k")   # the dry run's 16 x 16 cell
+
+
+def profile_train_step(torch, train, ceiling_gbs):
+    """The train phase's step traced on fake CPU tensors and profiled on
+    the card's spec with the measured copy rate: (modeled record,
+    measured record, census, trace seconds, spec, model FLOPs)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.hardware import h100_from_device
+    from repro_torch.core.step_census import census_of_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, AdamWConfig, tree_map
+    from repro_torch.profiler.session import profile_census
+    from repro_torch.train.train_step import make_train_step
+    t0 = time.perf_counter()
+    model = Model(train_config(), plain_attention=True)
+    opt = AdamW(AdamWConfig(moment_dtype="float32"))
+    with FakeTensorMode():
+        def fake(tree):
+            return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                            tree)
+        params = fake(model.abstract_params())
+        state = fake(opt.abstract_state(model.abstract_params()))
+        batch = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+    step = make_train_step(model, opt, microbatches=TRAIN_MICRO)
+    census = census_of_step(step, params, state, batch)
+    trace_s = time.perf_counter() - t0
+    hw = h100_from_device(ceiling_gbs)
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    flops = model.model_flops(shape)
+    name = f"{TRAIN_ARCH}/train S {TRAIN_S} B {TRAIN_B}/1 device"
+    modeled = profile_census(name, census, 1, hw, model_flops=flops)
+    measured_s = train["step_ms"] / 1e3
+    measured = profile_census(name, census, 1, hw, model_flops=flops,
+                              runtime_s=measured_s)
+    return modeled, measured, census, trace_s, hw, flops
+
+
+def profile_phase(torch, train, ceiling_gbs, gpu):
+    """See the module docstring's ``profile``.  ``train`` is the train
+    phase's readings (median step ms, peak memory), ``ceiling_gbs`` the
+    stream phase's measured copy rate."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    arch, shape_name = PROFILE_CELL
+    out_dir = tempfile.TemporaryDirectory(prefix="dryrun-")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    # the production cell traces in a subprocess, beside this one's trace
+    # (its output to files: a full pipe would stall it)
+    out_path = Path(out_dir.name) / "stdout.txt"
+    err_path = Path(out_dir.name) / "stderr.txt"
+    with open(out_path, "w") as fo, open(err_path, "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape_name, "--out-dir", out_dir.name],
+            cwd=ROOT, env=env, stdout=fo, stderr=fe)
+        try:
+            modeled, measured, census, trace_s, hw, flops = \
+                profile_train_step(torch, train, ceiling_gbs)
+            proc.wait(timeout=400)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    stdout, stderr = out_path.read_text(), err_path.read_text()
+    rl, mem = modeled["roofline"], modeled["memory"]
+    mfu_measured = flops / (train["step_ms"] / 1e3 * hw.peak_flops_bf16)
+    for v in (rl["modeled_time_s"], rl["mfu_vs_peak"], mfu_measured,
+              mem["device_total_bytes"]):
+        if not (math.isfinite(v) and v > 0):
+            raise AssertionError(f"profile: a non-positive or non-finite "
+                                 f"reading {v} in {rl}, {mem}")
+    if census.tc_flops != census.flop_counter_flops:
+        raise AssertionError(f"profile: tensor-core FLOPs "
+                             f"{census.tc_flops} differ from FlopCounterMode"
+                             f"'s {census.flop_counter_flops}")
+    log(f"[profile] {TRAIN_ARCH} train step (S {TRAIN_S}, batch {TRAIN_B} "
+        f"in {TRAIN_MICRO} microbatches), traced on fake tensors in "
+        f"{trace_s:.1f} s: modeled {rl['modeled_time_s'] * 1e3:.1f} ms "
+        f"({rl['dominant']}-bound: compute {rl['compute_s'] * 1e3:.1f}, "
+        f"memory {rl['memory_s'] * 1e3:.1f}, collective "
+        f"{rl['collective_s'] * 1e3:.1f} ms; the plain route's work) against "
+        f"the train phase's measured median {train['step_ms']:.1f} ms "
+        f"(kernel route); MFU {100 * rl['mfu_vs_peak']:.2f}% modeled, "
+        f"{100 * mfu_measured:.2f}% measured, of {hw.peak_flops_bf16 / 1e12:.1f}"
+        f" TFLOP/s; census {census.tc_flops:.6g} tensor-core FLOPs "
+        f"({census.tc_flops_f32:.6g} of them f32 products, priced at "
+        f"{hw.peak_flops_fp32 / 1e12:.1f} TFLOP/s; useful ratio "
+        f"{rl['useful_flops_ratio']:.4f}), tc_padding_efficiency "
+        f"{modeled['irm']['tc_padding_efficiency']:.4f}, "
+        f"{census.hbm_bytes / 1e9:.1f} GB of HBM traffic; achieved "
+        f"tensor-core GIPS {measured['irm']['achieved_tc_gips']:.2f} at the "
+        f"measured time (peak {measured['irm']['peak_tc_gips']:.2f}); device "
+        f"bytes {mem['device_total_bytes'] / 2 ** 30:.2f} GiB (census peak) "
+        f"against {train['peak_gib']:.2f} GiB max_memory_allocated; HBM roof "
+        f"{ceiling_gbs:.1f} GB/s (BabelStream copy); on {gpu}")
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("[dryrun]")]
+    path = Path(out_dir.name) / f"{arch}__{shape_name}__pod16x16.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    out_dir.cleanup()
+    for ln in lines:
+        log(f"[profile] {ln}")
+    if proc.returncode != 0 or "roofline" not in rec:
+        raise AssertionError(f"profile: the dry run of {arch}/{shape_name}"
+                             f" exited {proc.returncode}: "
+                             f"{rec.get('error')}\n{stderr[-3000:]}")
+    c = rec["census"]
+    log(f"[profile] {rec['cell']} record: {rec['n_devices']} devices, "
+        f"{c['tc_flops']:.6g} tensor-core FLOPs a device ("
+        f"{c['tc_flops_f32']:.6g} f32; FlopCounterMode "
+        f"{rec['flop_counter']['flops']:.6g}), {c['hbm_bytes'] / 1e9:.1f} GB "
+        f"HBM and {c['collective_wire_bytes'] / 1e9:.3f} GB collective wire a "
+        f"device, useful ratio {rec['roofline']['useful_flops_ratio']:.4f}; "
+        f"the phase {time.perf_counter() - t0:.1f} s (the cell modeled on an "
+        f"H100 SXM's data sheet, not timed)")
+    return dict(modeled_ms=rl["modeled_time_s"] * 1e3,
+                dominant=rl["dominant"], measured_ms=train["step_ms"],
+                mfu_modeled=rl["mfu_vs_peak"], mfu_measured=mfu_measured,
+                cell=rec["roofline"])
+
+
 class Laps:
     """Seconds between successive marks of the run, by phase name."""
 
@@ -5912,6 +6056,8 @@ def main() -> int:
     irm_phase(torch, res, clocks, gpu, listing, counter,
               points + sv["census"])
     laps.mark("irm")
+    profile_phase(torch, train, res.copy_gbs(), gpu)
+    laps.mark("profile")
     ceiling = res.copy_gbs() * 1e9
 
     kernels = []

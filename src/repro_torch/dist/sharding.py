@@ -189,9 +189,19 @@ def logical_spec(names: Sequence[Optional[str]], rules: MeshRules,
     return P(*entries)
 
 
+_DTENSOR = []        # DTensor's class, imported at the first subclass seen
+
+
 def is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
+    """Is ``x`` a DTensor?  A plain tensor (the single-device path's every
+    call) answers from its type alone, without touching
+    ``torch.distributed``."""
+    if type(x) is torch.Tensor or not isinstance(x, torch.Tensor):
+        return False
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor
+        _DTENSOR.append(DTensor)
+    return isinstance(x, _DTENSOR[0])
 
 
 def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:

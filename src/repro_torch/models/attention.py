@@ -9,6 +9,13 @@ shard, the heads of its model-axis shard with the kv heads they read —
 the flash kernel takes raw device pointers, and the plain path's masks
 are local tensors.
 
+A whole-batch decode step under a mesh attends a cache sharded over
+its sequence (the dry run's ``cache_seq`` axes) in another island
+(``mesh_decode_attention``): each rank writes the new row where it falls
+in its slice of the cache, attends its slice, and the ranks combine
+their softmax partials (max, sum, weighted values) over the sequence
+axes, as GSPMD partitions the JAX decode's softmax.
+
 Layout: q (B, S, H, D); k, v (B, T, KV, D).  ``direct_attention`` never
 repeats KV heads: q is grouped to (B, S, KV, G, D) and the einsums run
 per group.  Masked scores take the finite ``NEG_INF`` (not -inf), so a
@@ -163,11 +170,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H, D = q.shape
     T = k.shape[1]
     if sharding.on_mesh(q, k, v):
-        if S == 1 or kv_len is not None or q_offset is not None:
+        if kv_len is not None or q_offset is not None:
             raise NotImplementedError(
-                "attention under a device mesh runs the training and prefill "
-                "shapes (S > 1, no kv_len or q_offset); the port serves on "
-                "one device, as the JAX launcher does")
+                "attention under a device mesh takes no kv_len or q_offset "
+                "(the whole-batch decode's self-attention runs in "
+                "mesh_decode_attention); the port serves on one device, as "
+                "the JAX launcher does")
         return _mesh_attention(q, k, v, causal, chunk_q, chunk_kv, plain)
     if not plain and on_card(q) and S > 1 and kv_len is None:
         from repro_torch.kernels.flash_attention import flash
@@ -214,3 +222,78 @@ def _mesh_attention(q, k, v, causal: bool, chunk_q: int, chunk_kv: int,
 
     return sharding.island(local, mesh, (q, k, v), (q_pl, kv_pl, kv_pl),
                            q_pl)
+
+
+def _decode_partial(q, k, v, tpos, pos, start):
+    """One decode row's attention over a slice of the cache, unnormalized:
+    q (B, 1, H, D), k and v (B, Tl, KV, D) at global positions ``tpos``
+    (Tl,); positions after ``pos`` or before ``start[b]`` masked.  Returns
+    (o (B, 1, H, D) f32, m (B, 1, H) the slice's max score, l (B, 1, H)
+    its sum of exp(s - m))."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, D).to(torch.float32)
+    s = torch.einsum("bskgd,btkd->bskgt", qg, k.to(torch.float32)) \
+        / math.sqrt(D)
+    live = (tpos <= pos)[None]
+    if start is not None:
+        live = live & (tpos[None] >= start[:, None])
+    s = torch.where(live[:, None, None, None],
+                    s, torch.tensor(NEG_INF, device=s.device))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bskgt,btkd->bskgd", p, v.to(torch.float32))
+    return (o.reshape(B, S, H, D), m.reshape(B, S, H),
+            p.sum(dim=-1).reshape(B, S, H))
+
+
+def mesh_decode_attention(q, k, v, k_cache, v_cache, pos, start=None):
+    """Whole-batch decode under a mesh (see the module doc): q (B, 1, H,
+    D) and this step's k, v (B, 1, KV, D); the caches (B, T, KV, D)
+    placed by batch and ``cache_seq``, written IN PLACE at row ``pos``
+    (clamped into the cache, as ``dynamic_update_slice`` clamps); pos a
+    replicated 0-d int, start (B,) or None.  Returns the attention output
+    (B, 1, H, D) in q's dtype, placed as q."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = sharding.current_mesh()
+    k_cache = sharding.constrain(k_cache, "batch", "cache_seq", None, None)
+    v_cache = sharding.constrain(v_cache, "batch", "cache_seq", None, None)
+    c_pl = tuple(k_cache.placements)
+    seq_dims = [i for i, p in enumerate(c_pl) if p == Shard(1)]
+    row_pl = tuple(Replicate() if i in seq_dims else p
+                   for i, p in enumerate(c_pl))
+    rep = tuple(Replicate() for _ in c_pl)
+    q = sharding.constrain(q, "batch", None, None, None)
+    k = sharding.constrain(k, "batch", None, None, None)
+    v = sharding.constrain(v, "batch", None, None, None)
+    T = k_cache.shape[1]
+    args = [q, k, v, k_cache, v_cache, pos]
+    pls = [row_pl] * 3 + [c_pl, c_pl, rep]
+    if start is not None:
+        args.append(sharding.constrain(start, "batch"))
+        pls.append(tuple(Shard(0) if p == Shard(0) else Replicate()
+                         for p in row_pl))
+
+    def local(ql, kl, vl, kc, vc, p, st=None):
+        Tl = kc.shape[1]
+        t0 = sharding.mesh_coordinate(mesh, seq_dims) * Tl
+        row = torch.clamp(p, 0, T - 1) - t0
+        r = torch.clamp(row, 0, Tl - 1).reshape(1).long()
+        inside = (row == r)
+        for c, new in ((kc, kl), (vc, vl)):
+            keep = c.index_select(1, r)
+            c.index_copy_(1, r, torch.where(inside, new.to(c.dtype), keep))
+        tpos = t0 + torch.arange(Tl, device=kc.device)
+        o, m, l_ = _decode_partial(ql, kc, vc, tpos, p, st)
+        for d in seq_dims:
+            group = (mesh, d)
+            mx = funcol.all_reduce(m, "max", group)
+            w = torch.exp(m - mx)
+            l_ = funcol.all_reduce(l_ * w, "sum", group)
+            o = funcol.all_reduce(o * w[..., None], "sum", group)
+            m = mx
+        return (o / l_[..., None]).to(ql.dtype)
+
+    return sharding.island(local, mesh, tuple(args), tuple(pls), row_pl)

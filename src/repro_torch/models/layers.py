@@ -11,13 +11,38 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor
+
+
+def _mean_last(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean(dim=-1, keepdim=True)``.  Where a mesh splits the last dim
+    over more than one rank, the mean of a DTensor comes back Partial
+    (avg), which DTensor resolves at the next op by reduce-scattering over
+    the sequence (a split that a later matmul cannot take) and whose
+    backward cannot meet a Partial (sum) gradient; so there the sum is
+    reduced to Replicate over the ranks (GSPMD's all-reduce) and divided.
+    A plain tensor, or a last dim that no rank splits, takes the mean."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        last = x.dim() - 1
+        split = 1
+        for m, p in enumerate(x.placements):
+            if isinstance(p, Shard) and p.dim == last:
+                split *= x.device_mesh.size(m)
+        if split > 1:
+            s = x.sum(dim=-1, keepdim=True)
+            s = s.redistribute(s.device_mesh, [
+                Replicate() if p.is_partial() else p for p in s.placements])
+            return s / x.shape[-1]
+    return x.mean(dim=-1, keepdim=True)
+
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm: the variance accumulates in f32, the rsqrt factor and the
     scale are applied in x's dtype (as the JAX package does, to keep bf16
     activations from being upcast wholesale)."""
-    var = (x * x).to(torch.float32).mean(dim=-1, keepdim=True)
+    var = _mean_last((x * x).to(torch.float32))
     r = torch.rsqrt(var + eps).to(x.dtype)
     return x * r * scale.to(x.dtype)
 
@@ -27,8 +52,8 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """LayerNorm with f32 statistics (biased variance) and f32 scale and
     bias; the output in x's dtype."""
     x32 = x.to(torch.float32)
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    mu = _mean_last(x32)
+    var = _mean_last((x32 - mu) ** 2)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
 

@@ -105,7 +105,12 @@ def conv_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
 def conv_tail(x: torch.Tensor, K: int) -> torch.Tensor:
     """The conv state after stepping over x (B, S, C) from a zero state:
     its last K-1 rows, zero-padded at the front when S < K-1 — a fresh
-    (B, K-1, C) tensor, so the prefill's activations are not kept."""
+    (B, K-1, C) tensor, so the prefill's activations are not kept.
+    Under a mesh on local shards, rows and channels as x (torch 2.11's
+    DTensor cannot plan ``F.pad``'s redistribution)."""
+    if sharding.on_mesh(x):
+        return _on_local_shards(lambda t: conv_tail(t, K), x, (), (),
+                                ((0, 2),))
     tail = x[:, max(0, x.shape[1] - (K - 1)):]
     return F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
 
@@ -171,6 +176,13 @@ def _dbc_split(dbc, dt_rank: int, N: int):
             dbc[..., dt_rank + N:])
 
 
+def _dt(dt: torch.Tensor, *rows) -> torch.Tensor:
+    """``dt_proj``'s output, its channels placed over the model axis (a
+    Partial sum reduced) before the bias adds: torch 2.11's DTensor
+    cannot make the bias Partial to match."""
+    return sharding.constrain(dt, *rows, "model")
+
+
 def mamba1_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
                  state: Optional[Mamba1State] = None, plain: bool = False
                  ) -> Tuple[torch.Tensor, Mamba1State]:
@@ -192,7 +204,8 @@ def mamba1_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         xr = F.silu(causal_conv(xr, p["conv_w"], p["conv_b"]))
         # Bc and Cc stay strided views of dbc, as the JAX slices are
         dt_r, Bc, Cc = _dbc_split(dense(xr, p["x_proj"]), dt_rank, N)
-        dt = F.softplus(dense(dt_r, p["dt_proj"]) + p["dt_bias"])
+        dt = F.softplus(_dt(dense(dt_r, p["dt_proj"]), "batch", None)
+                        + p["dt_bias"])
         scan = mamba1_scan if plain else selective_scan
         if sharding.on_mesh(xr, dt, A, Bc, Cc):
             y, h_fin = _mesh_scan(scan, xr, dt, A, Bc, Cc)
@@ -205,7 +218,7 @@ def mamba1_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     x_t, new_conv = conv_step(xr[:, 0], state.conv, p["conv_w"], p["conv_b"])
     x_t = F.silu(x_t)
     dt_r, B_t, C_t = _dbc_split(dense(x_t, p["x_proj"]), dt_rank, N)
-    dt_t = F.softplus(dense(dt_r, p["dt_proj"]) + p["dt_bias"])
+    dt_t = F.softplus(_dt(dense(dt_r, p["dt_proj"]), "batch") + p["dt_bias"])
     y, h_new = mamba1_step(x_t, dt_t, A, B_t, C_t, state.ssm)
     y = y + x_t * p["D"]
     out = dense(y * F.silu(z[:, 0]), p["out_proj"])[:, None]

@@ -59,13 +59,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import constrain, place
+from repro_torch.dist.sharding import constrain, is_dtensor, place
 from repro_torch.kernels.decode_attention import (
     decode_attention, paged_decode_attention, paged_prefill_attention)
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, paged_prefill_attention_ref)
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import attention, direct_attention
+from repro_torch.models.attention import (
+    attention, direct_attention, mesh_decode_attention)
 from repro_torch.models.kv_quant import quantize_rows
 from repro_torch.models.layers import (
     apply_rope, dense, embed, gelu_mlp, layernorm, mrope_angles, rmsnorm,
@@ -335,6 +336,7 @@ def _rope(cfg: ArchConfig, positions) -> Optional[Tuple]:
     M-RoPE arch; None for an arch without rotary positions."""
     if not cfg.rope_theta:
         return None
+    positions = _whole(positions)      # a placed batch's (3, B, S) streams
     if cfg.mrope_sections:
         cos, sin = mrope_angles(positions, cfg.head_dim, cfg.rope_theta,
                                 cfg.mrope_sections)
@@ -342,6 +344,14 @@ def _rope(cfg: ArchConfig, positions) -> Optional[Tuple]:
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     # under a mesh, placed over the batch axes as q and k are
     return (place(cos, "batch", None, None), place(sin, "batch", None, None))
+
+
+def _whole(x):
+    """A DTensor (the decode cache's replicated position, a placed
+    batch's M-RoPE streams) as the whole plain tensor, for the rope
+    tables that ``_rope`` places over the batch axes; a plain tensor as
+    it is."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def _streams(cfg: ArchConfig, positions):
@@ -353,16 +363,57 @@ def _streams(cfg: ArchConfig, positions):
     return positions
 
 
+def split_heads(x, n: int, hd: int):
+    """x (B, S, n * hd) as (B, S, n, hd).  Under a mesh DTensor unflattens
+    a sharded feature dim only when its split falls on whole heads; where
+    the mesh dims that split it do not divide n (qwen2-0.5b's 14 heads
+    over a model axis of 16) the dim is replicated first, as GSPMD
+    reshards it there in the JAX package."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        last = x.dim() - 1
+        on = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+        split = 1
+        for i, o in enumerate(on):
+            split *= x.device_mesh.size(i) if o else 1
+        if n % split:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if o else p for p, o in zip(x.placements, on)])
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """(B, S, n, hd) -> (B, S, n * hd), whose backward splits the gradient
+    with ``split_heads``: the gradient that comes back from the output
+    projection may be split over the model axis where n is not."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n, ctx.hd = x.shape[-2], x.shape[-1]
+        return x.reshape(*x.shape[:-2], ctx.n * ctx.hd)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.n, ctx.hd)
+
+
+def merge_heads(x):
+    """(B, S, n, hd) -> (B, S, n * hd); under a mesh through
+    ``_MergeHeads``, a plain reshape otherwise."""
+    if is_dtensor(x):
+        return _MergeHeads.apply(x)
+    return x.reshape(*x.shape[:-2], -1)
+
+
 def _qkv(hn, p, cfg: ArchConfig, rope, decode: bool = False):
     """q (B, S, H, hd), k and v (B, S, KV, hd), rope applied; q sharded
     over its heads on the model axis (replicated there in a decode or
     paged step, which attends a sequence-sharded cache), k and v
     replicated over it."""
-    B, S, _ = hn.shape
     hd = cfg.head_dim
-    q = dense(hn, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, hd)
-    k = dense(hn, p["wk"], p.get("bk")).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(hn, p["wv"], p.get("bv")).reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_heads(dense(hn, p["wq"], p.get("bq")), cfg.n_heads, hd)
+    k = split_heads(dense(hn, p["wk"], p.get("bk")), cfg.n_kv_heads, hd)
+    v = split_heads(dense(hn, p["wv"], p.get("bv")), cfg.n_kv_heads, hd)
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
@@ -432,8 +483,7 @@ def attn_apply(h, p, cfg: ArchConfig, rope, causal: bool = True,
     q, k, v = _qkv(hn, a, cfg, rope)
     out = attention(q, k, v, causal=causal, chunk_q=cfg.attn_chunk_q,
                     chunk_kv=cfg.attn_chunk_kv, plain=plain)
-    B, S = out.shape[:2]
-    out = dense(out.reshape(B, S, -1), a["wo"])
+    out = dense(merge_heads(out), a["wo"])
     return constrain(out, "batch", None, None), (k, v)
 
 
@@ -448,12 +498,13 @@ def attn_decode(h, p, cfg: ArchConfig, rope, k_cache, v_cache, pos,
     hn = apply_norm(h, p["ln1"], cfg)
     a = p["attn"]
     q, k, v = _qkv(hn, a, cfg, rope, decode=True)
+    if is_dtensor(k_cache):
+        out = mesh_decode_attention(q, k, v, k_cache, v_cache, pos, start)
+        return dense(out.reshape(h.shape[0], 1, -1), a["wo"]), k_cache, \
+            v_cache
     row = torch.clamp(pos, 0, k_cache.shape[1] - 1).reshape(1).long()
     k_cache.index_copy_(1, row, k.to(k_cache.dtype))
     v_cache.index_copy_(1, row, v.to(v_cache.dtype))
-    # keep the cache sequence-sharded through the in-place update
-    k_cache = constrain(k_cache, "batch", "cache_seq", None, None)
-    v_cache = constrain(v_cache, "batch", "cache_seq", None, None)
     if plain:
         out = direct_attention(q, k_cache, v_cache, causal=True,
                                q_offset=pos, kv_len=pos + 1, kv_start=start)
@@ -756,7 +807,7 @@ def lm_decode(params, cfg: ArchConfig, tokens, cache, plain: bool = False):
             cache["ssm"][li].copy_(new.ssm)
         cache["pos"] = pos + 1
         return _logits_exact(params, cfg, h)[:, 0], cache
-    positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
+    positions = _whole(pos).to(torch.int32).reshape(1, 1).expand(B, 1)
     rope = _rope(cfg, _streams(cfg, positions))
     h = _embed_in(params, cfg, tokens)
     if cfg.family == "hybrid":
@@ -974,10 +1025,9 @@ def whisper_encode(params, cfg: ArchConfig, frames, plain: bool = False,
 def _cross_kv(enc_out, p, cfg: ArchConfig):
     """One decoder layer's cross K/V (B, S, KV, hd) from the encoder
     output (no biases, as in the JAX function)."""
-    B, S, _ = enc_out.shape
     hd = cfg.head_dim
-    k = dense(enc_out, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(enc_out, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    k = split_heads(dense(enc_out, p["wk"]), cfg.n_kv_heads, hd)
+    v = split_heads(dense(enc_out, p["wv"]), cfg.n_kv_heads, hd)
     return k, v
 
 
@@ -986,11 +1036,14 @@ def _cross_attend(h, p, cfg: ArchConfig, k, v, plain: bool = False):
     no ``kv_len``, so a zero-padded cross cache takes part in the softmax
     (the JAX function's behaviour, kept)."""
     hn = apply_norm(h, p["ln3"], cfg)
-    B, S, _ = hn.shape
-    q = dense(hn, p["cross"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_heads(dense(hn, p["cross"]["wq"]), cfg.n_heads, cfg.head_dim)
     out = attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk_q,
                     chunk_kv=cfg.attn_chunk_kv, plain=plain)
-    return dense(out.reshape(B, S, -1), p["cross"]["wo"])
+    # reduced over the model axis as the self-attention's output is: left
+    # Partial, DTensor reduce-scatters it over the sequence at the next
+    # norm, and a later matmul cannot take that strided split
+    return constrain(dense(merge_heads(out), p["cross"]["wo"]), "batch",
+                     None, None)
 
 
 def whisper_forward(params, cfg: ArchConfig, frames, tokens,
@@ -1051,8 +1104,9 @@ def whisper_decode(params, cfg: ArchConfig, tokens, cache,
     start = cache.get("start")
     B = tokens.shape[0]
     h = embed(tokens, params["embed"]).to(cfg.param_dtype)
-    positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
-    h = h + sinusoidal_positions(positions, cfg.d_model).to(cfg.param_dtype)
+    positions = _whole(pos).to(torch.int32).reshape(1, 1).expand(B, 1)
+    h = h + place(sinusoidal_positions(positions, cfg.d_model).to(
+        cfg.param_dtype), "batch", None, None)
     for li in range(cfg.n_layers):
         p = layer_params(params["decoder"], li)
         out, _, _ = attn_decode(h, p, cfg, None, cache["k"][li],
