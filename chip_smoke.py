@@ -439,7 +439,11 @@ Phases, each failing loudly (non-zero exit, no result line):
                256-rank group never meets the mesh phase's NCCL group),
                ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
                --shape train_4k``: the production 16 x 16 cell, its
-               summary line printed.  Either part failing fails the run.
+               summary line printed, and its unembedding's tensor-core
+               FLOPs a device (``unembedding_flops``: the fused loss's
+               four products on a rank's 1/16 of the vocabulary) beside
+               the whole vocabulary's, held at most 1/16 of it, with the
+               cell's useful ratio.  Either part failing fails the run.
 
 The line before the last is the kernels summary (JSON), every kernel's
 bound taken against the data sheet's 3.35 TB/s (``bound_ms``), and
@@ -450,6 +454,7 @@ other kernels may beat, so it is no lower bound.  A summary line gives
 the seconds each phase took after the build (the limit is 1200 s in all).
 The last line is ``{"ok": true, "device": {...}}``.
 """
+import collections
 import contextlib
 import gc
 import json
@@ -5858,6 +5863,34 @@ def profile_train_step(torch, train, ceiling_gbs):
     return modeled, measured, census, trace_s, hw, flops
 
 
+def unembedding_flops(rec):
+    """(the unembedding's tensor-core FLOPs a device in a training cell's
+    dry-run record, those of the same four products over the whole
+    vocabulary): the fused loss's chunk logits, their recompute in the
+    backward, dh and dE, each 2 x rows x chunk x d x V / m FLOPs an op on
+    a rank's rows of a microbatch and its 1/m of the vocabulary (m the
+    model axis where it divides V).  A product over the whole vocabulary
+    (m times the FLOPs an op) counts too."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.models.losses import chunk_size
+    cfg, shape = configs.get(rec["arch"]), configs.SHAPES[rec["shape"]]
+    dims, axes = production_mesh_shape(rec["multi_pod"])
+    sizes = dict(zip(axes, dims))
+    n_data = math.prod(sizes[a] for a in rec["rules"]["batch_axes"])
+    m = sizes["model"] if cfg.vocab_size % sizes["model"] == 0 else 1
+    rows = shape.global_batch // n_data // rec["plan"]["microbatches"]
+    whole_op = 2 * rows * chunk_size(shape.seq_len, 512) * cfg.d_model \
+        * cfg.vocab_size
+    ops = collections.Counter()
+    for key, (n, _) in rec["census"]["top_tc_ops"].items():
+        ops[int(key.rsplit(" ", 1)[1])] += n
+    unembed = sum(ops[f] * f for f in {whole_op // m, whole_op})
+    whole = 4 * 2 * shape.global_batch // n_data * shape.seq_len \
+        * cfg.d_model * cfg.vocab_size
+    return unembed, whole
+
+
 def profile_phase(torch, train, ceiling_gbs, gpu):
     """See the module docstring's ``profile``.  ``train`` is the train
     phase's readings (median step ms, peak memory), ``ceiling_gbs`` the
@@ -5929,6 +5962,15 @@ def profile_phase(torch, train, ceiling_gbs, gpu):
                              f" exited {proc.returncode}: "
                              f"{rec.get('error')}\n{stderr[-3000:]}")
     c = rec["census"]
+    unembed, whole = unembedding_flops(rec)
+    log(f"[profile] {rec['cell']} unembedding: {unembed:.6g} tensor-core "
+        f"FLOPs a device against {whole:.6g} for the whole vocabulary "
+        f"({unembed / whole:.4f}; at most 1/16), useful ratio "
+        f"{rec['roofline']['useful_flops_ratio']:.4f}")
+    if not 0 < 16 * unembed <= whole:
+        raise AssertionError(f"profile: the unembedding of {rec['cell']} "
+                             f"counts {unembed} FLOPs a device, above "
+                             f"1/16 of the whole vocabulary's {whole}")
     log(f"[profile] {rec['cell']} record: {rec['n_devices']} devices, "
         f"{c['tc_flops']:.6g} tensor-core FLOPs a device ("
         f"{c['tc_flops_f32']:.6g} f32; FlopCounterMode "

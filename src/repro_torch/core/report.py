@@ -64,7 +64,7 @@ def census_summary(c: Census) -> Dict[str, object]:
         # the GEMM mix: "op flops-of-one" -> [count, total FLOPs], largest
         # total first
         "top_tc_ops": {f"{op} {f}": [n, n * f] for (op, f), n in sorted(
-            c.tc_op_flops.items(), key=lambda kv: -kv[0][1] * kv[1])[:12]},
+            c.tc_op_flops.items(), key=lambda kv: -kv[0][1] * kv[1])[:32]},
     }
 
 

@@ -15,7 +15,8 @@ replicates a dim that its mesh axes do not divide, as the JAX package's
 DTensor ``Shard``/``Replicate`` placements (never DTensor's uneven
 sharding, so the shards are JAX's).  ``constrain`` is the torch form of
 ``with_sharding_constraint``: a ``redistribute`` of a DTensor to the
-placements its logical names resolve to.
+placements its logical names resolve to, and of its gradient to the same
+placements in the backward, as the JAX constraint's transpose does.
 
 ``island`` runs a function on the local shards of its DTensor inputs
 (``local_map``): the hand-written kernels take raw device pointers, and
@@ -204,16 +205,55 @@ def is_dtensor(x) -> bool:
     return isinstance(x, _DTENSOR[0])
 
 
+class _ConstrainGrad(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to
+    ``placements``: the transpose of JAX's ``with_sharding_constraint``
+    constrains the cotangent as the value was.  DTensor's own
+    ``redistribute`` backward leaves a Partial gradient Partial where the
+    value was Partial (the residual stream's gradient after a row-parallel
+    projection), and the weight-gradient products that read it then
+    gather their weights whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements), None, None
+
+
+def grad_as_value(y: torch.Tensor) -> torch.Tensor:
+    """``y``, whose gradient is redistributed to y's own placements (a
+    Partial one as Replicate) in the backward: a product's weight
+    gradient then takes the split its output had, as GSPMD keeps a dot's
+    shardings in its transpose, where DTensor would compute it whole
+    from a gradient that arrives gathered (the Mamba2 projection whose
+    output is chunked into z and x)."""
+    if not (is_dtensor(y) and y.requires_grad):
+        return y
+    from torch.distributed.tensor import Replicate
+    return _ConstrainGrad.apply(y, y.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in y.placements))
+
+
 def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """Redistribute a DTensor to the placements of ``logical_axes`` under
     the active rules (a Partial value is reduced, a sharded one gathered
-    or split); a no-op without an active mesh or on a plain tensor.
-    Names missing from the mesh or not dividing the dim replicate."""
+    or split), and its gradient to the same placements in the backward,
+    as GSPMD constrains a cotangent; a no-op without an active mesh or on
+    a plain tensor.  Names missing from the mesh or not dividing the dim
+    replicate."""
     mesh, rules = _CTX.mesh, _CTX.rules
     if mesh is None or rules is None or not is_dtensor(x):
         return x
     spec = logical_spec(logical_axes, rules, mesh)
-    return x.redistribute(mesh, placements(spec, tuple(x.shape), mesh))
+    pl = placements(spec, tuple(x.shape), mesh)
+    y = x.redistribute(mesh, pl)
+    if not y.requires_grad:
+        return y
+    return _ConstrainGrad.apply(y, mesh, pl)
 
 
 def place(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
@@ -244,22 +284,49 @@ def mesh_coordinate(mesh, dims: Sequence[int]) -> int:
     return r
 
 
-def island(fn, mesh, args, in_placements, out_placements):
+def vocab_split(table: torch.Tensor, rows=None) -> Tuple[tuple, list, list]:
+    """A (V, d) embedding table inside a vocabulary-parallel island: its
+    placements there, the mesh dims of more than one rank that split the
+    vocabulary, and those that split d.  The vocabulary goes over the
+    model axis where that axis divides V, as the JAX spec ("model",
+    "fsdp") validates (none where V stays whole, as whisper's 51,866 over
+    16).  The fsdp split of d is gathered, except on a mesh dim where the
+    activation that meets the table (``rows``, its placements) is
+    replicated: there d stays split and the product is a Partial sum
+    over it, as GSPMD contracts it (a decode step whose batch is not on
+    the fsdp axes)."""
+    from torch.distributed.tensor import Shard
+    mesh, rules = _CTX.mesh, _CTX.rules
+    pl = list(placements(logical_spec(("model", None), rules, mesh),
+                         tuple(table.shape), mesh))
+    d_dims = [m for m, (own, r) in enumerate(zip(table.placements,
+                                                 rows or ()))
+              if own == Shard(1) and pl[m].is_replicate()
+              and r.is_replicate() and mesh.size(m) > 1]
+    for m in d_dims:
+        pl[m] = Shard(1)
+    dims = [m for m, p in enumerate(pl) if p == Shard(0) and mesh.size(m) > 1]
+    return tuple(pl), dims, d_dims
+
+
+def island(fn, mesh, args, in_placements, out_placements, split_dims=()):
     """``fn`` on the local shards of ``args`` (``local_map``): each
     DTensor argument is first redistributed to its ``in_placements``,
     and the outputs come back as
     DTensors with ``out_placements``.  A Replicate input on a mesh dim
-    where another input is sharded (each rank then does its own share of
-    the work) gets a Partial gradient, reduced by whoever reads it; on a
-    dim where every input is replicated the ranks repeat one computation
-    and the gradient stays Replicate.  ``out_placements``: one output's
-    placements, or a tuple of them for a tuple of outputs."""
+    where another input is sharded, or that ``split_dims`` names (``fn``
+    splits the work there itself), gets a Partial gradient, reduced by
+    whoever reads it: each rank then does its own share of the work.  On
+    a dim where every input is replicated the ranks repeat one
+    computation and the gradient stays Replicate.  ``out_placements``:
+    one output's placements, or a tuple of them for a tuple of
+    outputs."""
     from torch.distributed.tensor import Partial, Placement, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     if all(isinstance(p, Placement) for p in out_placements):
         out_placements = list(out_placements)      # one output
     split = {m for pl in in_placements for m, p in enumerate(pl)
-             if isinstance(p, Shard)}
+             if isinstance(p, Shard)} | set(split_dims)
     grads = tuple(tuple(Partial() if isinstance(p, Replicate) and m in split
                         else p for m, p in enumerate(pl))
                   for pl in in_placements)

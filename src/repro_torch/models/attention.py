@@ -5,9 +5,10 @@ dispatch between them and the flash kernel.
 
 Under a device mesh (q a DTensor, ``dist.sharding``) ``attention`` runs
 on each rank's local shards, inside an ``island``: the rows of its batch
-shard, the heads of its model-axis shard with the kv heads they read —
-the flash kernel takes raw device pointers, and the plain path's masks
-are local tensors.
+shard, the heads of its model-axis shard with the kv heads they read (or,
+where the model axis does not divide the heads, its group's heads, as
+GSPMD splits them: ``head_groups``) — the flash kernel takes raw device
+pointers, and the plain path's masks are local tensors.
 
 A whole-batch decode step under a mesh attends a cache sharded over
 its sequence (the dry run's ``cache_seq`` axes) in another island
@@ -188,6 +189,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                causal, chunk_q, chunk_kv)
 
 
+def head_groups(H: int, D: int, mesh) -> tuple:
+    """(mesh dims of the model axis, M their ranks, f) for q heads that
+    the model axis does not divide: GSPMD splits the q projection's
+    H * D features M ways and reshapes them as f ways over the heads, f =
+    gcd(H, M), and M / f ways over the head dim (when it divides D), so
+    the attention runs on H / f heads a rank, each group of heads
+    replicated on M / f ranks.  f is 1 where no such split exists."""
+    rules = sharding.active_rules()
+    names = list(mesh.mesh_dim_names)
+    axes = sharding.entry_axes(rules.resolve("model"))
+    dims = [names.index(a) for a in axes if a in names]
+    M = math.prod(mesh.size(m) for m in dims)
+    f = math.gcd(H, M)
+    if H % M == 0 or f == 1 or D % (M // f):
+        return dims, M, 1
+    return dims, M, f
+
+
 def _mesh_attention(q, k, v, causal: bool, chunk_q: int, chunk_kv: int,
                     plain: bool):
     """``attention`` on the local shards of q (B, S, H, D) and k, v (B,
@@ -196,8 +215,14 @@ def _mesh_attention(q, k, v, causal: bool, chunk_q: int, chunk_kv: int,
     replicated over it.  Each rank attends its rows and heads against
     the kv heads they read (a slice when its heads cover whole groups,
     else one kv head gathered per q head); the kv gradients of a rank
-    cover its slice and sum over the model axis."""
-    from torch.distributed.tensor import Replicate, Shard
+    cover its slice and sum over the model axis.  Where the model axis
+    does not divide the heads, q stays replicated over it and the ranks
+    split the heads in ``head_groups`` as GSPMD does: each rank attends
+    its group's H / f heads, one rank of each group writes them into an
+    output that is zero elsewhere, and the output is the Partial sum of
+    those (exact: each element is one group's value plus zeros), its
+    gradients Partial over the model axis the same way."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = sharding.current_mesh()
     q = sharding.constrain(q, "batch", None, "model", None)
     k = sharding.constrain(k, "batch", None, None, None)
@@ -206,22 +231,45 @@ def _mesh_attention(q, k, v, causal: bool, chunk_q: int, chunk_kv: int,
     head_dims = [m for m, p in enumerate(q_pl) if p == Shard(2)]
     kv_pl = tuple(Replicate() if m in head_dims else p
                   for m, p in enumerate(q_pl))
-    G = q.shape[2] // k.shape[2]
+    H, D = q.shape[2], q.shape[3]
+    G = H // k.shape[2]
+    group_dims, M, f = head_groups(H, D, mesh)
+    if head_dims or f == 1:
+        group_dims = []
+
+    def heads(ql, kl, vl, h0, Hl):
+        if Hl % G == 0:
+            return (ql, kl[:, :, h0 // G:(h0 + Hl) // G],
+                    vl[:, :, h0 // G:(h0 + Hl) // G])
+        idx = torch.arange(h0, h0 + Hl, device=kl.device) // G
+        return ql, kl.index_select(2, idx), vl.index_select(2, idx)
 
     def local(ql, kl, vl):
         if head_dims:
             Hl = ql.shape[2]
             h0 = sharding.mesh_coordinate(mesh, head_dims) * Hl
-            if Hl % G == 0:
-                kl = kl[:, :, h0 // G:(h0 + Hl) // G]
-                vl = vl[:, :, h0 // G:(h0 + Hl) // G]
-            else:
-                heads = torch.arange(h0, h0 + Hl, device=kl.device) // G
-                kl, vl = kl.index_select(2, heads), vl.index_select(2, heads)
-        return attention(ql, kl, vl, causal, chunk_q, chunk_kv, plain=plain)
+            return attention(*heads(ql, kl, vl, h0, Hl), causal, chunk_q,
+                             chunk_kv, plain=plain)
+        if not group_dims:
+            return attention(ql, kl, vl, causal, chunk_q, chunk_kv,
+                             plain=plain)
+        g, replica = divmod(sharding.mesh_coordinate(mesh, group_dims),
+                            M // f)
+        Hl = H // f
+        h0 = g * Hl
+        o = attention(*heads(ql[:, :, h0:h0 + Hl], kl, vl, h0, Hl), causal,
+                      chunk_q, chunk_kv, plain=plain)
+        if replica:
+            o = torch.where(torch.zeros((), dtype=torch.bool,
+                                        device=o.device), o, 0)
+        zeros = o.new_zeros
+        return torch.cat([zeros(*o.shape[:2], h0, D), o,
+                          zeros(*o.shape[:2], H - h0 - Hl, D)], dim=2)
 
+    out_pl = tuple(Partial() if m in group_dims else p
+                   for m, p in enumerate(q_pl))
     return sharding.island(local, mesh, (q, k, v), (q_pl, kv_pl, kv_pl),
-                           q_pl)
+                           out_pl, split_dims=group_dims)
 
 
 def _decode_partial(q, k, v, tpos, pos, start):

@@ -11,7 +11,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import is_dtensor
+from repro_torch.dist.sharding import grad_as_value, is_dtensor
 
 
 def _mean_last(x: torch.Tensor) -> torch.Tensor:
@@ -37,11 +37,67 @@ def _mean_last(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=-1, keepdim=True)
 
 
+def _reduced(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with a Partial placement reduced there (Replicate): a
+    norm is not linear, and GSPMD reduces its input once, where DTensor
+    would reduce it for the statistic alone and carry the Partial value
+    on through the scale into the next products (a decode step's
+    residual after the row-parallel output projection)."""
+    if is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        from torch.distributed.tensor import Replicate
+        return x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    return x
+
+
+def split_heads(x, n: int, hd: int):
+    """x (..., n * hd) as (..., n, hd).  Under a mesh DTensor unflattens a
+    sharded feature dim only when its split falls on whole heads; where
+    the mesh dims that split it do not divide n (qwen2-0.5b's 14 heads
+    over a model axis of 16, a reduced Mamba2's 8 SSD heads) the dim is
+    replicated first, as GSPMD reshards it there in the JAX package."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        last = x.dim() - 1
+        on = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+        split = 1
+        for i, o in enumerate(on):
+            split *= x.device_mesh.size(i) if o else 1
+        if n % split:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if o else p for p, o in zip(x.placements, on)])
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """(..., n, hd) -> (..., n * hd), whose backward splits the gradient
+    with ``split_heads``: the gradient that comes back from the output
+    projection may be split over the model axis where n is not."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n, ctx.hd = x.shape[-2], x.shape[-1]
+        return x.reshape(*x.shape[:-2], ctx.n * ctx.hd)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.n, ctx.hd)
+
+
+def merge_heads(x):
+    """(..., n, hd) -> (..., n * hd); under a mesh through
+    ``_MergeHeads``, a plain reshape otherwise."""
+    if is_dtensor(x):
+        return _MergeHeads.apply(x)
+    return x.reshape(*x.shape[:-2], -1)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm: the variance accumulates in f32, the rsqrt factor and the
     scale are applied in x's dtype (as the JAX package does, to keep bf16
     activations from being upcast wholesale)."""
+    x = _reduced(x)
     var = _mean_last((x * x).to(torch.float32))
     r = torch.rsqrt(var + eps).to(x.dtype)
     return x * r * scale.to(x.dtype)
@@ -51,16 +107,36 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with f32 statistics (biased variance) and f32 scale and
     bias; the output in x's dtype."""
-    x32 = x.to(torch.float32)
+    x32 = _reduced(x).to(torch.float32)
     mu = _mean_last(x32)
     var = _mean_last((x32 - mu) ** 2)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
 
 
+def _contracted_split(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x with its last dim split as a row-parallel weight's first dim is
+    (a free slice of a replicated x; a Partial one reduce-scattered), as
+    GSPMD splits a dot's operand along a sharded contracting dim.
+    DTensor would slice x inside the product and keep the whole x for the
+    backward, whose weight gradient it then computes whole on every
+    rank."""
+    from torch.distributed.tensor import Shard
+    last = x.dim() - 1
+    pl = [Shard(last) if p == Shard(0) and (q.is_replicate() or
+                                            q.is_partial()) else q
+          for p, q in zip(w.placements, x.placements)]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = x @ w
+    if w.dim() == 2 and is_dtensor(x) and is_dtensor(w):
+        y = grad_as_value(_contracted_split(x, w) @ w)
+    else:
+        y = x @ w
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -68,8 +144,8 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``.  Under a device mesh (a DTensor table) the
-    gather runs on each rank's token rows against the whole table, in an
-    island: DTensor does not propagate the indexing."""
+    gather runs in an island on each rank's token rows against its rows
+    of the table: DTensor does not propagate the indexing."""
     from repro_torch.dist import sharding
     if sharding.on_mesh(tokens, table):
         return _mesh_embed(tokens, table)
@@ -78,22 +154,76 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def _mesh_embed(tokens, table):
     """The embedding gather under a mesh: the tokens batch-sharded, the
-    table gathered whole (its gradient comes back Partial over the batch
-    axes and is reduced to the table's own placements)."""
-    from torch.distributed.tensor import Replicate, Shard
+    table's vocabulary split over the model axis where it divides V and
+    its d as ``sharding.vocab_split`` leaves it.  Each rank gathers the
+    rows it owns and zeroes the others; the sum over the vocabulary's
+    ranks (a Partial value) is reduced, and a split d gathered, to
+    ("batch", None, ...).  The table's gradient stays on each rank's
+    rows, Partial over the batch axes and reduced to the table's own
+    placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from repro_torch.dist import sharding
     mesh = sharding.current_mesh()
-    tokens = sharding.place(tokens, "batch", *([None] * (tokens.dim() - 1)))
+    rest = [None] * (tokens.dim() - 1)
+    tokens = sharding.place(tokens, "batch", *rest)
     tok_pl = tuple(tokens.placements)
-    out_pl = tuple(Shard(0) if p == Shard(0) else Replicate()
-                   for p in tok_pl)
-    return sharding.island(lambda t, e: e[t], mesh, (tokens, table),
-                           (tok_pl, (Replicate(),) * mesh.ndim), out_pl)
+    t_pl, dims, d_dims = sharding.vocab_split(table, tok_pl)
+    out_pl = tuple(Shard(0) if p == Shard(0) else
+                   Partial() if m in dims else
+                   Shard(tokens.dim()) if m in d_dims else Replicate()
+                   for m, p in enumerate(tok_pl))
+
+    def local(t, e):
+        if not dims:
+            return e[t]
+        V = e.shape[0]
+        i = t.long() - sharding.mesh_coordinate(mesh, dims) * V
+        own = (i >= 0) & (i < V)
+        return e[torch.where(own, i, 0)].masked_fill(~own[..., None], 0)
+
+    out = sharding.island(local, mesh, (tokens, table), (tok_pl, t_pl),
+                          out_pl)
+    return sharding.constrain(out, "batch", *rest, None)
 
 
-def unembed(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits via the (possibly tied) embedding table: (..., d) @ (V, d)^T."""
+def unembed(h: torch.Tensor, table: torch.Tensor,
+            upcast: bool = False) -> torch.Tensor:
+    """Logits via the (possibly tied) embedding table: (..., d) @ (V,
+    d)^T, both in f32 when ``upcast``.  Under a device mesh the product
+    runs in an island on each rank's rows of the table (the vocabulary
+    over the model axis where it divides V, as in ``embed``), and the
+    logits come out split over the vocabulary as the table is, never
+    whole on a rank."""
+    from repro_torch.dist import sharding
+    if sharding.on_mesh(h, table):
+        return _mesh_unembed(h, table, upcast)
+    if upcast:
+        h, table = h.to(torch.float32), table.to(torch.float32)
     return h @ table.T
+
+
+def _mesh_unembed(h, table, upcast: bool):
+    """``unembed`` under a mesh: h batch-sharded, the table as
+    ``sharding.vocab_split`` places it; the logits split over the
+    vocabulary, Partial over a mesh dim that splits d."""
+    from torch.distributed.tensor import Partial, Shard
+    from repro_torch.dist import sharding
+    h = sharding.constrain(h, "batch", *([None] * (h.dim() - 1)))
+    t_pl, _, d_dims = sharding.vocab_split(table, h.placements)
+    last = h.dim() - 1
+    h_pl = tuple(Shard(last) if m in d_dims else p
+                 for m, p in enumerate(h.placements))
+    out_pl = tuple(Shard(last) if t == Shard(0) else
+                   Partial() if m in d_dims else p
+                   for m, (p, t) in enumerate(zip(h.placements, t_pl)))
+
+    def local(hl, tl):
+        if upcast:
+            hl, tl = hl.to(torch.float32), tl.to(torch.float32)
+        return hl @ tl.T
+
+    return sharding.island(local, sharding.current_mesh(), (h, table),
+                           (h_pl, t_pl), out_pl)
 
 
 def _inv_freqs(half: int, theta: float, device) -> torch.Tensor:
@@ -144,14 +274,49 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
+# XLA's f32 exp on the CPU: Cephes' range reduction and degree-5
+# polynomial, each step one fused multiply-add
+_LN2_HI, _LN2_LO = 0.693359375, -2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _exp_as_xla(x: torch.Tensor) -> torch.Tensor:
+    """exp of an f32 tensor as the JAX package's CPU backend computes it,
+    bit for bit: n = floor(x log2 e + 1/2), r = x - n ln 2 in two parts,
+    the polynomial in r by Horner's rule, 2^n (1 + r + r^2 p(r)).  Each
+    fused multiply-add runs in f64 (the product of two f32 values is
+    exact there) and is rounded to f32.  A correctly rounded exp differs
+    from it by an ulp on about a tenth of f32 arguments."""
+    f32, f64 = torch.float32, torch.float64
+
+    def const(v):
+        return torch.tensor(v, dtype=f32, device=x.device)
+
+    def fma(a, b, c):
+        return (a.to(f64) * b.to(f64) + c.to(f64)).to(f32)
+
+    x = torch.clamp(x, -104.0, 88.8)
+    n = torch.floor(x * const(1.44269504088896341) + const(0.5))
+    r = fma(n, const(-_LN2_HI), x)
+    r = fma(n, const(-_LN2_LO), r)
+    y = const(_EXP_POLY[0]).expand_as(r)
+    for p in _EXP_POLY[1:]:
+        y = fma(y, r, const(p))
+    y = fma(y, r * r, r) + const(1.0)
+    return y * torch.exp2(n)
+
+
 def sinusoidal_positions(positions: torch.Tensor,
                          d_model: int) -> torch.Tensor:
     """Whisper's fixed sinusoidal embeddings: positions (..., S) -> (...,
-    S, d_model) f32, the sines then the cosines."""
+    S, d_model) f32, the sines then the cosines.  The frequencies are the
+    JAX package's f32 exponents through ``_exp_as_xla``, so the table is
+    the JAX package's up to sin and cos."""
     half = d_model // 2
-    scale = torch.exp(-torch.arange(half, dtype=torch.float32,
-                                    device=positions.device)
-                      * (math.log(10000.0) / max(1, half - 1)))
+    scale = _exp_as_xla(-torch.arange(half, dtype=torch.float32,
+                                      device=positions.device)
+                        * (math.log(10000.0) / max(1, half - 1)))
     ang = positions.to(torch.float32)[..., None] * scale
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 

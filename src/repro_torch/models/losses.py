@@ -14,12 +14,21 @@ arithmetic.  These are plain large matrix products (the JAX function
 computes them in jnp, outside any Pallas kernel), so ``torch.matmul`` is
 their counterpart here.
 
-Under a device mesh the loss runs on each rank's batch rows against the
-whole table, in an island: each rank's share of the mean is its rows'
-mean times its share of the rows, a Partial value summed over the batch
-axes.  The table's gradient leaves the island Partial over those axes
-and is reduced to the table's own ("model", "fsdp") placements: the JAX
-backward's ``constrain(dE, "model", "fsdp")``.
+Under a device mesh the loss runs in an island on each rank's batch rows
+against its rows of the table: the vocabulary split over the model axis
+where that axis divides V (the JAX table's ("model", "fsdp"), under
+which GSPMD splits the logsumexp and the gold gather), the fsdp split
+gathered.  Each rank reduces its chunk logits to a local logsumexp and
+the gold logits of the labels it owns; after the chunks the statistics
+are combined over the vocabulary's mesh dims (lse = m + log sum_r
+exp(lse_r - m), m = max_r lse_r; the gold logits summed).  The backward
+is the same chunk arithmetic on the local rows: dh comes out Partial
+over the model axis, and dE is this rank's (V / m, d) rows, leaving
+with the table's placements over "model" (JAX's ``constrain(dE,
+"model", "fsdp")``).  Each rank's share of the mean is its rows' mean
+times its share of the rows, a Partial value summed over the batch
+axes; dE is Partial over those axes and reduced to the table's own
+placements.
 """
 from __future__ import annotations
 
@@ -34,26 +43,56 @@ def _chunk_logits(h_c: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h_c, table.t()).to(torch.float32)
 
 
+def _combine_lse(lse, gold, mesh, dims):
+    """Each rank's logsumexp and gold logits over its vocabulary rows,
+    combined over the mesh dims ``dims`` that split the vocabulary."""
+    import torch.distributed._functional_collectives as funcol
+    for d in dims:
+        group = (mesh, d)
+        m = funcol.all_reduce(lse, "max", group)
+        lse = m + torch.log(funcol.all_reduce(torch.exp(lse - m), "sum",
+                                              group))
+        gold = funcol.all_reduce(gold, "sum", group)
+    return lse, gold
+
+
 class _FusedXent(torch.autograd.Function):
+    """``vocab``: None (the table is the whole vocabulary), or (mesh,
+    dims) for a table that holds this rank's rows of a vocabulary split
+    over the mesh dims ``dims``; labels are global token ids either
+    way."""
 
     @staticmethod
-    def forward(ctx, h, table, labels, chunk):
+    def forward(ctx, h, table, labels, chunk, vocab=None):
         B, S, _ = h.shape
+        own = None
+        labels = labels.long()
+        if vocab is not None:
+            mesh, dims = vocab
+            V = table.shape[0]
+            labels = labels - sharding.mesh_coordinate(mesh, dims) * V
+            own = (labels >= 0) & (labels < V)
+            labels = torch.where(own, labels, 0)
         lse = torch.empty((B, S), dtype=torch.float32, device=h.device)
         gold = torch.empty((B, S), dtype=torch.float32, device=h.device)
         for c0 in range(0, S, chunk):
             logits = _chunk_logits(h[:, c0:c0 + chunk], table)
             lse[:, c0:c0 + chunk] = torch.logsumexp(logits, dim=-1)
-            gold[:, c0:c0 + chunk] = torch.gather(
-                logits, -1, labels[:, c0:c0 + chunk, None].long())[..., 0]
+            g = torch.gather(logits, -1,
+                             labels[:, c0:c0 + chunk, None])[..., 0]
+            if own is not None:
+                g = torch.where(own[:, c0:c0 + chunk], g, 0.0)
+            gold[:, c0:c0 + chunk] = g
             del logits
-        ctx.save_for_backward(h, table, labels, lse)
+        if vocab is not None:
+            lse, gold = _combine_lse(lse, gold, *vocab)
+        ctx.save_for_backward(h, table, labels, lse, own)
         ctx.chunk = chunk
         return torch.mean(lse - gold)
 
     @staticmethod
     def backward(ctx, g):
-        h, table, labels, lse = ctx.saved_tensors
+        h, table, labels, lse, own = ctx.saved_tensors
         B, S, _ = h.shape
         chunk = ctx.chunk
         scale = g.to(torch.float32) / (B * S)
@@ -63,8 +102,10 @@ class _FusedXent(torch.autograd.Function):
             h_c = h[:, c0:c0 + chunk]
             p = _chunk_logits(h_c, table)
             p.sub_(lse[:, c0:c0 + chunk, None]).exp_()          # softmax
-            idx = labels[:, c0:c0 + chunk, None].long()
-            p.scatter_(-1, idx, torch.gather(p, -1, idx) - 1.0)
+            idx = labels[:, c0:c0 + chunk, None]
+            one = 1.0 if own is None else \
+                own[:, c0:c0 + chunk, None].to(p.dtype)
+            p.scatter_(-1, idx, torch.gather(p, -1, idx) - one)
             dlog = p.mul_(scale)
             d_t = dlog.to(table.dtype)
             d_h = d_t if h.dtype == table.dtype else dlog.to(h.dtype)
@@ -73,7 +114,7 @@ class _FusedXent(torch.autograd.Function):
             dE += torch.matmul(d_h.flatten(0, 1).t(),
                                h_c.flatten(0, 1)).to(torch.float32)
             del d_t, d_h
-        return dh, dE.to(table.dtype), None, None
+        return dh, dE.to(table.dtype), None, None, None
 
 
 def chunk_size(S: int, chunk: int) -> int:
@@ -104,13 +145,14 @@ def _mesh_xent(h, table, labels, chunk: int):
     h_pl = tuple(h.placements)
     rows_pl = tuple(Shard(0) if p == Shard(0) else Replicate()
                     for p in h_pl)
+    t_pl, dims, _ = sharding.vocab_split(table)
+    vocab = (mesh, dims) if dims else None
     B = h.shape[0]
 
     def local(hl, tl, ll):
-        return _FusedXent.apply(hl, tl, ll, chunk) * (hl.shape[0] / B)
+        return _FusedXent.apply(hl, tl, ll, chunk, vocab) * (hl.shape[0] / B)
 
     loss = sharding.island(
-        local, mesh, (h, table, labels),
-        (h_pl, (Replicate(),) * mesh.ndim, rows_pl),
+        local, mesh, (h, table, labels), (h_pl, t_pl, rows_pl),
         tuple(Partial() if p == Shard(0) else Replicate() for p in h_pl))
     return sharding.constrain(loss)

@@ -39,7 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding
-from repro_torch.models.layers import dense, rmsnorm
+from repro_torch.models.layers import (
+    dense, merge_heads, rmsnorm, split_heads)
 
 
 def _on_local_shards(fn, x, args, arg_dims, out_dims):
@@ -309,7 +310,7 @@ def mamba2_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     state.  Returns (out, state): for a prefill the state stepping over
     x from zero would leave (see the module docstring), for a decode step
     the updated state."""
-    Bsz, S, d = x.shape
+    d = x.shape[-1]
     d_in = d * cfg.ssm_expand
     hd = cfg.ssm_head_dim
     H = d_in // hd
@@ -323,23 +324,23 @@ def mamba2_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         tail = conv_tail(xr, cfg.ssm_conv)
         xr = F.silu(causal_conv(xr, p["conv_w"], p["conv_b"]))
         dt = F.softplus(dt_raw + p["dt_bias"])
-        xh = xr.reshape(Bsz, S, H, hd)
+        xh = split_heads(xr, H, hd)
         if sharding.on_mesh(xh, dt, A, B_c, C_c):
             y, h_fin = _mesh_scan(
                 functools.partial(ssd_scan, chunk=cfg.ssm_chunk),
                 xh, dt, A, B_c, C_c)
         else:
             y, h_fin = ssd_scan(xh, dt, A, B_c, C_c, cfg.ssm_chunk)
-        y = (y + xh * p["D"][None, None, :, None]).reshape(Bsz, S, d_in)
+        y = merge_heads(y + xh * p["D"][None, None, :, None])
         y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
         return dense(y, p["out_proj"]), Mamba2State(conv=tail, ssm=h_fin)
 
     x_t, new_conv = conv_step(xr[:, 0], state.conv, p["conv_w"], p["conv_b"])
     x_t = F.silu(x_t)
     dt_t = F.softplus(dt_raw[:, 0] + p["dt_bias"])
-    xh = x_t.reshape(Bsz, H, hd)
+    xh = split_heads(x_t, H, hd)
     y, h_new = ssd_step(xh, dt_t, A, B_c[:, 0], C_c[:, 0], state.ssm)
-    y = (y + xh * p["D"][None, :, None]).reshape(Bsz, d_in)
+    y = merge_heads(y + xh * p["D"][None, :, None])
     y = rmsnorm(y * F.silu(z[:, 0]), p["norm"], cfg.norm_eps)
     out = dense(y, p["out_proj"])[:, None]
     return out, Mamba2State(conv=new_conv, ssm=h_new)

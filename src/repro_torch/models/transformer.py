@@ -70,7 +70,8 @@ from repro_torch.models.attention import (
 from repro_torch.models.kv_quant import quantize_rows
 from repro_torch.models.layers import (
     apply_rope, dense, embed, gelu_mlp, layernorm, mrope_angles, rmsnorm,
-    rope_angles, sinusoidal_positions, swiglu, unembed)
+    rope_angles, sinusoidal_positions, merge_heads, split_heads, swiglu,
+    unembed)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import ParamDecl, map_schema, stacked
 
@@ -363,48 +364,6 @@ def _streams(cfg: ArchConfig, positions):
     return positions
 
 
-def split_heads(x, n: int, hd: int):
-    """x (B, S, n * hd) as (B, S, n, hd).  Under a mesh DTensor unflattens
-    a sharded feature dim only when its split falls on whole heads; where
-    the mesh dims that split it do not divide n (qwen2-0.5b's 14 heads
-    over a model axis of 16) the dim is replicated first, as GSPMD
-    reshards it there in the JAX package."""
-    if is_dtensor(x):
-        from torch.distributed.tensor import Replicate, Shard
-        last = x.dim() - 1
-        on = [isinstance(p, Shard) and p.dim == last for p in x.placements]
-        split = 1
-        for i, o in enumerate(on):
-            split *= x.device_mesh.size(i) if o else 1
-        if n % split:
-            x = x.redistribute(x.device_mesh, [
-                Replicate() if o else p for p, o in zip(x.placements, on)])
-    return x.reshape(*x.shape[:-1], n, hd)
-
-
-class _MergeHeads(torch.autograd.Function):
-    """(B, S, n, hd) -> (B, S, n * hd), whose backward splits the gradient
-    with ``split_heads``: the gradient that comes back from the output
-    projection may be split over the model axis where n is not."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.n, ctx.hd = x.shape[-2], x.shape[-1]
-        return x.reshape(*x.shape[:-2], ctx.n * ctx.hd)
-
-    @staticmethod
-    def backward(ctx, g):
-        return split_heads(g, ctx.n, ctx.hd)
-
-
-def merge_heads(x):
-    """(B, S, n, hd) -> (B, S, n * hd); under a mesh through
-    ``_MergeHeads``, a plain reshape otherwise."""
-    if is_dtensor(x):
-        return _MergeHeads.apply(x)
-    return x.reshape(*x.shape[:-2], -1)
-
-
 def _qkv(hn, p, cfg: ArchConfig, rope, decode: bool = False):
     """q (B, S, H, hd), k and v (B, S, KV, hd), rope applied; q sharded
     over its heads on the model axis (replicated there in a decode or
@@ -658,10 +617,12 @@ def _embed_in(params, cfg: ArchConfig, inputs):
 
 
 def _logits_exact(params, cfg: ArchConfig, h):
-    """f32 unembed for the positions whose logits decide a token."""
+    """f32 unembed for the positions whose logits decide a token; under a
+    mesh each rank multiplies by its rows of the table, and the logits
+    stay split over the vocabulary (``layers.unembed``)."""
     h = apply_norm(h, params["ln_f"], cfg)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = unembed(h.to(torch.float32), table.to(torch.float32))
+    logits = unembed(h, table, upcast=True)
     return constrain(logits, "batch", None, "model")
 
 

@@ -26,6 +26,7 @@ bit-exact from the JAX tree, 32 frames from a numpy seed.
     'frames'``; so does the launcher.
 """
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -111,19 +112,21 @@ def test_gelu_mlp():
 
 @pytest.mark.parametrize("d_model", [64, 1280])
 def test_sinusoidal_positions(d_model):
-    """At whisper's 1500 encoder positions.  Each package's f32 ``exp``
-    rounds some frequencies an ulp apart (XLA's is not correctly rounded,
-    and neither table is the more exact), and sin and cos carry that ulp
-    times the position: the bound is FN_TOL's atol plus two f32 ulps of
-    relative frequency error times the position, so rows below 40 are
-    held at FN_TOL."""
+    """At whisper's 1500 encoder positions.  The frequencies are XLA's f32
+    ``exp`` of the same exponents bit for bit (``_exp_as_xla``), so the
+    tables differ only by sin and cos of the same f32 angles: within one
+    f32 ulp at 1 everywhere.  (A frequency an ulp off would move the
+    angle by up to an ulp at position 1500, 1.2e-4.)"""
     pos = np.arange(1500, dtype=np.int32)[None]
     t = tl.sinusoidal_positions(torch.from_numpy(pos), d_model)
     j = np.asarray(jl.sinusoidal_positions(jnp.asarray(pos), d_model))
     assert t.shape == (1, 1500, d_model)
-    bound = FN_TOL["atol"] + pos[0, :, None] * 2.0 ** -22
-    assert (np.abs(t.numpy()[0] - j[0]) <= bound).all()
-    np.testing.assert_allclose(t.numpy()[0, :40], j[0, :40], **FN_TOL)
+    half = d_model // 2
+    exps = -np.arange(half, dtype=np.float32) * np.float32(
+        math.log(10000.0) / max(1, half - 1))
+    assert np.array_equal(tl._exp_as_xla(torch.from_numpy(exps)).numpy(),
+                          np.asarray(jnp.exp(jnp.asarray(exps))))
+    np.testing.assert_allclose(t.numpy()[0], j[0], rtol=0, atol=2.0 ** -23)
 
 
 def test_encode_and_forward_match_jax():
