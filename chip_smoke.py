@@ -373,9 +373,17 @@ Phases, each failing loudly (non-zero exit, no result line):
                two runs on the same NCCL group, the same hard checks,
                the selective scan exactly 2 x 4 launches a step in both
                (forward and recompute; inside the scan island of
-               ``models/ssm.py`` when sharded).  Prints both archs' step
-               ms and the phase's seconds beside the card's name and
-               power limit.
+               ``models/ssm.py`` when sharded).  Then whisper-large-v3
+               at full width, 4 + 4 layers (``mesh_whisper_decode``): a
+               plain-route prefill of 4 x 1500 frames, then one decode
+               step unsharded and one on the same group under the dry
+               run's decode rules, the self and cross caches over
+               ``cache_seq``: the cross-attention island
+               (``mesh_cross_attention``) once a layer, logits within
+               LOGIT_ULPS bf16 ulps of the unsharded step's (printed:
+               bitwise equal or not), the same greedy tokens.  Prints
+               both archs' step ms and the phase's seconds beside the
+               card's name and power limit.
   5. stream  — holds BabelStream's five kernels against their plain
                versions in f32 and bf16 (the JAX tests' shapes, odd
                shapes that exercise the bounds guards, ragged last
@@ -443,7 +451,12 @@ Phases, each failing loudly (non-zero exit, no result line):
                FLOPs a device (``unembedding_flops``: the fused loss's
                four products on a rank's 1/16 of the vocabulary) beside
                the whole vocabulary's, held at most 1/16 of it, with the
-               cell's useful ratio.  Either part failing fails the run.
+               cell's useful ratio.  Beside it, in another subprocess,
+               ``--arch whisper-large-v3 --shape decode_32k``: its
+               summary line, and its tensor-core FLOPs a device held
+               below 1.0e10 and its collective wire below 1 GB (the
+               decode's cross-attention split over the cross cache's
+               sequence).  Any part failing fails the run.
 
 The line before the last is the kernels summary (JSON), every kernel's
 bound taken against the data sheet's 3.35 TB/s (``bound_ms``), and
@@ -5109,6 +5122,96 @@ def mesh_held(tag, runs, kernel, want):
     return ms, bitwise
 
 
+MESH_WHISPER_LAYERS = 4          # of whisper-large-v3's 32 + 32
+
+
+def mesh_whisper_decode(torch, mesh):
+    """whisper-large-v3 at full width, 4 + 4 layers (bf16, weights from
+    seed 2), on the plain route: 4 requests of AUDIO_FRAMES frames and 4
+    prompt tokens prefilled unsharded into a cache of AUDIO_FRAMES rows,
+    then one decode step unsharded and one on ``mesh`` under the dry
+    run's decode rules (the cache placed by ``reshard``: the self and the
+    cross cache over ``cache_seq``), the cross-attention inside
+    ``mesh_cross_attention`` once a layer.  Hard: the sharded logits
+    within LOGIT_ULPS bf16 ulps of the unsharded ones (the island
+    normalizes each head's softmax after the value product, the plain
+    route before it) and the same greedy tokens.  Returns its readings."""
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models import transformer
+    from repro_torch.models.model import get_model
+    from repro_torch.train.elastic import reshard
+    cfg = dataclasses.replace(configs.get(AUDIO_ARCH),
+                              n_layers=MESH_WHISPER_LAYERS,
+                              encoder_layers=MESH_WHISPER_LAYERS,
+                              attn_chunk_q=WHISPER_CHUNK,
+                              attn_chunk_kv=WHISPER_CHUNK)
+    m = get_model(cfg, plain_attention=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    params = m.init(gen, "cuda")
+    batch = audio_inputs(torch, gen, cfg, MESH_B)
+    last, parts = m.prefill(params, batch)
+    cache = m.init_cache(MESH_B, AUDIO_FRAMES, "cuda")
+    for k, src in parts.items():
+        cache[k][:, :, :src.shape[2]] = src
+    del parts
+    cache["pos"] = torch.tensor(batch["tokens"].shape[1], dtype=torch.int32,
+                                device="cuda")
+    first = last.argmax(-1).to(torch.int32)[:, None]
+    want, _ = m.decode_step(params, first, copy.deepcopy(cache))
+    shape = ShapeConfig("decode", AUDIO_FRAMES, MESH_B, "decode")
+    rules = rules_for(m, configs.SHAPES["decode_32k"], multi_pod=False)
+    specs = m.batch_pspecs(shape, rules)
+    island, calls = transformer.mesh_cross_attention, []
+
+    def counted(*a):
+        calls.append(1)
+        return island(*a)
+
+    transformer.mesh_cross_attention = counted
+    try:
+        with use_mesh(mesh, rules):
+            c = reshard(cache, specs["cache"], mesh)
+            placed = str(c["cross_k"].placements)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = m.decode_step(reshard(params, m.param_pspecs(rules),
+                                           mesh),
+                                   reshard(first, specs["tokens"], mesh), c)
+            got = got.full_tensor()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+    finally:
+        transformer.mesh_cross_attention = island
+    if len(calls) != cfg.n_layers:
+        raise AssertionError(f"mesh: whisper decode: the cross-attention "
+                             f"island ran {len(calls)} times, not once a "
+                             f"layer ({cfg.n_layers})")
+    err, lim = ulp_check("mesh", f"{AUDIO_ARCH} decode step ({cfg.n_layers} "
+                         f"layers) sharded vs unsharded", got, want)
+    same = torch.equal(got.argmax(-1), want.argmax(-1))
+    bitwise = torch.equal(got, want)
+    if not (same and torch.isfinite(got).all()):
+        raise AssertionError("mesh: whisper decode: the sharded step's "
+                             "greedy tokens differ or its logits are not "
+                             "finite")
+    log(f"[mesh] {AUDIO_ARCH} at full width, {cfg.n_layers} + "
+        f"{cfg.encoder_layers} layers, B {MESH_B}, a {AUDIO_FRAMES}-row "
+        f"cross cache placed {placed} under {rules}: one decode step, the "
+        f"cross-attention island {len(calls)} times, greedy tokens equal, "
+        f"logits bitwise equal: {bitwise} (max|diff| {err:.4e}, bound "
+        f"{lim:.4e}); sharded step {step_s * 1e3:.1f} ms with DTensor's "
+        f"first-call dispatch")
+    return dict(islands=len(calls), max_abs_err=err, bitwise=bitwise,
+                step_ms=step_s * 1e3)
+
+
 def mesh_phase(torch):
     """See the module docstring's ``mesh``."""
     import torch.distributed as dist
@@ -5166,6 +5269,9 @@ def mesh_phase(torch):
             del tr
             gc.collect()
             torch.cuda.empty_cache()
+        whisper = mesh_whisper_decode(torch, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     out = {}
@@ -5185,7 +5291,7 @@ def mesh_phase(torch):
         f"scan {m['launches_per_step']} launches a step (inside its island "
         f"when sharded); phase {time.perf_counter() - t_phase:.1f} s; on "
         f"{gpu_line()}")
-    return dict(q, mamba=m)
+    return dict(q, mamba=m, whisper=whisper)
 
 
 # ---------------------------------------------------------------------------
@@ -5823,6 +5929,13 @@ def irm_phase(torch, res, clocks, gpu, listing, counter, points):
 
 
 PROFILE_CELL = ("qwen2-0.5b", "train_4k")   # the dry run's 16 x 16 cell
+# whisper's decode cell on the 16 x 16 mesh, its cross-attention split
+# over the cross cache's 32,768 rows: the JAX package's census of the
+# same cell (its run_cell, a CPU figure) counts 8.7378e9 tensor-core
+# FLOPs a device, and the gather of the whole cross cache on every rank
+# counted 1.6791e10 and 40.3 GB of wire a device in the port
+CROSS_CELL = ("whisper-large-v3", "decode_32k")
+CROSS_MAX_FLOPS, CROSS_MAX_WIRE = 1.0e10, 1e9
 
 
 def profile_train_step(torch, train, ceiling_gbs):
@@ -5891,35 +6004,68 @@ def unembedding_flops(rec):
     return unembed, whole
 
 
-def profile_phase(torch, train, ceiling_gbs, gpu):
-    """See the module docstring's ``profile``.  ``train`` is the train
-    phase's readings (median step ms, peak memory), ``ceiling_gbs`` the
-    stream phase's measured copy rate."""
+def start_dryrun(arch, shape_name):
+    """``python -m repro_torch.launch.dryrun`` of one production cell in
+    a subprocess, CUDA hidden (its fake 256-rank group never meets the
+    mesh phase's NCCL group), its output to files (a full pipe would
+    stall it).  Returns (the process, its temporary directory)."""
     import os
     import tempfile
-    t0 = time.perf_counter()
-    arch, shape_name = PROFILE_CELL
     out_dir = tempfile.TemporaryDirectory(prefix="dryrun-")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(ROOT / "src"))
-    # the production cell traces in a subprocess, beside this one's trace
-    # (its output to files: a full pipe would stall it)
-    out_path = Path(out_dir.name) / "stdout.txt"
-    err_path = Path(out_dir.name) / "stderr.txt"
-    with open(out_path, "w") as fo, open(err_path, "w") as fe:
+    with open(Path(out_dir.name) / "stdout.txt", "w") as fo, \
+            open(Path(out_dir.name) / "stderr.txt", "w") as fe:
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape_name, "--out-dir", out_dir.name],
             cwd=ROOT, env=env, stdout=fo, stderr=fe)
-        try:
-            modeled, measured, census, trace_s, hw, flops = \
-                profile_train_step(torch, train, ceiling_gbs)
+    return proc, out_dir
+
+
+def finish_dryrun(proc, out_dir, arch, shape_name, timeout=400):
+    """Waits for a ``start_dryrun`` cell, logs its summary line and
+    returns its record; raises if it failed."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    d = Path(out_dir.name)
+    stdout, stderr = (d / "stdout.txt").read_text(), \
+        (d / "stderr.txt").read_text()
+    path = d / f"{arch}__{shape_name}__pod16x16.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    out_dir.cleanup()
+    for ln in stdout.splitlines():
+        if ln.startswith("[dryrun]"):
+            log(f"[profile] {ln}")
+    if proc.returncode != 0 or "roofline" not in rec:
+        raise AssertionError(f"profile: the dry run of {arch}/{shape_name}"
+                             f" exited {proc.returncode}: "
+                             f"{rec.get('error')}\n{stderr[-3000:]}")
+    return rec
+
+
+def profile_phase(torch, train, ceiling_gbs, gpu):
+    """See the module docstring's ``profile``.  ``train`` is the train
+    phase's readings (median step ms, peak memory), ``ceiling_gbs`` the
+    stream phase's measured copy rate."""
+    t0 = time.perf_counter()
+    arch, shape_name = PROFILE_CELL
+    # both production cells trace in subprocesses, beside this one's trace
+    runs = [start_dryrun(*PROFILE_CELL), start_dryrun(*CROSS_CELL)]
+    try:
+        modeled, measured, census, trace_s, hw, flops = \
+            profile_train_step(torch, train, ceiling_gbs)
+        for proc, _ in runs:
             proc.wait(timeout=400)
-        finally:
+    finally:
+        for proc, _ in runs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    stdout, stderr = out_path.read_text(), err_path.read_text()
     rl, mem = modeled["roofline"], modeled["memory"]
     mfu_measured = flops / (train["step_ms"] / 1e3 * hw.peak_flops_bf16)
     for v in (rl["modeled_time_s"], rl["mfu_vs_peak"], mfu_measured,
@@ -5951,16 +6097,7 @@ def profile_phase(torch, train, ceiling_gbs, gpu):
         f"bytes {mem['device_total_bytes'] / 2 ** 30:.2f} GiB (census peak) "
         f"against {train['peak_gib']:.2f} GiB max_memory_allocated; HBM roof "
         f"{ceiling_gbs:.1f} GB/s (BabelStream copy); on {gpu}")
-    lines = [ln for ln in stdout.splitlines() if ln.startswith("[dryrun]")]
-    path = Path(out_dir.name) / f"{arch}__{shape_name}__pod16x16.json"
-    rec = json.loads(path.read_text()) if path.exists() else {}
-    out_dir.cleanup()
-    for ln in lines:
-        log(f"[profile] {ln}")
-    if proc.returncode != 0 or "roofline" not in rec:
-        raise AssertionError(f"profile: the dry run of {arch}/{shape_name}"
-                             f" exited {proc.returncode}: "
-                             f"{rec.get('error')}\n{stderr[-3000:]}")
+    rec = finish_dryrun(*runs[0], arch, shape_name)
     c = rec["census"]
     unembed, whole = unembedding_flops(rec)
     log(f"[profile] {rec['cell']} unembedding: {unembed:.6g} tensor-core "
@@ -5976,13 +6113,28 @@ def profile_phase(torch, train, ceiling_gbs, gpu):
         f"{c['tc_flops_f32']:.6g} f32; FlopCounterMode "
         f"{rec['flop_counter']['flops']:.6g}), {c['hbm_bytes'] / 1e9:.1f} GB "
         f"HBM and {c['collective_wire_bytes'] / 1e9:.3f} GB collective wire a "
-        f"device, useful ratio {rec['roofline']['useful_flops_ratio']:.4f}; "
-        f"the phase {time.perf_counter() - t0:.1f} s (the cell modeled on an "
-        f"H100 SXM's data sheet, not timed)")
+        f"device, useful ratio {rec['roofline']['useful_flops_ratio']:.4f}")
+    cross = finish_dryrun(*runs[1], *CROSS_CELL)
+    cc, crl = cross["census"], cross["roofline"]
+    log(f"[profile] {cross['cell']} record: {cc['tc_flops']:.6g} "
+        f"tensor-core FLOPs a device (below {CROSS_MAX_FLOPS:.3g}; the JAX "
+        f"package's 8.7378e9), {cc['collective_wire_bytes'] / 1e9:.4f} GB "
+        f"collective wire a device (below {CROSS_MAX_WIRE / 1e9:g}), "
+        f"{crl['dominant']}-bound, modeled {crl['modeled_time_s'] * 1e3:.2f} "
+        f"ms, useful ratio {crl['useful_flops_ratio']:.4f}; the phase "
+        f"{time.perf_counter() - t0:.1f} s (the cells modeled on an H100 "
+        f"SXM's data sheet, not timed)")
+    if not (0 < cc["tc_flops"] < CROSS_MAX_FLOPS
+            and cc["collective_wire_bytes"] < CROSS_MAX_WIRE):
+        raise AssertionError(
+            f"profile: {cross['cell']} counts {cc['tc_flops']} tensor-core "
+            f"FLOPs and {cc['collective_wire_bytes']} wire bytes a device: "
+            f"the decode's cross-attention is not split over the cross "
+            f"cache's sequence")
     return dict(modeled_ms=rl["modeled_time_s"] * 1e3,
                 dominant=rl["dominant"], measured_ms=train["step_ms"],
                 mfu_modeled=rl["mfu_vs_peak"], mfu_measured=mfu_measured,
-                cell=rec["roofline"])
+                cell=rec["roofline"], cross=crl)
 
 
 class Laps:

@@ -296,6 +296,36 @@ def _decode_partial(q, k, v, tpos, pos, start):
             p.sum(dim=-1).reshape(B, S, H))
 
 
+def _combine(o, m, l_, mesh, seq_dims):
+    """The ranks' softmax partials of ``_decode_partial`` combined over
+    the mesh dims ``seq_dims`` that split the cache's sequence: the
+    normalized attention output (B, 1, H, D) f32."""
+    import torch.distributed._functional_collectives as funcol
+    for d in seq_dims:
+        group = (mesh, d)
+        mx = funcol.all_reduce(m, "max", group)
+        w = torch.exp(m - mx)
+        l_ = funcol.all_reduce(l_ * w, "sum", group)
+        o = funcol.all_reduce(o * w[..., None], "sum", group)
+        m = mx
+    return o / l_[..., None]
+
+
+def _seq_sharded(k_cache, v_cache):
+    """The caches (B, T, KV, D) constrained by batch and ``cache_seq``:
+    (k_cache, v_cache, their placements, the mesh dims that split the
+    sequence, the placements of one row: the cache's, those dims
+    replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    k_cache = sharding.constrain(k_cache, "batch", "cache_seq", None, None)
+    v_cache = sharding.constrain(v_cache, "batch", "cache_seq", None, None)
+    c_pl = tuple(k_cache.placements)
+    seq_dims = [i for i, p in enumerate(c_pl) if p == Shard(1)]
+    row_pl = tuple(Replicate() if i in seq_dims else p
+                   for i, p in enumerate(c_pl))
+    return k_cache, v_cache, c_pl, seq_dims, row_pl
+
+
 def mesh_decode_attention(q, k, v, k_cache, v_cache, pos, start=None):
     """Whole-batch decode under a mesh (see the module doc): q (B, 1, H,
     D) and this step's k, v (B, 1, KV, D); the caches (B, T, KV, D)
@@ -303,15 +333,9 @@ def mesh_decode_attention(q, k, v, k_cache, v_cache, pos, start=None):
     (clamped into the cache, as ``dynamic_update_slice`` clamps); pos a
     replicated 0-d int, start (B,) or None.  Returns the attention output
     (B, 1, H, D) in q's dtype, placed as q."""
-    import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import Replicate, Shard
     mesh = sharding.current_mesh()
-    k_cache = sharding.constrain(k_cache, "batch", "cache_seq", None, None)
-    v_cache = sharding.constrain(v_cache, "batch", "cache_seq", None, None)
-    c_pl = tuple(k_cache.placements)
-    seq_dims = [i for i, p in enumerate(c_pl) if p == Shard(1)]
-    row_pl = tuple(Replicate() if i in seq_dims else p
-                   for i, p in enumerate(c_pl))
+    k_cache, v_cache, c_pl, seq_dims, row_pl = _seq_sharded(k_cache, v_cache)
     rep = tuple(Replicate() for _ in c_pl)
     q = sharding.constrain(q, "batch", None, None, None)
     k = sharding.constrain(k, "batch", None, None, None)
@@ -334,14 +358,40 @@ def mesh_decode_attention(q, k, v, k_cache, v_cache, pos, start=None):
             keep = c.index_select(1, r)
             c.index_copy_(1, r, torch.where(inside, new.to(c.dtype), keep))
         tpos = t0 + torch.arange(Tl, device=kc.device)
-        o, m, l_ = _decode_partial(ql, kc, vc, tpos, p, st)
-        for d in seq_dims:
-            group = (mesh, d)
-            mx = funcol.all_reduce(m, "max", group)
-            w = torch.exp(m - mx)
-            l_ = funcol.all_reduce(l_ * w, "sum", group)
-            o = funcol.all_reduce(o * w[..., None], "sum", group)
-            m = mx
-        return (o / l_[..., None]).to(ql.dtype)
+        return _combine(*_decode_partial(ql, kc, vc, tpos, p, st), mesh,
+                        seq_dims).to(ql.dtype)
 
     return sharding.island(local, mesh, tuple(args), tuple(pls), row_pl)
+
+
+def mesh_cross_attention(q, k_cache, v_cache):
+    """A decode step's cross-attention under a mesh: q (B, 1, H, D) over
+    every row of the read-only cross cache (B, T, KV, D), placed by batch
+    and ``cache_seq`` as the self cache.  q is replicated over the model
+    axis, so each rank attends all H heads over its T / m rows (GSPMD's
+    split of the JAX decode's ``direct_attention``); the padding rows take
+    part in the softmax, as there.  Returns (B, 1, H, D) in q's dtype,
+    placed by batch."""
+    from torch.distributed.tensor import Shard
+    mesh = sharding.current_mesh()
+    if sharding.active_rules() is None or not sharding.on_mesh(k_cache):
+        raise RuntimeError("mesh_cross_attention takes a DTensor cross "
+                           "cache under the active mesh (sharding.use_mesh)")
+    split = Shard(1) in k_cache.placements
+    k_cache, v_cache, c_pl, seq_dims, row_pl = _seq_sharded(k_cache, v_cache)
+    if split and not seq_dims:
+        raise RuntimeError(
+            f"the cross cache's {k_cache.shape[1]} rows do not divide the "
+            "cache_seq axes; the decode does not gather them")
+    q = sharding.constrain(q, "batch", None, None, None)
+    T = k_cache.shape[1]
+
+    def local(ql, kc, vc):
+        Tl = kc.shape[1]
+        t0 = sharding.mesh_coordinate(mesh, seq_dims) * Tl
+        tpos = t0 + torch.arange(Tl, device=kc.device)
+        return _combine(*_decode_partial(ql, kc, vc, tpos, T - 1, None),
+                        mesh, seq_dims).to(ql.dtype)
+
+    return sharding.island(local, mesh, (q, k_cache, v_cache),
+                           (row_pl, c_pl, c_pl), row_pl)

@@ -66,7 +66,7 @@ from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, paged_prefill_attention_ref)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
-    attention, direct_attention, mesh_decode_attention)
+    attention, direct_attention, mesh_cross_attention, mesh_decode_attention)
 from repro_torch.models.kv_quant import quantize_rows
 from repro_torch.models.layers import (
     apply_rope, dense, embed, gelu_mlp, layernorm, mrope_angles, rmsnorm,
@@ -992,14 +992,20 @@ def _cross_kv(enc_out, p, cfg: ArchConfig):
     return k, v
 
 
-def _cross_attend(h, p, cfg: ArchConfig, k, v, plain: bool = False):
+def _cross_attend(h, p, cfg: ArchConfig, k, v, plain: bool = False,
+                  attend=None):
     """Non-causal attention of the decoder rows over every row of k and v:
     no ``kv_len``, so a zero-padded cross cache takes part in the softmax
-    (the JAX function's behaviour, kept)."""
+    (the JAX function's behaviour, kept).  ``attend(q, k, v)`` replaces
+    ``attention`` (a decode step's island over a sequence-sharded cross
+    cache)."""
     hn = apply_norm(h, p["ln3"], cfg)
     q = split_heads(dense(hn, p["cross"]["wq"]), cfg.n_heads, cfg.head_dim)
-    out = attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk_q,
-                    chunk_kv=cfg.attn_chunk_kv, plain=plain)
+    if attend is not None:
+        out = attend(q, k, v)
+    else:
+        out = attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk_q,
+                        chunk_kv=cfg.attn_chunk_kv, plain=plain)
     # reduced over the model axis as the self-attention's output is: left
     # Partial, DTensor reduce-scatters it over the sequence at the next
     # norm, and a later matmul cannot take that strided split
@@ -1058,10 +1064,13 @@ def whisper_decode(params, cfg: ArchConfig, tokens, cache,
     """tokens (B, 1) int; cache from ``cache_decls`` with the prefill's
     parts copied in.  Self-attention over [start[b], pos] as in
     ``lm_decode`` (rows written in place); cross-attention over every row
-    of ``cross_k``/``cross_v``, padding included.  Returns (logits (B, V)
-    f32, cache) with "pos" advanced by one."""
+    of ``cross_k``/``cross_v``, padding included; under a mesh that
+    cache is sequence-sharded as the self cache, and each rank attends its
+    rows (``mesh_cross_attention``).  Returns (logits (B, V) f32, cache)
+    with "pos" advanced by one."""
     check_supported(cfg)
     pos = cache["pos"]
+    attend = mesh_cross_attention if is_dtensor(cache["cross_k"]) else None
     start = cache.get("start")
     B = tokens.shape[0]
     h = embed(tokens, params["embed"]).to(cfg.param_dtype)
@@ -1074,7 +1083,7 @@ def whisper_decode(params, cfg: ArchConfig, tokens, cache,
                                 cache["v"][li], pos, start, plain)
         h = h + out
         h = h + _cross_attend(h, p, cfg, cache["cross_k"][li],
-                              cache["cross_v"][li], plain)
+                              cache["cross_v"][li], plain, attend)
         h = h + ffn_apply(h, p, cfg)
     cache["pos"] = pos + 1
     return _logits_exact(params, cfg, h)[:, 0], cache
