@@ -1,0 +1,11 @@
+"""The p75 of the time from a request's submission to its first admission
+(nearest rank, as ``ttft_p75_ms``, which it splits): the port's
+``request.queued`` spans (not those of a resumed request) that ended in
+the traced span's ticks."""
+import common
+from work import program_spans as ps
+
+
+def read(rec):
+    t = [s.ms for s in ps.named("request.queued") if not s.attrs["resumed"]]
+    return common.quantile(t, 0.75) if t else None

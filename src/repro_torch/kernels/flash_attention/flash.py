@@ -23,7 +23,7 @@ backward is the chunked reference's backward (``models.flash.flash_bwd``,
 plain PyTorch, as the JAX wrapper differentiates the jnp reference) at
 the JAX wrapper's block sizes, on k and v repeated to H heads, with each
 group of H / KV heads' dk and dv summed back to its kv head (the
-transpose of ``repeat_kv``).
+transpose of ``repeat_kv``), one ``flash.backward`` span a call.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels.build import DTYPE_CODES, Kernel, on_cpu
 from repro_torch.kernels.decode_attention.decode import check_dense
 from repro_torch.kernels.decode_attention.prefill_paged import (
@@ -116,9 +117,11 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         B, S, H, D = q.shape
         T, KV = k.shape[1], k.shape[2]
-        dq, dk, dv = flash_bwd(q, repeat_kv(k, H), repeat_kv(v, H), out,
-                               lse, dout, ctx.causal,
-                               min(ctx.blocks[0], S), min(ctx.blocks[1], T))
+        with spans.span("flash.backward", S=S, T=T):
+            dq, dk, dv = flash_bwd(q, repeat_kv(k, H), repeat_kv(v, H), out,
+                                   lse, dout, ctx.causal,
+                                   min(ctx.blocks[0], S),
+                                   min(ctx.blocks[1], T))
         G = H // KV                              # repeat_kv's transpose
         dk = dk.reshape(B, T, KV, G, D).sum(3)
         dv = dv.reshape(B, T, KV, G, D).sum(3)

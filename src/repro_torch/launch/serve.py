@@ -408,11 +408,14 @@ def main() -> int:
               f"{engine.draft_dispatches} draft + "
               f"{engine.verify_dispatches} verify dispatches, "
               f"{engine.spec_trunc_tokens} rejected K/V rows truncated")
-    host = engine.host_ms_trace
+    host, waits = engine.host_ms_trace, engine.wait_ms_trace
     if host:
         print(f"[launch.serve] host: {len(host)} busy ticks, host ms per "
               f"tick median {np.median(host):.3f} p90 "
-              f"{np.percentile(host, 90):.3f} ({device}), "
+              f"{np.percentile(host, 90):.3f}, ms waiting for the device "
+              f"(uploads, reads back) per tick median "
+              f"{np.median(waits):.3f} p90 {np.percentile(waits, 90):.3f} "
+              f"({device}), "
               f"{np.mean(engine.dispatch_trace):.2f} device calls and "
               f"{np.mean(engine.upload_trace):.0f} upload bytes per tick")
     return 0

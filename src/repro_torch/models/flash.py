@@ -27,6 +27,8 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch import spans
+
 NEG_INF = -1e30
 
 
@@ -127,7 +129,8 @@ def flash_bwd(q, k, v, out, L, dout, causal: bool, cq: int, ck: int):
 
 class _FlashRef(torch.autograd.Function):
     """The chunked reference under its custom backward: saves (q, k, v,
-    out, L), nothing of a block's size."""
+    out, L), nothing of a block's size; the backward is one
+    ``flash.backward`` span."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, cq, ck):
@@ -139,8 +142,9 @@ class _FlashRef(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, L = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, L, dout, ctx.causal, ctx.cq,
-                               ctx.ck)
+        with spans.span("flash.backward", S=q.shape[1], T=k.shape[1]):
+            dq, dk, dv = flash_bwd(q, k, v, out, L, dout, ctx.causal,
+                                   ctx.cq, ctx.ck)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None)
 

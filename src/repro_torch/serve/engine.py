@@ -61,9 +61,16 @@ injects pool squeezes, forced evictions, dropped grants and poisoned
 tokens; an always-on guard quarantines a slot that samples a token outside
 the vocabulary.  int8 pools ride the tick with their scale pools.  Under
 ``trace_ticks`` each tick that runs device work records its host time
-(``host_ms_trace``: wall time less the waits for the device), its device
+(``host_ms_trace``: wall time less the waits for the device, which are
+its uploads and reads back; ``wait_ms_trace``: those waits), its device
 calls (``dispatch_trace``) and its upload bytes (``upload_trace``), and
 in speculative mode its draft and verify calls.
+
+While the span recorder is on (``repro_torch.spans``: a live
+``torch.profiler`` session, or ``spans.recording()``) a tick is an
+``engine.tick`` span with its phases and waits as children, and each
+request's way to its first token (``Request.t_*``, always kept) is
+recorded as ``request.queued`` and ``request.prefill`` spans.
 
 With ``snapshot_every_ticks > 0`` and a ``snapshot_dir`` the engine
 writes its whole state at the end of every n-th tick, idle ticks too
@@ -73,6 +80,7 @@ snapshot (``snapshot.restore_engine``) and serves on.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import time
@@ -81,6 +89,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.models.model import Model, sample_token
 from repro_torch.models.transformer import check_supported
 from repro_torch.serve.cache import PagedKVCache, digest_step
@@ -150,13 +159,19 @@ TERMINAL_STATUSES = frozenset({
 class Request:
     """One submitted request.  ``prompt`` never changes; ``emitted``
     gathers the output across preemptions (replayed as prompt on
-    re-admission); ``max_new_tokens`` is the total output budget."""
+    re-admission); ``max_new_tokens`` is the total output budget.  The
+    ``t_*`` fields are its lifecycle on this process's
+    ``time.perf_counter``, None until the event (and after a restore:
+    snapshots leave them out)."""
     rid: int
     prompt: np.ndarray                # (S,) int32
     max_new_tokens: int
     deadline_tick: int = -1           # absolute engine tick; -1 = none
     emitted: List[int] = dataclasses.field(default_factory=list)
     preempts: int = 0                 # times this request lost its slot
+    t_queued: Optional[float] = None  # when it last joined the queue
+    t_admit: Optional[float] = None   # its first admission
+    t_first: Optional[float] = None   # its first output token
 
 
 @dataclasses.dataclass
@@ -569,10 +584,12 @@ class PagedEngine:
         self.prefill_upload_bytes = 0
         self.upload_bytes = 0
         self.host_ms_trace: List[float] = []     # host work per busy tick
+        self.wait_ms_trace: List[float] = []     # its waits for the device
         self.dispatch_trace: List[int] = []      # device calls per busy tick
         self.upload_trace: List[int] = []        # bytes uploaded per tick
         self.snapshots_written = 0
         self._last_snapshot_tick = -1     # one snapshot per tick at most
+        self._wait_s = 0.0                # the tick's waits so far (s)
 
     # -- request lifecycle ----------------------------------------------
 
@@ -616,7 +633,8 @@ class PagedEngine:
         dl = self.cfg.deadline_ticks if deadline_ticks is None \
             else deadline_ticks
         req = Request(rid, prompt, mnt,
-                      deadline_tick=self.ticks + dl if dl > 0 else -1)
+                      deadline_tick=self.ticks + dl if dl > 0 else -1,
+                      t_queued=time.perf_counter())
         self._reqs[rid] = req
         self.status[rid] = RequestStatus.QUEUED
         self.queue.append(req)
@@ -767,6 +785,7 @@ class PagedEngine:
                 self._pindex.add(i, prompt[:n_shared])
             self._feed[i] = prompt[n_shared]
             self.status[req.rid] = RequestStatus.RUNNING
+            self._admitted(req)
             if req.preempts:               # shared tokens cost nothing
                 self.recompute_tokens += len(prompt) - n_shared
             self.joins += 1
@@ -794,6 +813,7 @@ class PagedEngine:
         req = self._reqs[slot.rid]
         req.emitted.extend(slot.out)
         req.preempts += 1
+        req.t_queued = time.perf_counter()
         self.status[req.rid] = RequestStatus.QUEUED
         self.queue.insert(0, req)
         self._release_slot(i)
@@ -848,6 +868,32 @@ class PagedEngine:
                                  if req.preempts else RequestStatus.FINISHED)
         self._release_slot(i)
 
+    # -- request spans ----------------------------------------------------
+
+    @staticmethod
+    def _lengths(req: Request) -> dict:
+        return {"rid": req.rid, "prompt": int(req.prompt.size),
+                "budget": req.max_new_tokens}
+
+    def _admitted(self, req: Request) -> None:
+        """A (re-)admission: ``request.queued`` from when the request last
+        joined the queue, ``resumed`` after a preemption."""
+        now = time.perf_counter()
+        resumed = req.t_admit is not None
+        if not resumed:
+            req.t_admit = now
+        if req.t_queued is not None:
+            spans.record("request.queued", req.t_queued, now,
+                         resumed=resumed, **self._lengths(req))
+
+    def _first_token(self, req: Request) -> None:
+        """The request's first output token: ``request.prefill`` from its
+        first admission."""
+        req.t_first = time.perf_counter()
+        if req.t_admit is not None:
+            spans.record("request.prefill", req.t_admit, req.t_first,
+                         **self._lengths(req))
+
     def defrag(self) -> None:
         """Compact the page pool (``PagedKVCache.defrag``); the next tick
         re-uploads every table row."""
@@ -864,9 +910,12 @@ class PagedEngine:
             return 0
         rows = sorted(kv.dirty)
         kv.dirty.clear()
-        idx = torch.tensor(rows, dtype=torch.long, device=self.device)
-        table_dev[idx] = torch.from_numpy(kv.table[rows]).to(self.device)
-        length_dev[idx] = torch.from_numpy(kv.length[rows]).to(self.device)
+        with self._wait("engine.upload"):
+            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+            table_dev[idx] = torch.from_numpy(kv.table[rows]).to(
+                self.device)
+            length_dev[idx] = torch.from_numpy(kv.length[rows]).to(
+                self.device)
         return len(rows) * (kv.max_blocks + 1) * 4
 
     # -- speculative decoding -------------------------------------------
@@ -907,13 +956,14 @@ class PagedEngine:
              one token behind feeds that history token and forces the
              target's feed token in as its step-0 output, so the deficit
              costs no extra call;
-          3. one ``.cpu()`` of the proposals: a wait for the device;
+          3. one ``.cpu()`` of the proposals: a wait for the device
+             (``engine.readback``);
           4. verify — one ragged prefill-lane call on the target over
              [feed, p_1 .. p_k] per slot, draft tokens clamped into the
              vocabulary.
 
-        Returns (greedy, accept, vgr, cache, upload bytes, draft calls,
-        wait seconds): ``greedy`` and ``accept`` on the device; ``vgr``
+        Returns (greedy, accept, vgr, cache, upload bytes, draft calls):
+        ``greedy`` and ``accept`` on the device; ``vgr``
         (B,) the target rows the verify appended, 1 + proposals, which is
         below the planned grant only where the draft pool capped the
         slot."""
@@ -950,10 +1000,12 @@ class PagedEngine:
             b = self._sync_dirty(dkv, self._dtable_dev, self._dlength_dev)
             upload += b + B * (Tc + 1) * 4
             draft_disp += bool(b) + 1
+            with self._wait("engine.upload"):
+                tok_c_dev = torch.from_numpy(tok_c).to(dev)
+                cg_dev = torch.from_numpy(cg).to(dev)
             _, c = self.draft_model.prefill_many_paged(
-                self.draft_params, torch.from_numpy(tok_c).to(dev),
-                self._draft_cache(), self._dgen,
-                torch.from_numpy(cg).to(dev), temperature=0.0)
+                self.draft_params, tok_c_dev, self._draft_cache(),
+                self._dgen, cg_dev, temperature=0.0)
             self._draft_writeback(c)
             dkv.length += cg
 
@@ -988,19 +1040,20 @@ class PagedEngine:
             # (forced_upload_bytes counts prompt traffic only)
             upload += b + 2 * B * 4 + chunk * B * (4 + 1)
             draft_disp += bool(b) + 1
+            with self._wait("engine.upload"):
+                feed_dev, dgr_dev, ftok_dev, fmask_dev = (
+                    torch.from_numpy(a).to(dev)
+                    for a in (feed_d, dgr, forced_tok, forced_mask))
             # steps past the largest grant would idle every slot
             toks_d, c = self.draft_model.decode_many_paged(
-                self.draft_params, torch.from_numpy(feed_d).to(dev)[:, None],
-                self._draft_cache(), self._dgen, torch.from_numpy(dgr).to(dev),
-                torch.from_numpy(forced_tok).to(dev),
-                torch.from_numpy(forced_mask).to(dev),
+                self.draft_params, feed_dev[:, None], self._draft_cache(),
+                self._dgen, dgr_dev, ftok_dev, fmask_dev,
                 num_steps=int(dgr.max()), temperature=0.0)
             self._draft_writeback(c)
             dkv.length += dgr
 
-        w0 = time.perf_counter()          # the device wait
-        toks_d_np = toks_d.cpu().numpy() if toks_d is not None else None
-        wait = time.perf_counter() - w0
+        with self._wait("engine.readback"):
+            toks_d_np = toks_d.cpu().numpy() if toks_d is not None else None
 
         # verify: one ragged prefill-lane call on the target
         vocab = self.model.cfg.vocab_size
@@ -1017,10 +1070,12 @@ class PagedEngine:
             vgr[i] = 1 + k
             self.spec_proposed += k
         upload += B * (chunk + 1) * 4
+        with self._wait("engine.upload"):
+            tok_v_dev = torch.from_numpy(tok_v).to(dev)
+            vgr_dev = torch.from_numpy(vgr).to(dev)
         greedy, accept, cache = self.model.verify_many_paged(
-            self.params, torch.from_numpy(tok_v).to(dev), cache,
-            torch.from_numpy(vgr).to(dev))
-        return greedy, accept, vgr, cache, upload, draft_disp, wait
+            self.params, tok_v_dev, cache, vgr_dev)
+        return greedy, accept, vgr, cache, upload, draft_disp
 
     def _spec_bookkeep(self, vgr, greedy_np, accept_np,
                        poisoned: Set[int]) -> None:
@@ -1065,10 +1120,27 @@ class PagedEngine:
         preemption until some slot can advance, then the dropped-grant
         fault), the dirty-row sync, at most one prefill chunk and one
         decode loop on the device, the output guard, the bookkeeping, and
-        quarantine of poisoned slots."""
+        quarantine of poisoned slots.  A tick that runs device work is an
+        ``engine.tick`` span of four phases, ``engine.plan``,
+        ``engine.prefill_lane``, ``engine.decode_loop`` and
+        ``engine.bookkeep``, whose uploads and reads back are its waits
+        for the device (``_wait``)."""
+        t0 = time.perf_counter()
+        self._wait_s = 0.0
+        with spans.span("engine.tick", tick=self.ticks + 1) as tick:
+            with spans.span("engine.plan"):
+                plan, dispatches, tick_upload = self._plan_tick()
+            if plan is None:
+                spans.discard(tick)
+            else:
+                self._run_tick(plan, dispatches, tick_upload, t0)
+        self._maybe_snapshot()
+
+    def _plan_tick(self):
+        """The tick's plan, device calls and upload bytes so far, after
+        the dirty-row sync; (None, 0, 0) for a tick with no work."""
         cfg = self.cfg
         T = self._chunk_tokens
-        t0 = time.perf_counter()
         self.ticks += 1
         self._apply_faults()
         self._expire_deadlines()
@@ -1118,21 +1190,26 @@ class PagedEngine:
                         f"{sum(s.active for s in self.slots)}, free="
                         f"{len(self.kv.free)}, seized="
                         f"{len(self.kv.seized)})")
-            self._maybe_snapshot()
-            return
+            return None, 0, 0
         self._idle = 0
-        B = len(self.slots)
-        steps, pgr = plan.steps, plan.prefill
         # device calls, counted as the JAX engine counts its cells: the COW
         # flushes, the row patch, the prefill chunk, the decode loop
         dispatches = self.kv.cow_dispatches - cow_disp0
-        tick_upload = 0
         row_bytes = self._sync_dirty(self.kv, self._table_dev,
                                      self._length_dev)
         if row_bytes:
             self.table_upload_bytes += row_bytes
-            tick_upload += row_bytes
             dispatches += 1
+        return plan, dispatches, row_bytes
+
+    def _run_tick(self, plan, dispatches: int, tick_upload: int,
+                  t0: float) -> None:
+        """The device work of a planned tick and its bookkeeping."""
+        cfg = self.cfg
+        T = self._chunk_tokens
+        B = len(self.slots)
+        steps, pgr = plan.steps, plan.prefill
+        dev = self.device
         cache = {"k": self.kv.k, "v": self.kv.v,
                  "table": self._table_dev, "length": self._length_dev}
         if self.kv.quantized:            # scale pools ride the cache
@@ -1141,28 +1218,30 @@ class PagedEngine:
 
         nxt = None
         if pgr.any():                     # prefill lane: one (B, T) chunk
-            tok_mat = np.full((B, T), cfg.pad_id, np.int32)
-            for i, slot in enumerate(self.slots):
-                g = int(pgr[i])
-                if g:
-                    tok_mat[i, 0] = self._feed[i]
-                    tok_mat[i, 1:g] = slot.forced[:g - 1]
-            pbytes = B * (T + 1) * 4          # token block + grant vector
-            self.prefill_upload_bytes += pbytes
-            tick_upload += pbytes
-            nxt, cache = self.model.prefill_many_paged(
-                self.params, torch.from_numpy(tok_mat).to(self.device),
-                cache, self.generator,
-                torch.from_numpy(pgr).to(self.device),
-                temperature=cfg.temperature)
-            dispatches += 1
+            with spans.span("engine.prefill_lane", tokens=int(pgr.sum())):
+                tok_mat = np.full((B, T), cfg.pad_id, np.int32)
+                for i, slot in enumerate(self.slots):
+                    g = int(pgr[i])
+                    if g:
+                        tok_mat[i, 0] = self._feed[i]
+                        tok_mat[i, 1:g] = slot.forced[:g - 1]
+                pbytes = B * (T + 1) * 4      # token block + grant vector
+                self.prefill_upload_bytes += pbytes
+                tick_upload += pbytes
+                with self._wait("engine.upload"):
+                    tok_dev = torch.from_numpy(tok_mat).to(dev)
+                    pgr_dev = torch.from_numpy(pgr).to(dev)
+                nxt, cache = self.model.prefill_many_paged(
+                    self.params, tok_dev, cache, self.generator, pgr_dev,
+                    temperature=cfg.temperature)
+                dispatches += 1
         toks = greedy = accept = None
         vgr = steps                       # target rows the decode appends
         d_disp = v_disp = 0
-        spec_wait = 0.0
         if steps.any() and self._spec:    # draft-propose, target-verify
-            (greedy, accept, vgr, cache, d_up, d_disp,
-             spec_wait) = self._spec_decode(steps, cache)
+            with spans.span("engine.decode_loop", num_steps=self._chunk):
+                (greedy, accept, vgr, cache, d_up,
+                 d_disp) = self._spec_decode(steps, cache)
             v_disp = 1
             tick_upload += d_up
             dispatches += d_disp + v_disp
@@ -1171,18 +1250,47 @@ class PagedEngine:
         elif steps.any():
             # decode loop over the grants; steps past the largest grant
             # would be idle for every slot, so the loop stops there
-            tick_upload += 2 * B * 4          # feed tokens + step grants
-            feed = torch.from_numpy(self._feed).to(self.device)[:, None]
-            forced = self._forced_arrays(steps)
-            if forced:
-                forced_bytes = self._chunk * B * (4 + 1)
-                self.forced_upload_bytes += forced_bytes
-                tick_upload += forced_bytes
-            toks, cache = self.model.decode_many_paged(
-                self.params, feed, cache, self.generator,
-                torch.from_numpy(steps).to(self.device), *forced,
-                num_steps=int(steps.max()), temperature=cfg.temperature)
+            num_steps = int(steps.max())
+            with spans.span("engine.decode_loop", num_steps=num_steps):
+                tick_upload += 2 * B * 4      # feed tokens + step grants
+                forced = self._forced_arrays(steps)
+                if forced:
+                    forced_bytes = self._chunk * B * (4 + 1)
+                    self.forced_upload_bytes += forced_bytes
+                    tick_upload += forced_bytes
+                with self._wait("engine.upload"):
+                    feed = torch.from_numpy(self._feed).to(dev)[:, None]
+                    steps_dev = torch.from_numpy(steps).to(dev)
+                    forced = tuple(torch.from_numpy(a).to(dev)
+                                   for a in forced)
+                toks, cache = self.model.decode_many_paged(
+                    self.params, feed, cache, self.generator, steps_dev,
+                    *forced, num_steps=num_steps,
+                    temperature=cfg.temperature)
             dispatches += 1
+        with spans.span("engine.bookkeep"):
+            self._bookkeep(steps, pgr, vgr, cache, toks, nxt, greedy,
+                           accept)
+        t3 = time.perf_counter()
+        if cfg.trace_ticks:
+            # the tick's host time: its wall time less its waits for the
+            # device, the uploads and reads back
+            self.host_ms_trace.append((t3 - t0 - self._wait_s) * 1e3)
+            self.wait_ms_trace.append(self._wait_s * 1e3)
+            self.dispatch_trace.append(dispatches)
+            self.upload_trace.append(tick_upload)
+            if self._spec:
+                self.draft_dispatch_trace.append(d_disp)
+                self.verify_dispatch_trace.append(v_disp)
+        self.upload_bytes += tick_upload
+
+    def _bookkeep(self, steps, pgr, vgr, cache, toks, nxt, greedy,
+                  accept) -> None:
+        """After the device calls: the pools and counters, the pool
+        statistics, the read back of the sampled tokens, the output guard,
+        the lane's and the decode loop's bookkeeping, and quarantine."""
+        cfg = self.cfg
+        B = len(self.slots)
         self.kv.k, self.kv.v = cache["k"], cache["v"]
         if self.kv.quantized:
             self.kv.k_scale = cache["k_scale"]
@@ -1195,13 +1303,12 @@ class PagedEngine:
             self.util_trace.append(self.kv.utilization())
             self.occupancy_trace.append(self.kv.occupancy())
 
-        t1 = time.perf_counter()
         # the device waits: the decode loop's tokens, the lane's sampled
         # token, the verify's argmaxes and accept lengths
-        toks_np, nxt_np, greedy_np, accept_np = (
-            t.cpu().numpy() if t is not None else None
-            for t in (toks, nxt, greedy, accept))
-        t2 = time.perf_counter()
+        with self._wait("engine.readback"):
+            toks_np, nxt_np, greedy_np, accept_np = (
+                t.cpu().numpy() if t is not None else None
+                for t in (toks, nxt, greedy, accept))
         # poison fault: the slot's sampled tokens this tick come back as
         # an out-of-vocabulary sentinel (a verified window entirely)
         if self._poison_slots:
@@ -1258,19 +1365,19 @@ class PagedEngine:
         for i in sorted(poisoned):
             if self.slots[i].active:
                 self._preempt(i, quarantine=True)
-        t3 = time.perf_counter()
-        if cfg.trace_ticks:
-            # the tick's host time: everything but the waits for the
-            # device (the mid-tick read of the proposals is one)
-            self.host_ms_trace.append(
-                ((t1 - t0 - spec_wait) + (t3 - t2)) * 1e3)
-            self.dispatch_trace.append(dispatches)
-            self.upload_trace.append(tick_upload)
-            if self._spec:
-                self.draft_dispatch_trace.append(d_disp)
-                self.verify_dispatch_trace.append(v_disp)
-        self.upload_bytes += tick_upload
-        self._maybe_snapshot()
+
+    @contextlib.contextmanager
+    def _wait(self, name: str):
+        """A wait for the device, ``engine.upload`` (a blocking copy from
+        pageable host memory) or ``engine.readback``: a span when the
+        recorder is on, and always two clock reads, whose interval adds
+        to the tick's waits, which ``host_ms_trace`` leaves out."""
+        t = time.perf_counter()
+        try:
+            with spans.span(name):
+                yield
+        finally:
+            self._wait_s += time.perf_counter() - t
 
     def _maybe_snapshot(self) -> None:
         """Write the whole state at the end of every
@@ -1293,7 +1400,7 @@ class PagedEngine:
     def _forced_arrays(self, steps) -> tuple:
         """Prefill-by-decode: the (chunk, B) forced tokens and mask that
         feed the granted slots' next prompt tokens through the decode
-        loop, on the device; () when no granted slot has prompt left (a
+        loop, on the host; () when no granted slot has prompt left (a
         pure-decode tick builds and uploads nothing)."""
         if not any(s.active and s.forced and steps[i]
                    for i, s in enumerate(self.slots)):
@@ -1305,8 +1412,7 @@ class PagedEngine:
             n = min(len(slot.forced), int(steps[i]))
             forced_tok[:n, i] = slot.forced[:n]
             forced_mask[:n, i] = True
-        return (torch.from_numpy(forced_tok).to(self.device),
-                torch.from_numpy(forced_mask).to(self.device))
+        return forced_tok, forced_mask
 
     def _decode_bookkeep(self, steps, toks_np, poisoned: Set[int]) -> None:
         """After the decode loop: the tokens fed this tick are its K/V
@@ -1336,6 +1442,10 @@ class PagedEngine:
         slot or feed its last token."""
         slot = self.slots[i]
         cfg = self.cfg
+        if not slot.out:
+            req = self._reqs[slot.rid]
+            if req.t_first is None and not req.emitted:
+                self._first_token(req)
         for tok in toks:
             slot.out.append(tok)
             self.tokens_out += 1

@@ -21,6 +21,7 @@ from typing import Callable, Dict
 
 import torch
 
+from repro_torch import spans
 from repro_torch.dist import sharding
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, tree_leaves, tree_map
@@ -32,9 +33,11 @@ def loss_and_grads(model: Model, params, batch: Dict[str, torch.Tensor]):
     parameter the loss does not reach)."""
     with torch.enable_grad():
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = model.loss(leaves, batch)
+        with spans.span("train.forward"):
+            loss = model.loss(leaves, batch)
         flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        with spans.span("train.backward"):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
     if sharding.is_dtensor(loss):
@@ -77,25 +80,33 @@ def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1,
     metrics).  ``microbatches > 1`` splits the batch on its batch axis and
     sums the microbatches' losses and gradients, the gradients in an
     ``accum_dtype`` accumulator, then divides both by their number.
-    metrics: {"grad_norm", "lr", "loss"}, 0-d tensors."""
+    metrics: {"grad_norm", "lr", "loss"}, 0-d tensors.  A step is a
+    ``train.step`` span: a ``train.microbatch`` (attribute ``i``) with
+    ``train.forward`` and ``train.backward`` inside for each microbatch,
+    then ``train.optimizer``."""
 
     def step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, grads = loss_and_grads(model, params, batch)
-        else:
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype),
-                             params)
-            for mb in split_batch(batch, microbatches):
-                l, g = loss_and_grads(model, params, mb)
-                loss = loss + l
-                tree_map(lambda a, b: a.add_(b.to(accum_dtype)), grads, g)
-                del g
-            loss = loss / microbatches
-            grads = tree_map(lambda g: g.div_(microbatches), grads)
-        new_params, new_opt, metrics = optimizer.update(grads, opt_state,
-                                                        params)
+        with spans.span("train.step", microbatches=microbatches):
+            if microbatches == 1:
+                with spans.span("train.microbatch", i=0):
+                    loss, grads = loss_and_grads(model, params, batch)
+            else:
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=tree_leaves(params)[0].device)
+                grads = tree_map(
+                    lambda p: torch.zeros_like(p, dtype=accum_dtype), params)
+                for i, mb in enumerate(split_batch(batch, microbatches)):
+                    with spans.span("train.microbatch", i=i):
+                        l, g = loss_and_grads(model, params, mb)
+                        loss = loss + l
+                        tree_map(lambda a, b: a.add_(b.to(accum_dtype)),
+                                 grads, g)
+                        del g
+                loss = loss / microbatches
+                grads = tree_map(lambda g: g.div_(microbatches), grads)
+            with spans.span("train.optimizer"):
+                new_params, new_opt, metrics = optimizer.update(
+                    grads, opt_state, params)
         return new_params, new_opt, dict(metrics, loss=loss)
 
     return step
